@@ -1,0 +1,80 @@
+"""Material dicts + .mtl IO (counterpart of
+nvdiffrecmc_tpu/render/material.py): 'bsdf' (str), 'kd'/'ks'/'normal'
+(Texture2D).  kd is stored sRGB and converted to linear on load; the ks
+occlusion (red) channel is zeroed when clear_ks."""
+
+import os
+import re
+
+import numpy as np
+import torch
+
+from . import texture
+
+
+def load_mtl(fn, clear_ks=True, device=None):
+    mtl_path = os.path.dirname(fn)
+    with open(fn, 'r') as f:
+        lines = f.readlines()
+
+    materials = []
+    mat = None
+    for line in lines:
+        split_line = re.split(r' +|\t+|\n+', line.strip())
+        if not split_line or split_line[0] == '':
+            continue
+        prefix = split_line[0].lower()
+        data = split_line[1:]
+        if 'newmtl' in prefix:
+            mat = {'name': data[0]}
+            materials.append(mat)
+        elif materials:
+            if ('bsdf' in prefix or 'map_kd' in prefix or 'map_ks' in prefix
+                    or 'bump' in prefix):
+                mat[prefix] = data[0]
+            else:
+                mat[prefix] = np.array([float(d) for d in data],
+                                       dtype=np.float32)
+
+    def const(v):
+        return texture.Texture2D(data=torch.as_tensor(
+            v, device=device)[None, None, None, :])
+
+    for mat in materials:
+        if 'bsdf' not in mat:
+            mat['bsdf'] = 'pbr'
+        if 'map_kd' in mat:
+            mat['kd'] = texture.load_texture2D(
+                os.path.join(mtl_path, mat['map_kd']), device=device)
+        else:
+            mat['kd'] = const(mat['kd'])
+        if 'map_ks' in mat:
+            mat['ks'] = texture.load_texture2D(
+                os.path.join(mtl_path, mat['map_ks']), channels=3,
+                device=device)
+        else:
+            mat['ks'] = const(mat['ks'])
+        if 'bump' in mat:
+            mat['normal'] = texture.load_texture2D(
+                os.path.join(mtl_path, mat['bump']),
+                lambda_fn=lambda x: x * 2 - 1, channels=3, device=device)
+
+        mat['kd'] = texture.srgb_to_rgb(mat['kd'])
+
+        if clear_ks:
+            mips = []
+            for m in mat['ks'].getMips():
+                m = m.clone()
+                m[..., 0] = 0.0
+                mips.append(m)
+            mat['ks'] = texture.Texture2D(
+                data=mips if isinstance(mat['ks'].data, list) else mips[0],
+                min_max=mat['ks'].min_max)
+    return materials
+
+
+def _find_mat(materials, name):
+    for mat in materials:
+        if mat['name'] == name:
+            return mat
+    return materials[0]  # default
