@@ -3,20 +3,32 @@
 
 Phases:
 1. require CUDA; print the card's name and power limit; TF32 off;
-2. build the four CUDA kernels from csrc/ and print the build time;
-3. render one frame of the slice, recording each kernel's inputs, and hold
-   every kernel against its plain PyTorch version on those inputs (error,
-   share of mismatches, time of both);
+2. build the CUDA kernels from csrc/ and print the build time;
+3. render one frame of the slice, recording each forward kernel's inputs,
+   and hold every forward kernel against its plain PyTorch version on
+   those inputs (error, share of mismatches, time of both);
 4. reset the launch counters, render 4 frames of the slice (textured spot
    mesh, 26,474 triangles, 512x512, n_samples 4, one layer, spp 1,
    bilateral denoiser sigma 2.0, white background, cameras as
-   DatasetMesh._random_scene), check the buffers and that every kernel ran
-   once per frame, print the median ms per frame;
+   DatasetMesh._random_scene), check the buffers and that every forward
+   kernel ran once per frame and no backward kernel ran, print the median
+   ms per frame;
 5. render a 64x64 frame with the kernels and with the plain versions on the
    CPU from the same uniforms and compare the shaded images;
-6. with --profile only: torch.profiler over 4 more frames; prints device
-   time per frame by kernel, launches and host gaps, and writes the full
-   table to chiprun_out/profile_port.txt.
+6. the pass-2 training step: DLMesh on the spot mesh, initial_guess_material
+   at 1024x1024 textures, create_trainable_env_rnd(256, 0.0, 0.5), targets
+   from DatasetMesh (spot256 under probe.hdr) over random backgrounds,
+   logl1, three Adam groups.  One recorded step holds each backward kernel
+   against its plain version; then 8 steps with a sync each (loss and the
+   gradients of all three groups finite and nonzero, every kernel launched
+   as many times per step as the path needs), median ms per step and
+   iterations per second; then one 64x64 step on the card against the same
+   step on the CPU with the plain versions;
+7. with --profile only: torch.profiler over 4 more frames and over 4 more
+   training steps; prints device time by kernel, launches and host gaps,
+   and writes the full tables to chiprun_out/profile_port.txt and
+   chiprun_out/profile_train.txt; then a kernel-only trace of 4 more of
+   each gives the device's idle share within one run.
 
 Any failure raises and exits non-zero before the last line.  The last
 three lines are the kernels JSON, the card line, and
@@ -38,6 +50,13 @@ N_SAMPLES = 4
 FRAMES = 4
 SIGMA = 2.0
 CAM_RADIUS = 3.0
+TRAIN_STEPS = 8
+TEX_RES = 1024
+# launches of each kernel per training step: the forward, the sampling
+# replayed in the backward, one launch of each backward kernel, and one
+# row scatter per rows_gather (at least one)
+STEP_LAUNCHES = {'resolve': 1, 'sample': 2, 'trace_shade': 1, 'denoise': 1,
+                 'denoise_grad': 1, 'shade_bwd': 1, 'light_scatter': 1}
 
 
 def smi_line():
@@ -126,21 +145,21 @@ def small_agreement(device):
     return share, float(diff.max())
 
 
-def profile_frames(ds, geometry, material, FLAGS, device, out_path):
-    """torch.profiler over FRAMES frames: wall and device ms per frame, the
-    device time of each kernel, kernel launches per frame."""
+def profile_run(run, label, device, out_path):
+    """torch.profiler over run(i) for i < FRAMES after one warm-up call:
+    wall and device ms per call, the device time of each kernel, kernel
+    launches per call."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    with torch.no_grad():
-        render_frame(ds, geometry, material, FLAGS, 100, device)   # warm-up
+    run(100)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for it in range(FRAMES):
+            run(101 + it)
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            for it in range(FRAMES):
-                render_frame(ds, geometry, material, FLAGS, 101 + it, device)
-            torch.cuda.synchronize()
-            wall = (time.perf_counter() - t0) * 1e3 / FRAMES
+        wall = (time.perf_counter() - t0) * 1e3 / FRAMES
     averages = prof.key_averages()
     # self_device_time_total is self_cuda_time_total in older PyTorch
     key = 'self_device_time_total'
@@ -150,26 +169,237 @@ def profile_frames(ds, geometry, material, FLAGS, device, out_path):
             for evt in averages
             if evt.device_type == torch.autograd.DeviceType.CUDA]
     rows.sort(reverse=True)
-    device = sum(r[0] for r in rows)
-    if device <= 0.0:
+    busy = sum(r[0] for r in rows)
+    if busy <= 0.0:
         raise RuntimeError('the profiler saw no device time')
     os.makedirs(os.path.dirname(out_path), exist_ok=True)
     with open(out_path, 'w') as f:
         f.write(averages.table(sort_by=key, row_limit=60))
-    print('profile: %.2f ms wall per frame, %.2f ms device (%.1f%% busy), '
-          '%.2f ms host gaps, %d kernel launches per frame'
-          % (wall, device, 100.0 * device / wall, wall - device,
+    print('profile %s: %.2f ms wall per call, %.2f ms device (%.1f%% busy), '
+          '%.2f ms host gaps, %d kernel launches per call'
+          % (label, wall, busy, 100.0 * busy / wall, wall - busy,
              round(sum(r[1] for r in rows))), flush=True)
-    for ms, count, key in rows[:8]:
-        print('profile: %8.3f ms per frame  %6.1f launches  %s'
-              % (ms, count, key[:80]), flush=True)
-    print('profile: full table in %s' % out_path, flush=True)
+    for ms, count, name in rows[:10]:
+        print('profile %s: %8.3f ms per call  %6.1f launches  %s'
+              % (label, ms, count, name[:80]), flush=True)
+    print('profile %s: full table in %s' % (label, out_path), flush=True)
+    # the idle share from one run: a kernel-only trace, whose host cost is
+    # a small part of the operator trace's, timed by its own wall clock
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for it in range(FRAMES):
+            run(201 + it)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / FRAMES
+    busy = sum(getattr(evt, key) for evt in prof.key_averages()
+               if evt.device_type == torch.autograd.DeviceType.CUDA)
+    busy = busy / 1e3 / FRAMES
+    if busy <= 0.0:
+        raise RuntimeError('the kernel-only trace saw no device time')
+    print('profile %s (kernel-only trace): %.2f ms wall per call, %.2f ms '
+          'device, %.2f ms idle (%.1f%%)'
+          % (label, wall, busy, wall - busy, 100.0 * (wall - busy) / wall),
+          flush=True)
+
+
+# ---------------------------------------------------------------------------
+# The training step
+# ---------------------------------------------------------------------------
+
+def train_setup(device, res, n_samples, tex_res, kd_noise=None):
+    """The pass-2 step's state on device: flags, the spot dataset, DLMesh,
+    the trainable material and light, their optimizers.  kd_noise: a
+    [1, tex_res, tex_res, 3] array subtracted from the constant initial kd."""
+    import torch
+    from nvdiffrecmc_tpu_torch import config, train
+    from nvdiffrecmc_tpu_torch.dataset.dataset_mesh import (
+        SPOT256_PROBE, DatasetMesh, spot256_scene)
+    from nvdiffrecmc_tpu_torch.geometry import DLMesh
+    from nvdiffrecmc_tpu_torch.render import light as light_mod
+    FLAGS = config.make_flags(train_res=[res, res], n_samples=n_samples,
+                              texture_res=[tex_res, tex_res],
+                              envlight=SPOT256_PROBE)
+    ds = DatasetMesh(spot256_scene(device), CAM_RADIUS, FLAGS, seed=5)
+    geometry = DLMesh(ds.ref_mesh, FLAGS)
+    mat_params, mat_static = train.initial_guess_material(
+        geometry, False, FLAGS, device=device)
+    if kd_noise is not None:
+        mat_params['kd'] = mat_params['kd'] - torch.as_tensor(
+            kd_noise, device=device)
+    light = light_mod.create_trainable_env_rnd(FLAGS['probe_res'], 0.0, 0.5,
+                                               device=device)
+    params = train.make_params(geometry, mat_params, light)
+    return dict(FLAGS=FLAGS, ds=ds, geometry=geometry, params=params,
+                static=mat_static, opts=train.make_optimizers(params, FLAGS),
+                loss_fn=train.createLoss(FLAGS))
+
+
+def groups(params):
+    return {'geo': list(params['geo'].values()),
+            'mat': list(params['mat'].values()), 'light': [params['light']]}
+
+
+def check_step(params, img_loss, reg_loss):
+    """The loss is finite and every group has a finite, nonzero gradient."""
+    import torch
+    if not (bool(torch.isfinite(img_loss)) and bool(torch.isfinite(reg_loss))):
+        raise RuntimeError('loss not finite: %s %s' % (img_loss, reg_loss))
+    for name, ps in groups(params).items():
+        gs = [p.grad for p in ps]
+        if any(g is None or not bool(torch.isfinite(g).all()) for g in gs):
+            raise RuntimeError('gradient of %s missing or not finite' % name)
+        if not any(bool(g.abs().max() > 0) for g in gs):
+            raise RuntimeError('gradient of %s is zero' % name)
+
+
+def make_targets(st, n, seed):
+    """n prepared targets: DatasetMesh ground truth over random
+    backgrounds."""
+    import torch
+    from nvdiffrecmc_tpu_torch import train
+    gen = torch.Generator(device=st['ds'].device)
+    gen.manual_seed(seed)
+    return [train.prepare_batch(st['ds'][i], st['FLAGS']['train_res'],
+                                'random', gen, st['FLAGS'])
+            for i in range(n)]
+
+
+def train_phase(device, results):
+    """Phase 6: recorded step and kernel checks, then TRAIN_STEPS timed
+    steps of the 512x512 pass-2 step.  Returns the launch counts."""
+    import torch
+    from nvdiffrecmc_tpu_torch import checks, kernels, train
+    t0 = time.perf_counter()
+    st = train_setup(device, RES, N_SAMPLES, TEX_RES)
+    targets = make_targets(st, TRAIN_STEPS + 1, 17)
+    torch.cuda.synchronize()
+    p = st['params']
+    print('train: %d tris, kd/ks/normal %s, light %s, %d targets, %.1f s'
+          % (st['geometry'].base_mesh.t_pos_idx.shape[0],
+             tuple(p['mat']['kd'].shape), tuple(p['light'].shape),
+             len(targets), time.perf_counter() - t0), flush=True)
+
+    def step(i, target):
+        return train.train_step(st['geometry'], p, st['opts'], st['static'],
+                                target, i, st['FLAGS'], st['loss_fn'],
+                                st['ds'].perms, None)
+
+    with checks.Recorder() as rec:
+        il, rl = step(0, targets[0])
+        torch.cuda.synchronize()
+    check_step(p, il, rl)
+    for name in checks.BACKWARD:
+        r = checks.run(name, rec.args)
+        results[name] = r
+        print_compare(r)
+    del rec
+    bad = [n for n in checks.BACKWARD if not results[n]['ok']]
+    if bad:
+        raise RuntimeError('kernels disagree with their plain versions: %s'
+                           % bad)
+
+    times = []
+    kernels.reset_launches()
+    for i in range(1, TRAIN_STEPS + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        il, rl = step(i, targets[i])
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        check_step(p, il, rl)
+        print('step %d: %.2f ms, img_loss %.5f, reg_loss %.5f'
+              % (i, times[-1], float(il), float(rl)), flush=True)
+    launches = dict(kernels.LAUNCHES)
+    print('launches (%d steps): %s' % (TRAIN_STEPS, launches), flush=True)
+    for name, per in STEP_LAUNCHES.items():
+        if launches[name] != per * TRAIN_STEPS:
+            raise RuntimeError('kernel %s launched %d times in %d steps'
+                               % (name, launches[name], TRAIN_STEPS))
+    if launches['scatter'] < TRAIN_STEPS:
+        raise RuntimeError('the row scatter launched %d times in %d steps'
+                           % (launches['scatter'], TRAIN_STEPS))
+    med = statistics.median(times)
+    print('median ms per step: %.3f, iters/s %.3f (512x512, n_samples 4, '
+          '1024^2 textures, spot 26474 tris)' % (med, 1e3 / med),
+          flush=True)
+    return launches, st, targets
+
+
+def _cos_close(g, w):
+    g, w = g.reshape(-1).double(), w.reshape(-1).double()
+    cos = float((g * w).sum() / (g.norm() * w.norm()))
+    close = float(((g - w).abs() <= 1e-3 * w.abs().max()).double().mean())
+    return cos, close
+
+
+def small_step_agreement(device):
+    """One 64x64 step (n_samples 2, 256^2 textures) on the card and the same
+    step on the CPU with the plain versions, from one target, one set of
+    uniforms and jitter offsets: losses within 1e-4 relative; gradients of
+    v_pos, kd, ks, normal and light with cosine >= 0.999 and >= 99% of the
+    entries within 1e-3 max|g|.  kd gets seeded noise so that the
+    smoothness term's |kd_jitter - kd| is off its kink."""
+    import numpy as np
+    import torch
+    from nvdiffrecmc_tpu_torch import train
+    from nvdiffrecmc_tpu_torch.ops import pallas_shade
+    res, n, tex = 64, 2, 256
+    noise = np.random.RandomState(4).uniform(
+        0.0, 0.3, (1, tex, tex, 3)).astype(np.float32)
+    gen = torch.Generator()
+    gen.manual_seed(7)
+    uniforms = pallas_shade.make_uniforms(gen, n * n, res * res, n)
+    offsets = torch.randn((1, res, res, 2), generator=gen) * 0.005
+    target = None
+    out = {}
+    for dev in ('cpu', device):
+        st = train_setup(dev, res, n, tex, kd_noise=noise)
+        if target is None:
+            target = make_targets(st, 1, 3)[0]
+        tgt = {k: (v.to(dev) if torch.is_tensor(v) else v)
+               for k, v in target.items()}
+        il, rl = train.compute_grads(
+            st['geometry'], st['params'], st['static'], tgt, 0, st['FLAGS'],
+            st['loss_fn'], st['ds'].perms, None,
+            uniforms=[uniforms.to(dev)], offsets=[offsets.to(dev)])
+        p = st['params']
+        out[dev] = (float(il), float(rl),
+                    {'v_pos': p['geo']['v_pos'].grad.cpu(),
+                     'kd': p['mat']['kd'].grad.cpu(),
+                     'ks': p['mat']['ks'].grad.cpu(),
+                     'normal': p['mat']['normal'].grad.cpu(),
+                     'light': p['light'].grad.cpu()})
+    (ilc, rlc, gc), (ild, rld, gd) = out['cpu'], out[device]
+    report = {'img_loss': (ild, ilc), 'reg_loss': (rld, rlc)}
+    for a, b in report.values():
+        if abs(a - b) > 1e-4 * abs(b):
+            raise RuntimeError('64x64 step: losses %s' % report)
+    for k in gc:
+        cos, close = _cos_close(gd[k], gc[k])
+        report[k] = (cos, close)
+        if cos < 0.999 or close < 0.99:
+            raise RuntimeError('64x64 step: gradient of %s: cosine %.6f, '
+                               'share within 1e-3 max|g| %.4f'
+                               % (k, cos, close))
+    return report
+
+
+def print_compare(r):
+    print('compare %-13s mismatch share %.2e max_abs_err %.3e ok %s'
+          '  kernel %.3f ms  plain %.3f ms%s%s'
+          % (r['name'], 1.0 - r['agree'], r['max_abs_err'], r['ok'],
+             r['ms'], r['plain_ms'],
+             ('  err/bound %.3f' % r['err_over_bound'])
+             if 'err_over_bound' in r else '',
+             ('  (compared on %s)' % r['compared_on'])
+             if 'compared_on' in r else ''), flush=True)
 
 
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument('--profile', action='store_true',
-                        help='also profile 4 frames with torch.profiler')
+                        help='also profile 4 frames and 4 training steps '
+                             'with torch.profiler')
     args = parser.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -219,17 +449,10 @@ def main():
         torch.cuda.synchronize()
     results = {}
     with torch.no_grad():
-        for name in checks.CHECKS:
+        for name in checks.FORWARD:
             r = checks.run(name, rec.args)
             results[name] = r
-            print('compare %-11s mismatch share %.2e max_abs_err %.3e ok %s'
-                  '  kernel %.3f ms  plain %.3f ms%s%s'
-                  % (name, 1.0 - r['agree'], r['max_abs_err'], r['ok'],
-                     r['ms'], r['plain_ms'],
-                     ('  err/bound %.3f' % r['err_over_bound'])
-                     if 'err_over_bound' in r else '',
-                     ('  (compared on %s)' % r['compared_on'])
-                     if 'compared_on' in r else ''), flush=True)
+            print_compare(r)
         # the depth-peel rule: a second layer behind the first one
         from nvdiffrecmc_tpu_torch.ops import pallas_raster
         coef, bbox, H, W, pz, pid = rec.args['resolve']
@@ -264,7 +487,8 @@ def main():
     launches = dict(kernels.LAUNCHES)
     print('launches:', launches, flush=True)
     for name, count in launches.items():
-        if count != FRAMES:
+        want = FRAMES if name in checks.FORWARD else 0
+        if count != want:
             raise RuntimeError('kernel %s launched %d times in %d frames'
                                % (name, count, FRAMES))
     print('median ms per frame: %.3f (512x512, n_samples 4, spot 26474 '
@@ -275,17 +499,42 @@ def main():
     print('64x64 render vs plain CPU render: %.4f of pixels within 1e-3 '
           '(max %.3e)' % (share, worst), flush=True)
 
-    # 6. optional profile
+    # 6. the training step
+    step_launches, st, targets = train_phase(device, results)
+    report = small_step_agreement(device)
+    print('64x64 step vs plain CPU step: losses (card, cpu) %s %s; '
+          'gradients (cosine, share within 1e-3 max|g|) %s'
+          % (report['img_loss'], report['reg_loss'],
+             {k: v for k, v in report.items() if 'loss' not in k}),
+          flush=True)
+
+    # 7. optional profile
     if args.profile:
-        profile_frames(ds, geometry, mesh.material, FLAGS, device,
-                       os.path.join(here, 'chiprun_out', 'profile_port.txt'))
+        def frame(it):
+            with torch.no_grad():
+                render_frame(ds, geometry, mesh.material, FLAGS, it, device)
+
+        def train_step(it):
+            from nvdiffrecmc_tpu_torch import train
+            train.train_step(st['geometry'], st['params'], st['opts'],
+                             st['static'], targets[it % len(targets)], it,
+                             st['FLAGS'], st['loss_fn'], st['ds'].perms, None)
+        out_dir = os.path.join(here, 'chiprun_out')
+        profile_run(frame, 'frame', device,
+                    os.path.join(out_dir, 'profile_port.txt'))
+        profile_run(train_step, 'train step', device,
+                    os.path.join(out_dir, 'profile_train.txt'))
 
     rows = []
     for name, r in results.items():
         src, rep = checks.SOURCES[name]
+        path = launches if name in checks.FORWARD else step_launches
         row = dict(name=name, route='cuda', source=src, replaces=rep,
-                   launches=launches[name], max_abs_err=r['max_abs_err'],
+                   launches=path[name], max_abs_err=r['max_abs_err'],
                    ms=r['ms'], plain_ms=r['plain_ms'], agree=r['agree'])
+        if name in checks.FORWARD:
+            row['launches_in_%d_train_steps' % TRAIN_STEPS] = \
+                step_launches[name]
         if 'compared_on' in r:
             row['compared_on'] = r['compared_on']
         rows.append(row)

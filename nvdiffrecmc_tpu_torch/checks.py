@@ -17,11 +17,29 @@ Tolerances, with their reasons:
   1e-4 + 1e-4 |x| on pixels whose rays all agree.  The plain tracer runs
   on an evenly spaced subset of the covered pixels, against the full mesh.
 - denoise: within 1e-4 |x| + 1e-6 (exp and pow of two libraries, summed
-  over 529 taps)."""
+  over 529 taps).
+- denoise_grad: each entry is a sum of n = 529 taps whose weights both
+  versions compute in float32 (exp and pow of two libraries) and add in
+  another order: within (1e-5 + n 2^-24) times the sum of the absolute
+  values of its terms, the rounding bound of a float32 sum in any order,
+  widened by 1e-5 for the weights.
+- scatter, light_scatter: the kernel adds the same float32 terms as the
+  plain version in the order its atomics land, so each entry is held to
+  the float64 sum of its n terms within (1e-6 + 4 sqrt(n) 2^-24) times
+  the sum of their absolute values: a float32 sum in a random order errs
+  by ~sqrt(n/3) 2^-24 of that at most in the mean, and a lost or doubled
+  term moves the entry by the term itself.
+- shade_bwd, on an evenly spaced subset of the covered pixels (the plain
+  version is autograd over every stratum): >= 99.9% of the entries within
+  1e-4 |x| + 1e-6 max|x| of their row, every entry within 2e-2 |x| +
+  1e-4 max|x|.  The wide bound is the GGX D term at roughness 0.08
+  (alpha^2 = 4.1e-5), whose denominator 1 - c^2 (1 - alpha^2) cancels to
+  that size; the CPU tests measured ~1% between the JAX package and the
+  port there."""
 
 import torch
 
-from .ops import pallas_denoise, pallas_raster, pallas_shade
+from .ops import pallas_denoise, pallas_raster, pallas_scatter, pallas_shade
 
 MIN_AGREE = 0.999
 TRACE_SUBSET = 8192   # covered pixels the plain tracer is held to
@@ -51,7 +69,7 @@ def check_resolve(coef, bbox, H, W, prev_z, prev_id, reps=20):
     zp, tidp = pallas_raster.resolve_batch_plain(coef, H, W, prev_z, prev_id)
     agree = tid == tidp
     err = float((z - zp).abs()[agree].max()) if bool(agree.any()) else 0.0
-    share = float(agree.float().mean())
+    share = float(agree.double().mean())
     return dict(
         name='resolve', agree=share, max_abs_err=err,
         ok=share >= MIN_AGREE and err <= 1e-6,
@@ -72,7 +90,7 @@ def check_sample(u8, gb8, rows, cols, pdf_tex, base, n_samples_x, mask=None,
     tex = pallas_shade.S_LTEX
     same_tex = (got[:, tex:tex + 2] == want[:, tex:tex + 2]).all(1)
     agree = same_tex & _close(got, want, 1e-4, 1e-4).all(1)    # [n2, P]
-    share = float(agree.float().mean())
+    share = float(agree.double().mean())
     err = (got - want).abs().permute(0, 2, 1)[same_tex]         # [n, 16]
     ratio = err / (1e-3 + 1e-3 * want.abs().permute(0, 2, 1)[same_tex])
     bound = float(ratio.max()) if ratio.numel() else 0.0
@@ -100,7 +118,7 @@ def check_trace_shade(samp, gb, bvh, BSDF=0, tmin=0.0, reps=5):
     vk = torch.stack([visw[:, idx], visw[:, P + idx]], 1)      # [n2, 2, n]
     vp = torch.stack([visw_p[:, :n], visw_p[:, n:]], 1)
     bits = vk == vp
-    share = float(bits.float().mean())
+    share = float(bits.double().mean())
     pix_ok = bits.all(0).all(0)                                 # [n]
     ok_out = out[:, idx][:, pix_ok]
     ok_plain = out_p[:, pix_ok]
@@ -122,7 +140,7 @@ def check_denoise(col6, nrm, zdz, sigma, reps=20):
     err = float((got - want).abs().max())
     close = _close(got, want, 1e-6, 1e-4)
     return dict(
-        name='denoise', agree=float(close.float().mean()), max_abs_err=err,
+        name='denoise', agree=float(close.double().mean()), max_abs_err=err,
         ok=bool(close.all()),
         ms=time_ms(lambda: pallas_denoise._denoise_cuda(col6, nrm, zdz,
                                                         sigma), reps),
@@ -130,8 +148,109 @@ def check_denoise(col6, nrm, zdz, sigma, reps=20):
             col6, nrm, zdz, sigma), 2))
 
 
+def _sum_bound(got, want, abs_sum, rel):
+    """Share of entries within, and the worst ratio to, the bound
+    rel sum|terms| (an entry with no terms must be 0)."""
+    ratio = (got.double() - want.double()).abs() / (
+        rel * abs_sum.double() + 1e-300)
+    return float((ratio <= 1.0).double().mean()), float(ratio.max())
+
+
+def _sqrt_n_bound(count):
+    return 1e-6 + 4.0 * count.double().sqrt() * 2.0 ** -24
+
+
+def check_denoise_grad(g6, nrm, zdz, sigma, reps=20):
+    got = pallas_denoise._denoise_grad_cuda(g6, nrm, zdz, sigma)[..., :6]
+    want = pallas_denoise.denoise_pair_plain(g6, nrm, zdz, sigma, True)
+    abs_sum = pallas_denoise.denoise_pair_plain(g6.abs(), nrm, zdz, sigma,
+                                                True)[..., :6]
+    share, worst = _sum_bound(got, want[..., :6], abs_sum,
+                              1e-5 + 529 * 2.0 ** -24)
+    return dict(
+        name='denoise_grad', agree=share, err_over_bound=worst,
+        max_abs_err=float((got - want[..., :6]).abs().max()),
+        ok=worst <= 1.0,
+        ms=time_ms(lambda: pallas_denoise._denoise_grad_cuda(
+            g6, nrm, zdz, sigma), reps),
+        plain_ms=time_ms(lambda: pallas_denoise.denoise_pair_plain(
+            g6, nrm, zdz, sigma, True), 2))
+
+
+def check_scatter(idx, vals, out_rows, reps=20):
+    got = pallas_scatter._scatter_cuda(idx, vals, out_rows)
+    exact = vals.double()
+    want = pallas_scatter.scatter_add_plain(idx, exact, out_rows)
+    abs_sum = pallas_scatter.scatter_add_plain(idx, exact.abs(), out_rows)
+    count = pallas_scatter.scatter_add_plain(
+        idx, torch.ones_like(exact[:, :1]), out_rows)
+    share, worst = _sum_bound(got, want, abs_sum, _sqrt_n_bound(count))
+    return dict(
+        name='scatter', agree=share, err_over_bound=worst,
+        max_abs_err=float((got - want).abs().max()), ok=worst <= 1.0,
+        compared_on='%d rows x %d channels into %d' % (
+            vals.shape[0], vals.shape[1], out_rows),
+        ms=time_ms(lambda: pallas_scatter._scatter_cuda(idx, vals, out_rows),
+                   reps),
+        plain_ms=time_ms(lambda: pallas_scatter.scatter_add_plain(
+            idx, vals, out_rows), reps))
+
+
+def check_light_scatter(drad, Hl, Wl, reps=20):
+    got = pallas_shade._light_scatter_cuda(drad, Hl, Wl)
+    exact = drad.double()
+    want = pallas_shade.light_scatter_plain(exact, Hl, Wl)
+    absd = torch.cat([exact[:, 0:6].abs(), exact[:, 6:8]], 1)
+    ones = torch.cat([torch.ones_like(exact[:, 0:6]), exact[:, 6:8]], 1)
+    share, worst = _sum_bound(
+        got, want, pallas_shade.light_scatter_plain(absd, Hl, Wl),
+        _sqrt_n_bound(pallas_shade.light_scatter_plain(ones, Hl, Wl)))
+    return dict(
+        name='light_scatter', agree=share, err_over_bound=worst,
+        max_abs_err=float((got - want).abs().max()), ok=worst <= 1.0,
+        ms=time_ms(lambda: pallas_shade._light_scatter_cuda(drad, Hl, Wl),
+                   reps),
+        plain_ms=time_ms(lambda: pallas_shade.light_scatter_plain(
+            drad, Hl, Wl), reps))
+
+
+def check_shade_bwd(samp, gb, vw, g6, BSDF=0, reps=10):
+    n2, _, P = samp.shape
+    dgb, drad = pallas_shade._shade_bwd_cuda(samp, gb, vw, g6, BSDF)
+    covered = torch.nonzero(gb[pallas_shade.GB_MASK] > 0)[:, 0]
+    stride = max(1, covered.numel() // TRACE_SUBSET)
+    idx = covered[::stride][:TRACE_SUBSET]
+    sub = (samp[:, :, idx].contiguous(), gb[:, idx].contiguous(),
+           torch.cat([vw[:, idx], vw[:, P + idx]], 1).contiguous(),
+           g6[:, idx].contiguous())
+    with torch.enable_grad():
+        dgb_p, drad_p = pallas_shade.shade_bwd_plain(*sub, BSDF)
+    got = torch.cat([dgb[:, idx], drad[:, 0:6, idx].reshape(-1, idx.numel())])
+    want = torch.cat([dgb_p, drad_p[:, 0:6].reshape(-1, idx.numel())])
+    err = (got - want).abs()
+    row_max = want.abs().amax(1, keepdim=True)
+    close = err <= 1e-4 * want.abs() + 1e-6 * row_max
+    bound = float((err / (2e-2 * want.abs() + 1e-4 * row_max + 1e-30))
+                  .max())
+    ids_same = bool(torch.equal(drad[:, 6:8, idx], drad_p[:, 6:8]))
+    share = float(close.double().mean())
+    return dict(
+        name='shade_bwd', agree=share, max_abs_err=float(err.max()),
+        err_over_bound=bound,
+        ok=share >= MIN_AGREE and bound <= 1.0 and ids_same,
+        compared_on='%d of %d pixels' % (idx.numel(), P),
+        ms=time_ms(lambda: pallas_shade._shade_bwd_cuda(samp, gb, vw, g6,
+                                                        BSDF), reps),
+        plain_ms=time_ms(lambda: pallas_shade.shade_bwd_plain(*sub, BSDF),
+                         1, warmup=0))
+
+
 CHECKS = {'resolve': check_resolve, 'sample': check_sample,
-          'trace_shade': check_trace_shade, 'denoise': check_denoise}
+          'trace_shade': check_trace_shade, 'denoise': check_denoise,
+          'denoise_grad': check_denoise_grad, 'shade_bwd': check_shade_bwd,
+          'light_scatter': check_light_scatter, 'scatter': check_scatter}
+FORWARD = ('resolve', 'sample', 'trace_shade', 'denoise')
+BACKWARD = ('denoise_grad', 'shade_bwd', 'light_scatter', 'scatter')
 
 
 def run(name, recorded, **kw):
@@ -151,18 +270,31 @@ SOURCES = {
                     'nvdiffrecmc_tpu/ops/pallas_shade.py:568'),
     'denoise': ('nvdiffrecmc_tpu_torch/csrc/denoise.cu',
                 'nvdiffrecmc_tpu/ops/pallas_denoise.py:47'),
+    'denoise_grad': ('nvdiffrecmc_tpu_torch/csrc/denoise.cu',
+                     'nvdiffrecmc_tpu/ops/pallas_denoise.py:47'),
+    'shade_bwd': ('nvdiffrecmc_tpu_torch/csrc/shade_bwd.cu',
+                  'nvdiffrecmc_tpu/ops/pallas_shade.py:723'),
+    'light_scatter': ('nvdiffrecmc_tpu_torch/csrc/light_scatter.cu',
+                      'nvdiffrecmc_tpu/ops/pallas_shade.py:777'),
+    'scatter': ('nvdiffrecmc_tpu_torch/csrc/scatter.cu',
+                'nvdiffrecmc_tpu/ops/pallas_scatter.py:45'),
 }
 
 
 class Recorder:
     """Context manager that records the arguments of the first launch of
     each kernel wrapper while the main path runs (the launch itself goes
-    through unchanged)."""
+    through unchanged); for the row scatter, which runs once per gather,
+    the launch with the most updates (the texture pyramid's adjoint)."""
 
     _TARGETS = ((pallas_raster, '_resolve_cuda', 'resolve'),
                 (pallas_shade, '_sample_cuda', 'sample'),
                 (pallas_shade, '_trace_shade_cuda', 'trace_shade'),
-                (pallas_denoise, '_denoise_cuda', 'denoise'))
+                (pallas_denoise, '_denoise_cuda', 'denoise'),
+                (pallas_denoise, '_denoise_grad_cuda', 'denoise_grad'),
+                (pallas_shade, '_shade_bwd_cuda', 'shade_bwd'),
+                (pallas_shade, '_light_scatter_cuda', 'light_scatter'),
+                (pallas_scatter, '_scatter_cuda', 'scatter'))
 
     def __init__(self):
         self.args = {}
@@ -174,7 +306,10 @@ class Recorder:
             self._saved.append((mod, attr, orig))
 
             def wrapped(*a, _orig=orig, _name=name):
-                self.args.setdefault(_name, a)
+                old = self.args.get(_name)
+                if old is None or (_name == 'scatter'
+                                   and a[1].numel() > old[1].numel()):
+                    self.args[_name] = a
                 return _orig(*a)
             setattr(mod, attr, wrapped)
         return self

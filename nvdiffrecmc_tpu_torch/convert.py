@@ -65,3 +65,13 @@ def mesh(m, device=None):
 def light(lgt, device=None):
     """Light dict {'base', 'pdf', 'rows', 'cols'} -> the same of tensors."""
     return {k: tensor(lgt[k], device) for k in ('base', 'pdf', 'rows', 'cols')}
+
+
+def params(p, device=None):
+    """The JAX trainer's {'geo', 'mat', 'light'} parameters (nested dicts
+    or lists of arrays) -> the same structure of tensors."""
+    if isinstance(p, dict):
+        return {k: params(v, device) for k, v in p.items()}
+    if isinstance(p, (list, tuple)):
+        return [params(v, device) for v in p]
+    return tensor(p, device)

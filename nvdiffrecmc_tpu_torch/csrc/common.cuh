@@ -11,6 +11,8 @@
 #define HALF_PI_F 1.57079632679489661923f
 #define TWO_PI_SQ_F 19.7392088021787172376f   // 2 * pi * pi
 #define ONE_MINUS_EPS_F 0.99999994f
+#define SPECULAR_EPSILON 1e-4f
+#define MIN_ROUGHNESS_SQ 0.0064f   // 0.08^2, equal to 0.08f * 0.08f
 
 struct V3 {
     float x, y, z;
@@ -204,4 +206,15 @@ __device__ __forceinline__ V3 bsdf_sample(float p_diffuse, V3 n, V3 wo,
     bool take_d = z < p_diffuse;
     *pdf_out = take_d ? d_pdf : s_pdf;
     return take_d ? d_dir : s_dir;
+}
+
+__device__ __forceinline__ float clip01(float x) {
+    return fminf(fmaxf(x, SPECULAR_EPSILON), 1.f - SPECULAR_EPSILON);
+}
+
+// Smith lambda of the GGX masking term (pallas_shade.eval_demodulated_c).
+__device__ __forceinline__ float lam(float ct, float alpha_sqr) {
+    float c = clip01(ct);
+    float c2 = c * c;
+    return 0.5f * (sqrtf(1.f + alpha_sqr * (1.f - c2) / c2) - 1.f);
 }

@@ -1,8 +1,9 @@
-// Cross-bilateral denoiser for a pair of color buffers (forward): one thread
-// per output pixel.
+// Cross-bilateral denoiser for a pair of color buffers, forward and grad
+// mode: one thread per output pixel.
 //
 // Replaces the Pallas kernel _denoise_kernel (nvdiffrecmc_tpu/ops/
-// pallas_denoise.py:47, forward mode, entry bilateral_denoiser_pair :215).
+// pallas_denoise.py:47, both modes; entries bilateral_denoiser_pair :215
+// and the backward _premul_pair_bwd :193).
 // The TPU kernel DMAs a row window of all planes into VMEM and unrolls the
 // tap columns; here each thread walks the 23x23 taps (R = 11) in row-major
 // order, as ops/denoiser._taps does, reading its neighbours through L1.
@@ -13,6 +14,11 @@
 // outside the image have valid = 0: they add exactly zero and are skipped.
 // Output: 6 premultiplied channels and the weight sum; the division by
 // max(w, 1e-4) stays in PyTorch.
+//
+// Grad mode (the backward): col6 holds the output gradient, and the depth
+// denominator takes the tap's dz instead of the center's, which makes the
+// weights those of the transposed filter (the reference's
+// denoising.cu:114-118); the weight sum is then meaningless.
 //
 // What bounds it: 529 taps x 11 floats read per pixel (~23 KB), nearly all
 // L1 hits since neighbouring threads share taps; ~30 flops and 2 exp + 1 pow
@@ -32,7 +38,7 @@ __global__ void denoise_kernel(const float* __restrict__ col6,
                                const float* __restrict__ nrm,
                                const float* __restrict__ zdz,
                                float* __restrict__ out, int H, int W,
-                               float sigma) {
+                               float sigma, int grad_mode) {
     int x = blockIdx.x * blockDim.x + threadIdx.x;
     int y = blockIdx.y * blockDim.y + threadIdx.y;
     int n = blockIdx.z;
@@ -63,7 +69,8 @@ __global__ void denoise_kernel(const float* __restrict__ col6,
             float ndot = nrm[pt * 3] * cn0 + nrm[pt * 3 + 1] * cn1
                          + nrm[pt * 3 + 2] * cn2;
             float w_normal = powf(fminf(fmaxf(ndot, FLT_EPS_D), 1.f), 128.f);
-            float denom = fmaxf(cdz * dist, FLT_EPS_D);
+            float dz = grad_mode ? zdz[pt * 2 + 1] : cdz;
+            float denom = fmaxf(dz * dist, FLT_EPS_D);
             float w_depth = expf(-fabsf(zdz[pt * 2] - cz) / denom);
             float w = w_xy * w_normal * w_depth * 1.f;
             const float* tc = col6 + pt * 6;
@@ -78,10 +85,10 @@ __global__ void denoise_kernel(const float* __restrict__ col6,
 
 extern "C" int nvk_denoise(const float* col6, const float* nrm,
                            const float* zdz, float* out, int N, int H, int W,
-                           float sigma, cudaStream_t stream) {
+                           float sigma, int grad_mode, cudaStream_t stream) {
     dim3 block(16, 16);
     dim3 grid((W + 15) / 16, (H + 15) / 16, N);
     denoise_kernel<<<grid, block, 0, stream>>>(col6, nrm, zdz, out, H, W,
-                                               sigma);
+                                               sigma, grad_mode);
     return (int)cudaGetLastError();
 }

@@ -30,8 +30,6 @@
 #include "common.cuh"
 
 #define SUPER 8
-#define SPECULAR_EPSILON 1e-4f
-#define MIN_ROUGHNESS_SQ 0.0064f
 
 __device__ __forceinline__ bool slab(V3 o, V3 inv, const float* __restrict__ lo,
                                      const float* __restrict__ hi, float tmin) {
@@ -93,16 +91,6 @@ __device__ bool any_hit(V3 o, V3 d, const float* __restrict__ tri,
         }
     }
     return false;
-}
-
-__device__ __forceinline__ float clip01(float x) {
-    return fminf(fmaxf(x, SPECULAR_EPSILON), 1.f - SPECULAR_EPSILON);
-}
-
-__device__ __forceinline__ float lam(float ct, float alpha_sqr) {
-    float c = clip01(ct);
-    float c2 = c * c;
-    return 0.5f * (sqrtf(1.f + alpha_sqr * (1.f - c2) / c2) - 1.f);
 }
 
 // Demodulated BSDF (pallas_shade.eval_demodulated_c): Lambert term and the

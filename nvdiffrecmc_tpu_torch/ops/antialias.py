@@ -6,6 +6,9 @@ encroached pixel toward its neighbor."""
 
 import torch
 
+from .pallas_scatter import rows_gather_b
+from .vecmath import clip_split
+
 
 def _screen_xy(v_clip, H, W):
     """Clip -> pixel coordinates (x right, y down, centers at +0.5)."""
@@ -36,8 +39,10 @@ def _pair_blend(color, tid, z, tri_xy, axis):
 
     fg_id = torch.where(p_fg, idp, idq)
     fg_t = torch.clamp(fg_id - 1, 0, tri_xy.shape[1] - 1)
-    bidx = torch.arange(N, device=color.device)[:, None, None]
-    V = tri_xy[bidx, fg_t]                            # [N,h,w,3,2]
+    T = tri_xy.shape[1]
+    # the gradient of the foreground triangles' vertices is a row scatter
+    V = rows_gather_b(tri_xy.reshape(N, T, 6), fg_t).reshape(
+        fg_t.shape + (3, 2))                          # [N,h,w,3,2]
 
     h, w = idp.shape[1], idp.shape[2]
     px = torch.arange(w, dtype=torch.float32, device=color.device)[None, None, :] + 0.5
@@ -61,7 +66,7 @@ def _pair_blend(color, tid, z, tri_xy, axis):
     denom = Fp - Fq
     denom = torch.where(torch.abs(denom) > 1e-12, denom,
                         torch.full_like(denom, 1e-12))
-    t_cross = torch.clamp(Fp / denom, 0.0, 1.0)
+    t_cross = clip_split(Fp / denom, 0.0, 1.0)
 
     t_from_p = torch.where(sep, t_cross, torch.full_like(t_cross, 2.0))
     t_from_q = torch.where(sep, t_cross, torch.full_like(t_cross, -2.0))
@@ -69,10 +74,11 @@ def _pair_blend(color, tid, z, tri_xy, axis):
                     torch.amax(t_from_q, dim=-1))
     has_edge = torch.where(p_fg, d < 1.5, d > -1.5)
     active = active & has_edge
-    d = torch.clamp(d, 0.0, 1.0)
+    d = clip_split(d, 0.0, 1.0)
 
-    w_p = torch.where(active, torch.clamp(0.5 - d, 0.0, 0.5), 0.0)[..., None]
-    w_q = torch.where(active, torch.clamp(d - 0.5, 0.0, 0.5), 0.0)[..., None]
+    # an edge exactly between the two centers (d = 0.5) ties both clamps
+    w_p = torch.where(active, clip_split(0.5 - d, 0.0, 0.5), 0.0)[..., None]
+    w_q = torch.where(active, clip_split(d - 0.5, 0.0, 0.5), 0.0)[..., None]
     corr_p = (cq - cp) * w_p
     corr_q = (cp - cq) * w_q
 

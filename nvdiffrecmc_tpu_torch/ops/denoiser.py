@@ -3,7 +3,10 @@ nvdiffrecmc_tpu/ops/denoiser.py): weights = gaussian(xy; sigma) *
 pow(clamp(dot(n_tap, n_center)), 128) * exp(-|z_tap - z_center| /
 max(dz_center * dist, eps)); premultiplied color + weight, normalized by the
 caller (pallas_denoise.bilateral_denoiser_pair).  Taps outside the image
-enter through a zero `valid` plane."""
+enter through a zero `valid` plane.  In grad mode the input is the output
+gradient and the depth denominator takes the tap's dz instead of the
+center's (the transpose of the forward weights, denoising.cu:114-118 of
+the reference); the weights themselves carry no gradient."""
 
 import math
 
@@ -24,9 +27,10 @@ def _pad(x, R):
     return out
 
 
-def _taps(col, nrm, zdz, sigma):
+def _taps(col, nrm, zdz, sigma, grad_mode=False):
     """Tap loop over the static (2R+1)^2 stencil, taps beyond the dynamic
-    radius weighted 0.  Returns (accum_col [N,H,W,C], accum_w [N,H,W,1])."""
+    radius weighted 0.  Returns (accum_col [N,H,W,C], accum_w [N,H,W,1]);
+    accum_w is meaningless in grad mode."""
     N, H, W, C = col.shape
     R = _max_radius()
     K = 2 * R + 1
@@ -54,7 +58,8 @@ def _taps(col, nrm, zdz, sigma):
         ndot = (t_nrm[..., 0:1] * c_n[0] + t_nrm[..., 1:2] * c_n[1]
                 + t_nrm[..., 2:3] * c_n[2])
         w_normal = torch.pow(torch.clamp(ndot, FLT_EPS, 1.0), 128.0)
-        denom = torch.clamp(c_dz * dist, min=FLT_EPS)
+        dz = t_zdz[..., 1:2] if grad_mode else c_dz
+        denom = torch.clamp(dz * dist, min=FLT_EPS)
         w_depth = torch.exp(-torch.abs(t_zdz[..., 0:1] - c_z) / denom)
         w = w_xy * w_normal * w_depth * tap(validp)
         acc_col = acc_col + tap(colp) * w

@@ -66,3 +66,24 @@ def compute_tangents(v_pos, v_nrm, v_tex, t_pos_idx, t_nrm_idx, t_tex_idx,
                       device=v_nrm.device).expand_as(v_nrm)
     fallback = safe_normalize(torch.linalg.cross(v_nrm, up))
     return torch.where(bad, fallback, tangents)
+
+
+def laplace_uniform(v_pos, t_pos_idx, tri_mask=None):
+    """Uniform (umbrella) Laplacian residual per vertex, mean squared."""
+    t = t_pos_idx.long()
+    v0, v1, v2 = v_pos[t[:, 0]], v_pos[t[:, 1]], v_pos[t[:, 2]]
+    contrib = [(v1 - v0) + (v2 - v0), (v0 - v1) + (v2 - v1),
+               (v0 - v2) + (v1 - v2)]
+    if tri_mask is not None:
+        contrib = [c * tri_mask[:, None] for c in contrib]
+        wgt = tri_mask[:, None] * 2.0
+    else:
+        wgt = torch.full((t.shape[0], 1), 2.0, dtype=v_pos.dtype,
+                         device=v_pos.device)
+    term = torch.zeros_like(v_pos)
+    norm = torch.zeros_like(v_pos[:, :1])
+    for i in range(3):
+        term = term.index_add(0, t[:, i], contrib[i])
+        norm = norm.index_add(0, t[:, i], wgt)
+    term = term / torch.clamp(norm, min=1.0)
+    return torch.mean(term ** 2)

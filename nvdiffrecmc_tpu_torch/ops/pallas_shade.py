@@ -1,8 +1,8 @@
-"""Monte-Carlo environment shading, forward: sampling, then shadow-ray
-tracing and demodulated shading (counterpart of
+"""Monte-Carlo environment shading: sampling, shadow-ray tracing and
+demodulated shading, and their backward (counterpart of
 nvdiffrecmc_tpu/ops/pallas_shade.py).
 
-Two kernels, each beside its plain PyTorch version:
+Four kernels, each beside its plain PyTorch version:
 
 - `sample_all` (csrc/sample.cu; plain: `sample_all_plain`): per (stratum,
   pixel), one light-importance sample by inverting the row CDF and then that
@@ -12,16 +12,26 @@ Two kernels, each beside its plain PyTorch version:
   for every stratum in order, trace the light ray then the BSDF ray (any
   hit, from `ro`), and accumulate the demodulated diffuse and specular
   radiance with visibility and with everything visible.  The visibility of
-  every ray is returned as `visw` so a backward pass never re-traces.
+  every ray is returned as `visw` so the backward never re-traces.
+- `shade_bwd` (csrc/shade_bwd.cu; plain: `shade_bwd_plain`): the adjoint
+  of the per-stratum shading given the visibility, for the G-buffer rows
+  and each ray's radiance.
+- `light_scatter` (csrc/light_scatter.cu; plain: `light_scatter_plain`):
+  each ray's radiance cotangent added into the texel it read.
 
-Uniforms come from outside ([n2, 8, P], `make_uniforms`) so the JAX package
-and the port can consume the same random numbers.  The light tables are read
-in float32 (the TPU kernel rounds the column CDF, the pdf and the radiance to
-bf16 inside its one-hot matmuls; the port does not).
+`env_shade_fused` is an autograd Function over those: the forward samples
+and traces, the backward replays the sampling from the saved uniforms,
+applies the shadow lerp to the saved visibility, and runs shade backward
+and the light scatter.  Uniforms come from outside ([n2, 8, P],
+`make_uniforms`) so the JAX package and the port can consume the same
+random numbers.  The light tables are read in float32 (the TPU kernels
+round the column CDF, the pdf, the radiance and the light gradient to bf16
+inside their one-hot matmuls; the port does not).
 
 Layouts at the public functions follow the JAX package: u8 [n2, 8, P]
 (u0..u4, cell_l, cell_b, pad), gb8 [8, P] (nrm3, wo3, alpha, p_diffuse),
-samp [n2, 16, P] (S_* rows below)."""
+samp [n2, 16, P] (S_* rows below), gb [19, P] (GB_* rows), drad [n2, 8, P]
+(d_lrad3, d_brad3, tex_l, tex_b)."""
 
 import math
 
@@ -30,6 +40,7 @@ import torch
 from .. import kernels
 from . import tracer
 from .envshade import _luminance, _spec_albedo, _kensler_permute_pow2
+from .vecmath import clip_split, maximum_split
 
 TWO_PI = 2.0 * math.pi
 ONE_MINUS_EPS = 0.99999994
@@ -357,21 +368,23 @@ SPECULAR_EPSILON = 1e-4
 MIN_ROUGHNESS = 0.08
 
 
+# the shading's clamps split the gradient at a tie as JAX's do; a tie is
+# real at roughness 0.08 (0.08f * 0.08f == 0.0064f)
 def _clip01(x):
-    return torch.clamp(x, SPECULAR_EPSILON, 1.0 - SPECULAR_EPSILON)
+    return clip_split(x, SPECULAR_EPSILON, 1.0 - SPECULAR_EPSILON)
 
 
 def eval_demodulated_c(kd, ks, pos, nrm, view, wi, BSDF):
     """Returns (diffuse scalar, specular 3-tuple) for direction wi.
     BSDF: 0 = pbr, 1 = diffuse, 2 = white (Lambert only)."""
-    diff = torch.clamp(dot3(nrm, wi), min=0.0) / math.pi
+    diff = maximum_split(dot3(nrm, wi), 0.0) / math.pi
     if BSDF != 0:
         z = torch.zeros_like(diff)
         return diff, (z, z, z)
 
     wo = normalize3((view[0] - pos[0], view[1] - pos[1], view[2] - pos[2]))
     occ, rough, metal = ks
-    alpha = torch.clamp(rough * rough, MIN_ROUGHNESS * MIN_ROUGHNESS, 1.0)
+    alpha = clip_split(rough * rough, MIN_ROUGHNESS * MIN_ROUGHNESS, 1.0)
     alpha_sqr = alpha * alpha
     spec_col = tuple((0.04 * (1.0 - metal) + kd_c * metal) * (1.0 - occ)
                      for kd_c in kd)
@@ -393,7 +406,7 @@ def eval_demodulated_c(kd, ks, pos, nrm, view, wi, BSDF):
 
     G = 1.0 / (1.0 + lam(woDotN) + lam(wiDotN))
     fc = torch.pow(1.0 - _clip01(woDotH), 5.0)
-    w = D * G * 0.25 / torch.clamp(woDotN, min=SPECULAR_EPSILON)
+    w = D * G * 0.25 / maximum_split(woDotN, SPECULAR_EPSILON)
     front = ((woDotN > SPECULAR_EPSILON)
              & (wiDotN > SPECULAR_EPSILON)).to(diff.dtype)
     spec = tuple((sc + (1.0 - sc) * fc) * w * front for sc in spec_col)
@@ -401,8 +414,8 @@ def eval_demodulated_c(kd, ks, pos, nrm, view, wi, BSDF):
 
 
 def _shade_stratum(samp16, gb, vis_l, vis_b, BSDF, sample_frac):
-    """One stratum's (diff3, spec3) contribution.  samp16 [16, P]; gb: dict
-    of component rows; vis_* [P] in [0, 1]."""
+    """One stratum's (diff3, spec3) contribution.  samp16: [16, P] or a
+    list of its 16 rows; gb: dict of component rows; vis_* [P] in [0, 1]."""
     l_dir = (samp16[0], samp16[1], samp16[2])
     b_dir = (samp16[3], samp16[4], samp16[5])
     l_mis = 1.0 / torch.clamp(samp16[6], min=1e-4)
@@ -498,52 +511,188 @@ def trace_shade(samp, gb, bvh, BSDF=0, tmin=0.0):
 
 
 # ---------------------------------------------------------------------------
-# Forward of the fused env shade
+# Shade backward (kernel 5) and light scatter (kernel 6)
 # ---------------------------------------------------------------------------
+
+DGB_ROWS = 15    # rows of dgb: d(pos3, nrm3, view3, kd3, ks3)
+
+
+def shade_bwd_plain(samp, gb, vw, g6, BSDF=0):
+    """Plain PyTorch version of the shade-backward kernel: torch.autograd
+    .grad of `_shade_stratum`, stratum by stratum.  samp [n2, 16, P]; gb
+    [19, P]; vw [n2, 2P] (visibility after the shadow lerp); g6 [6, P]
+    (d_diffuse, d_specular).  Returns dgb [15, P] and drad [n2, 8, P];
+    masked pixels get zeros."""
+    n2, _, P = samp.shape
+    g = _gb_rows(gb)
+    covered = g['mask'] > 0.0
+    keys = ('pos', 'nrm', 'view', 'kd', 'ks')
+    leaves = {k: tuple(r.detach().clone().requires_grad_() for r in g[k])
+              for k in keys}
+    flat = [r for k in keys for r in leaves[k]]
+    dgb = torch.zeros((DGB_ROWS, P), device=samp.device)
+    drad = torch.zeros((n2, 8, P), device=samp.device)
+    for s in range(n2):
+        rows16 = [samp[s, k] for k in range(16)]
+        rad = [samp[s, S_LRAD + k].detach().clone().requires_grad_()
+               for k in range(6)]
+        rows16[S_LRAD:S_LRAD + 6] = rad
+        with torch.enable_grad():
+            d3, s3 = _shade_stratum(rows16, dict(g, **leaves), vw[s, :P],
+                                    vw[s, P:], BSDF, 1.0 / n2)
+            loss = sum((g6[c] * d3[c]).sum() + (g6[3 + c] * s3[c]).sum()
+                       for c in range(3))
+            grads = torch.autograd.grad(loss, flat + rad, allow_unused=True)
+        grads = [torch.zeros(P, device=samp.device) if x is None else x
+                 for x in grads]
+        dgb = dgb + torch.stack(grads[:DGB_ROWS])
+        drad[s, 0:6] = torch.stack(grads[DGB_ROWS:])
+        drad[s, 6:8] = samp[s, S_LTEX:S_LTEX + 2]
+    dgb = torch.where(covered[None], dgb, 0.0)
+    drad[:, 0:6] = torch.where(covered[None, None], drad[:, 0:6], 0.0)
+    return dgb, drad
+
+
+def _shade_bwd_cuda(samp, gb, vw, g6, BSDF):
+    n2, _, P = samp.shape
+    dev = samp.device
+    f32 = torch.float32
+    kernels.require(samp, 'samp', f32, (n2, 16, P))
+    kernels.require(gb, 'gb', f32, (GB_ROWS, P), dev)
+    kernels.require(vw, 'vw', f32, (n2, 2 * P), dev)
+    kernels.require(g6, 'g6', f32, (6, P), dev)
+    dgb = torch.empty((DGB_ROWS, P), dtype=f32, device=dev)
+    drad = torch.empty((n2, 8, P), dtype=f32, device=dev)
+    with torch.cuda.device(dev):
+        rc = kernels.lib().nvk_shade_bwd(
+            samp.data_ptr(), gb.data_ptr(), vw.data_ptr(), g6.data_ptr(),
+            dgb.data_ptr(), drad.data_ptr(), n2, P, int(BSDF),
+            kernels.stream_ptr(samp))
+    kernels.LAUNCHES['shade_bwd'] += 1
+    kernels.check(rc, 'nvk_shade_bwd')
+    return dgb, drad
+
+
+def shade_bwd(samp, gb, vw, g6, BSDF=0):
+    """Stage C': see shade_bwd_plain for the contract."""
+    if samp.is_cuda:
+        return _shade_bwd_cuda(samp, gb, vw, g6, BSDF)
+    return shade_bwd_plain(samp, gb, vw, g6, BSDF)
+
+
+def light_scatter_plain(drad, Hl, Wl):
+    """Plain PyTorch version of the light-scatter kernel (index_add_, the
+    twin of the JAX package's light_scatter_jnp).  drad [n2, 8, P] ->
+    d_base [Hl, Wl, 3], in drad's dtype."""
+    out = torch.zeros((Hl * Wl, 3), dtype=drad.dtype, device=drad.device)
+    for ray in range(2):
+        tex = drad[:, 6 + ray].long().reshape(-1)
+        gr = drad[:, 3 * ray:3 * ray + 3].permute(0, 2, 1).reshape(-1, 3)
+        out.index_add_(0, tex, gr)
+    return out.reshape(Hl, Wl, 3)
+
+
+def _light_scatter_cuda(drad, Hl, Wl):
+    n2, _, P = drad.shape
+    kernels.require(drad, 'drad', torch.float32, (n2, 8, P))
+    out = torch.zeros((Hl, Wl, 3), dtype=torch.float32, device=drad.device)
+    with torch.cuda.device(drad.device):
+        rc = kernels.lib().nvk_light_scatter(
+            drad.data_ptr(), out.data_ptr(), n2, P, Hl * Wl,
+            kernels.stream_ptr(drad))
+    kernels.LAUNCHES['light_scatter'] += 1
+    kernels.check(rc, 'nvk_light_scatter')
+    return out
+
+
+def light_scatter(drad, Hl, Wl):
+    """Stage D: drad [n2, 8, P] -> d_base [Hl, Wl, 3]."""
+    if drad.is_cuda:
+        return _light_scatter_cuda(drad, Hl, Wl)
+    return light_scatter_plain(drad, Hl, Wl)
+
+
+# ---------------------------------------------------------------------------
+# The fused env shade: forward A (sample) -> C (trace + shade); backward A
+# (replayed) -> C' (shade adjoint, no re-trace) -> D (light scatter)
+# ---------------------------------------------------------------------------
+
+class _EnvShadeFused(torch.autograd.Function):
+    """Differentiable in (base, pos, nrm, view, kd, ks), each [P, 3] but
+    base [Hl, Wl, 3]; every other input is treated as a constant (the
+    shadow boundary, the ray origins and the sampling get no gradient, as
+    in the reference, kernel.cu:96-99)."""
+
+    @staticmethod
+    def forward(ctx, base, pos, nrm, view, kd, ks, u8, gb8, ro, m_row, rows,
+                cols, pdf, bvh, ss, BSDF, n_samples_x, tmin):
+        samp = sample_all(u8, gb8, rows, cols, pdf, base, n_samples_x)
+        gb = torch.cat([ro.T, pos.T, nrm.T, view.T, kd.T, ks.T,
+                        m_row]).contiguous()
+        out, visw = trace_shade(samp, gb, bvh, BSDF, tmin)
+        # the samples are replayed in backward, not kept (n2 * 16 * P)
+        ctx.save_for_backward(base, visw, gb, u8, gb8, rows, cols, pdf)
+        ctx.meta = (ss, BSDF, n_samples_x)
+        diff = (ss * out[0:3] + (1.0 - ss) * out[6:9]) * m_row
+        spec = (ss * out[3:6] + (1.0 - ss) * out[9:12]) * m_row
+        return diff.T, spec.T
+
+    @staticmethod
+    def backward(ctx, g_diff, g_spec):
+        base, visw, gb, u8, gb8, rows, cols, pdf = ctx.saved_tensors
+        ss, BSDF, n_samples_x = ctx.meta
+        samp = sample_all(u8, gb8, rows, cols, pdf, base, n_samples_x)
+        vw = visw * ss + (1.0 - ss)
+        m_row = gb[GB_MASK:GB_MASK + 1]
+        g6 =torch.cat([g_diff.T * m_row, g_spec.T * m_row]).contiguous()
+        dgb, drad = shade_bwd(samp, gb, vw.contiguous(), g6, BSDF)
+        d_base = light_scatter(drad, base.shape[0], base.shape[1])
+        d = [dgb[3 * k:3 * k + 3].T for k in range(5)]
+        return (d_base,) + tuple(d) + (None,) * 12
+
 
 def env_shade_fused(mask, ro, gb_pos, gb_normal, gb_view_pos, gb_kd, gb_ks,
                     light_base, light_pdf_tex, rows, cols, bvh, perms,
                     rnd_seed, shadow_scale, BSDF=0, n_samples_x=8, tmin=0.0,
                     uniforms=None):
-    """Monte-Carlo direct lighting, forward.  mask [B,H,W]; ro/gb_*
-    [B,H,W,3]; light tables as light.update_pdf; uniforms [n2, 8, P] or
-    None (then drawn from a generator seeded with rnd_seed).  Returns the
-    demodulated (diffuse, specular) [B,H,W,3]."""
+    """Monte-Carlo direct lighting.  mask [B,H,W]; ro/gb_* [B,H,W,3];
+    light tables as light.update_pdf; uniforms [n2, 8, P] or None (then
+    drawn from a generator seeded with rnd_seed).  Returns the demodulated
+    (diffuse, specular) [B,H,W,3], differentiable in light_base, gb_pos,
+    gb_normal, gb_view_pos, gb_kd and gb_ks."""
     B, H, W = mask.shape
     P = B * H * W
     dev = gb_pos.device
     n2 = n_samples_x * n_samples_x
-    m_row = (mask.reshape(1, P) > 0).float()
-    pos, nrm, view, kd, ks, ro_f = (x.reshape(P, 3) for x in
-                                    (gb_pos, gb_normal, gb_view_pos, gb_kd,
-                                     gb_ks, ro))
+    m_row = (mask.detach().reshape(1, P) > 0).float()
+    pos, nrm, view, kd, ks = (x.reshape(P, 3) for x in
+                              (gb_pos, gb_normal, gb_view_pos, gb_kd, gb_ks))
+    ro_f = ro.detach().reshape(P, 3)
 
-    # lobe-selection quantities
-    wo = view - pos
-    wo = wo / torch.clamp(torch.linalg.vector_norm(wo, dim=-1, keepdim=True),
-                          min=1e-20)
-    alpha = ks[:, 1] * ks[:, 1]
-    metallic = ks[:, 2]
-    spec_col = 0.04 * (1.0 - metallic[:, None]) + kd * metallic[:, None]
-    dw = (1.0 - metallic) * _luminance(kd)
-    sw = _spec_albedo(spec_col, wo, nrm)
-    denom = dw + sw
-    p_diffuse = torch.where(denom > 0.0, dw / torch.clamp(denom, min=1e-20),
-                            1.0)
+    # lobe-selection quantities (no gradient, kernel.cu:495-502)
+    with torch.no_grad():
+        wo = view - pos
+        wo = wo / torch.clamp(torch.linalg.vector_norm(wo, dim=-1,
+                                                       keepdim=True),
+                              min=1e-20)
+        alpha = ks[:, 1] * ks[:, 1]
+        metallic = ks[:, 2]
+        spec_col = 0.04 * (1.0 - metallic[:, None]) + kd * metallic[:, None]
+        dw = (1.0 - metallic) * _luminance(kd)
+        sw = _spec_albedo(spec_col, wo, nrm)
+        denom = dw + sw
+        p_diffuse = torch.where(denom > 0.0,
+                                dw / torch.clamp(denom, min=1e-20), 1.0)
+        gb8 = torch.cat([nrm.T, wo.T, alpha[None],
+                         p_diffuse[None]]).contiguous()
 
     if uniforms is None:
         gen = torch.Generator(device=dev)
         gen.manual_seed(int(rnd_seed))
         uniforms = make_uniforms(gen, n2, P, n_samples_x, perms, device=dev)
-    gb8 = torch.cat([nrm.T, wo.T, alpha[None], p_diffuse[None]]).contiguous()
-    samp = sample_all(uniforms.contiguous(), gb8, rows.contiguous(),
-                      cols.contiguous(), light_pdf_tex.contiguous(),
-                      light_base.contiguous(), n_samples_x)
-    gb = torch.cat([ro_f.T, pos.T, nrm.T, view.T, kd.T, ks.T,
-                    m_row]).contiguous()
-    out, _ = trace_shade(samp, gb, bvh, BSDF, tmin)
-
-    ss = float(shadow_scale)
-    diff = (ss * out[0:3] + (1.0 - ss) * out[6:9]) * m_row
-    spec = (ss * out[3:6] + (1.0 - ss) * out[9:12]) * m_row
-    return diff.T.reshape(B, H, W, 3), spec.T.reshape(B, H, W, 3)
+    diff, spec = _EnvShadeFused.apply(
+        light_base.contiguous(), pos, nrm, view, kd, ks,
+        uniforms.contiguous(), gb8, ro_f, m_row, rows.detach().contiguous(),
+        cols.detach().contiguous(), light_pdf_tex.detach().contiguous(), bvh,
+        float(shadow_scale), BSDF, n_samples_x, tmin)
+    return diff.reshape(B, H, W, 3), spec.reshape(B, H, W, 3)

@@ -8,13 +8,15 @@ clipless coverage test and the same output conventions):
 
 The discrete resolve is ops/pallas_raster.py (a CUDA kernel on the card);
 barycentrics and their screen derivatives are recomputed here for the
-winning triangle."""
+winning triangle.  Every vertex and face gather goes through
+pallas_scatter.rows_gather(_b), whose backward is the row scatter kernel."""
 
 from typing import Optional
 
 import torch
 
 from . import pallas_raster
+from .pallas_scatter import rows_gather, rows_gather_b
 
 
 def _tri_setup(v_clip, tri):
@@ -47,11 +49,9 @@ def _tri_setup(v_clip, tri):
 def _recompute_bary(v_clip, tri, tid, H, W):
     """(u, v, z) + screen derivatives for the winning triangles.
     v_clip [N, V, 4]; tid [N, H, W] int32 (tri_id + 1, 0 empty)."""
-    N = v_clip.shape[0]
     t = torch.clamp(tid.long() - 1, 0, tri.shape[0] - 1)
     tv = tri.long()[t]                                # [N, H, W, 3]
-    bidx = torch.arange(N, device=v_clip.device)[:, None, None, None]
-    p = v_clip[bidx, tv]                              # [N, H, W, 3, 4]
+    p = rows_gather_b(v_clip, tv)                     # [N, H, W, 3, 4]
     x, y, z, w = p[..., 0], p[..., 1], p[..., 2], p[..., 3]
 
     a0 = torch.stack([y[..., 1] * w[..., 2] - y[..., 2] * w[..., 1],
@@ -127,10 +127,9 @@ def interpolate(attr, rast, attr_idx, rast_db=None):
     t = torch.clamp(tid - 1, 0, attr_idx.shape[0] - 1)
     idx = attr_idx.long()[t]                          # [N,H,W,3]
     if attr.dim() == 2:
-        av = attr[idx]                                # [N,H,W,3,C]
+        av = rows_gather(attr, idx)                   # [N,H,W,3,C]
     else:
-        bidx = torch.arange(attr.shape[0], device=attr.device)
-        av = attr[bidx[:, None, None, None], idx]
+        av = rows_gather_b(attr, idx)
     u = rast[..., 0:1]
     v = rast[..., 1:2]
     w = 1.0 - u - v
@@ -153,9 +152,8 @@ def interpolate_face(attr_face, rast):
     tid = rast[..., 3].to(torch.int64)
     if attr_face.dim() == 2:
         t = torch.clamp(tid - 1, 0, attr_face.shape[0] - 1)
-        av = attr_face[t]
+        av = rows_gather(attr_face, t)
     else:
         t = torch.clamp(tid - 1, 0, attr_face.shape[1] - 1)
-        bidx = torch.arange(attr_face.shape[0], device=attr_face.device)
-        av = attr_face[bidx[:, None, None], t]
+        av = rows_gather_b(attr_face, t)
     return torch.where((tid > 0)[..., None], av, 0.0)

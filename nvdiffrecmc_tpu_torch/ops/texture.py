@@ -1,18 +1,45 @@
-"""Mip-mapped texture sampling, forward (counterpart of
+"""Mip-mapped texture sampling (counterpart of
 nvdiffrecmc_tpu/ops/texture.py).
 
-The JAX package gathers 2x2 corner patches and packs its pyramid for the
-TPU's gather and scatter costs; here each bilinear tap gathers its four
-corners directly from the packed pyramid, which computes the same values."""
+Every bilinear tap reads its four corners, and every trilinear tap its
+eight, with one `pallas_scatter.rows_gather` call, so the texture gradient
+is one row scatter (a CUDA kernel on the card), as in the JAX package.  The
+JAX package's 2x2 corner-patch encoding is a TPU tactic (its gathers cost
+per row) and is not carried over.  The mip level is chosen without a
+gradient; gradients flow through the blend weights and the texels."""
 
 import numpy as np
 import torch
 
+from .pallas_scatter import rows_gather
+from .vecmath import bilinear_at
+
+
+class _Mip(torch.autograd.Function):
+    """2x2 average pooling whose backward is the reference's: the output
+    gradient times 0.25, bilinearly upsampled with a clamped border
+    (nvdiffrecmc_tpu/ops/texture.py _mip_bwd)."""
+
+    @staticmethod
+    def forward(ctx, tex):
+        n, h, w, c = tex.shape
+        ctx.shape = tex.shape
+        return tex.reshape(n, h // 2, 2, w // 2, 2, c).mean(dim=(2, 4))
+
+    @staticmethod
+    def backward(ctx, dout):
+        n, h, w, c = ctx.shape
+        dev = dout.device
+        ys = (torch.arange(h, dtype=torch.float32, device=dev) + 0.5) / h \
+            * (h // 2) - 0.5
+        xs = (torch.arange(w, dtype=torch.float32, device=dev) + 0.5) / w \
+            * (w // 2) - 0.5
+        return bilinear_at(dout * 0.25, ys, xs)
+
 
 def texture2d_mip(tex):
     """Downsample [N,H,W,C] by 2x2 average pooling."""
-    n, h, w, c = tex.shape
-    return tex.reshape(n, h // 2, 2, w // 2, 2, c).mean(dim=(2, 4))
+    return _Mip.apply(tex)
 
 
 def build_mip_chain(tex):
@@ -66,12 +93,12 @@ def bilinear_sample(tex, uv, boundary_mode='wrap'):
     # collapsed taps (clamp beyond the border) read one texel, unblended
     fx = torch.where((x1 == x0)[..., None], 0.0, fx)
     fy = torch.where((y1 == y0)[..., None], 0.0, fy)
-    flat = tex.reshape(n * H * W, C)
     base = (torch.arange(n, device=tex.device) * (H * W))[:, None, None]
-
-    def at(yy, xx):
-        return flat[base + yy * W + xx]
-    return _blend(at(y0, x0), at(y0, x1), at(y1, x0), at(y1, x1), fx, fy)
+    idx = torch.stack([base + y0 * W + x0, base + y0 * W + x1,
+                       base + y1 * W + x0, base + y1 * W + x1], dim=-1)
+    abcd = rows_gather(tex.reshape(n * H * W, C), idx)     # [N,h,w,4,C]
+    return _blend(abcd[..., 0, :], abcd[..., 1, :], abcd[..., 2, :],
+                  abcd[..., 3, :], fx, fy)
 
 
 def _pack_mips(mips):
@@ -97,7 +124,7 @@ def texture_sample(mips, uv, uv_da=None, filter_mode='linear-mipmap-linear',
     dy = torch.stack([uv_da[..., 2] * W, uv_da[..., 3] * H], dim=-1)
     footprint = torch.maximum(torch.sum(dx * dx, -1), torch.sum(dy * dy, -1))
     lod = 0.5 * torch.log2(torch.clamp(footprint, min=1e-20))
-    lod = torch.clamp(lod, 0.0, n_levels - 1.0)
+    lod = torch.clamp(lod, 0.0, n_levels - 1.0).detach()
     l0 = torch.clamp(torch.floor(lod).to(torch.int64), 0, n_levels - 1)
     l1 = torch.clamp(l0 + 1, 0, n_levels - 1)
     frac = (lod - l0.float())[..., None]
@@ -107,17 +134,21 @@ def texture_sample(mips, uv, uv_da=None, filter_mode='linear-mipmap-linear',
     sizes_t = torch.as_tensor(sizes, device=dev)
     offsets_t = torch.as_tensor(offsets, device=dev)
     L = flat.shape[1]
-    flat = flat.reshape(n * L, C)
     bbase = (torch.arange(n, device=dev) * L)[:, None, None]
     x, y = uv[..., 0], uv[..., 1]
-    taps = []
+    idx, fxy = [], []
     for lvl in (l0, l1):
         h, w = sizes_t[lvl, 0], sizes_t[lvl, 1]
         off = offsets_t[lvl] + bbase
         x0, x1, y0, y1, fx, fy = _tap_indices(x, y, h, w, boundary_mode)
-        taps.append(_blend(flat[off + y0 * w + x0], flat[off + y0 * w + x1],
-                           flat[off + y1 * w + x0], flat[off + y1 * w + x1],
-                           fx, fy))
+        idx += [off + y0 * w + x0, off + y0 * w + x1,
+                off + y1 * w + x0, off + y1 * w + x1]
+        fxy.append((fx, fy))
+    # the eight corners of both levels in one gather (one scatter backward)
+    c8 = rows_gather(flat.reshape(n * L, C), torch.stack(idx, dim=-1))
+    taps = [_blend(c8[..., 4 * k, :], c8[..., 4 * k + 1, :],
+                   c8[..., 4 * k + 2, :], c8[..., 4 * k + 3, :], *fxy[k])
+            for k in range(2)]
     return taps[0] * (1 - frac) + taps[1] * frac
 
 

@@ -10,6 +10,15 @@ import numpy as np
 import torch
 
 
+def create_trainable_env_rnd(base_res, scale=0.5, bias=0.25, seed=0,
+                             device=None):
+    """A [base_res, base_res, 3] light: uniform noise * scale + bias, from
+    numpy's RandomState(seed) as in the JAX package."""
+    rng = np.random.RandomState(seed)
+    base = rng.rand(base_res, base_res, 3).astype(np.float32) * scale + bias
+    return torch.as_tensor(base, device=device)
+
+
 class LightTables(NamedTuple):
     pdf: torch.Tensor    # [H, W] normalized sampling pdf (sums to 1)
     rows: torch.Tensor   # [H] row CDF

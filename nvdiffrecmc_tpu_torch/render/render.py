@@ -4,7 +4,9 @@ denoise -> composite (counterpart of nvdiffrecmc_tpu/render/render.py).
 `lgt` is a dict with 'base' [Hl,Wl,3] and the sampling tables 'pdf'
 [Hl,Wl], 'rows' [Hl], 'cols' [Hl,Wl] (light.update_pdf).  Randomness comes
 from a torch.Generator (`generator`, on the mesh's device) for the jitter
-taps, and from `rnd_seed` (or explicit `uniforms`) for the MC shading."""
+taps, or from explicit `offsets`, and from `rnd_seed` (or explicit
+`uniforms`) for the MC shading.  Differentiable in the mesh's vertices,
+its material's textures and the light's base."""
 
 import torch
 
@@ -15,18 +17,23 @@ from ..ops import xfm
 from ..ops.antialias import antialias
 from ..ops.normal import prepare_shading_normal
 from ..ops.texture import bilinear_sample
-from ..ops.vecmath import pixel_grid, safe_normalize, scale_img_nhwc, avg_pool_nhwc
+from ..ops.vecmath import (abs_pos0, avg_pool_nhwc, pixel_grid,
+                           safe_normalize, scale_img_nhwc)
 from ..ops import texture as tex_ops
 
 
 def shade_pre(FLAGS, rast, gb_depth, gb_pos, gb_geometric_normal, gb_normal,
               gb_tangent, gb_texc, gb_texc_deriv, view_pos, material, bsdf,
-              generator):
+              generator, offset=None):
     """Seed-independent half of the pixel shader: texture taps, jitter
-    smoothness terms, shading normal.  Returns the `pre` dict."""
+    smoothness terms, shading normal.  offset: the [B,H,W,2] jitter of the
+    smoothness taps, or None to draw it from `generator`.  Returns the
+    `pre` dict."""
     B, H, W = gb_depth.shape[:3]
     dev = gb_pos.device
-    offset = torch.randn((B, H, W, 2), generator=generator, device=dev) * 0.005
+    if offset is None:
+        offset = torch.randn((B, H, W, 2), generator=generator,
+                             device=dev) * 0.005
     jitter = pixel_grid(W, H, device=dev)[None] + offset
     mask = (rast[..., -1:] > 0).float()
 
@@ -69,12 +76,12 @@ def shade_pre(FLAGS, rast, gb_depth, gb_pos, gb_geometric_normal, gb_normal,
     kd_jitter = next(taps)
     ks_jitter = next(taps)
     ks_sel = torch.tensor([0., 1., 1.], device=dev)
-    kd_grad = torch.abs(kd_jitter[..., 0:3] - kd[..., 0:3]) * grad_weight
-    ks_grad = torch.abs(ks_jitter - ks) * ks_sel * grad_weight
+    kd_grad = abs_pos0(kd_jitter[..., 0:3] - kd[..., 0:3]) * grad_weight
+    ks_grad = abs_pos0(ks_jitter - ks) * ks_sel * grad_weight
 
     alpha = kd[..., 3:4] if kd.shape[-1] == 4 else torch.ones_like(kd[..., 0:1])
     kd = kd[..., 0:3]
-    nrm_grad = torch.abs(nrm_jitter - gb_normal) * grad_weight
+    nrm_grad = abs_pos0(nrm_jitter - gb_normal) * grad_weight
 
     perturbed_nrm_grad = None
     if perturbed_nrm is not None:
@@ -211,6 +218,8 @@ def gbuffer_layer(v_pos_clip, rast, rast_deriv, mesh, resolution, spp, msaa):
     gb_texc, gb_texc_deriv = ras.interpolate(
         mesh.v_tex, rast_out_s, mesh.t_tex_idx, rast_db=rast_out_deriv_s)
 
+    # depth and its screen derivative carry no gradient
+    clip_pos, clip_pos_deriv = clip_pos.detach(), clip_pos_deriv.detach()
     eps = 1e-5
     dz = torch.abs(clip_pos_deriv[..., 2:3]) + torch.abs(clip_pos_deriv[..., 6:7])
     dw = torch.abs(clip_pos_deriv[..., 3:4]) + torch.abs(clip_pos_deriv[..., 7:8])
@@ -224,15 +233,16 @@ def gbuffer_layer(v_pos_clip, rast, rast_deriv, mesh, resolution, spp, msaa):
 
 
 def render_gbuffer(FLAGS, mesh, mtx_in, view_pos, resolution, spp,
-                   num_layers, msaa, bsdf, generator):
+                   num_layers, msaa, bsdf, generator, offsets=None):
     """Stage 1: clip transform, depth-peeled rasterization, per-layer
-    G-buffer and shade_pre.  Returns (v_pos_clip, [(pre, rast), ...])."""
+    G-buffer and shade_pre (layer i jitters by offsets[i] when given).
+    Returns (v_pos_clip, [(pre, rast), ...])."""
     full_res = [resolution[0] * spp, resolution[1] * spp]
     view_pos = view_pos[:, None, None, :]
     v_pos_clip = xfm.xfm_points(mesh.v_pos, mtx_in)
     layers = []
     prev_rast = None
-    for _ in range(num_layers):
+    for i in range(num_layers):
         rast, rast_db = ras.rasterize(v_pos_clip, mesh.t_pos_idx, full_res,
                                       prev_rast=prev_rast)
         prev_rast = rast
@@ -242,7 +252,7 @@ def render_gbuffer(FLAGS, mesh, mtx_in, view_pos, resolution, spp,
         pre = shade_pre(FLAGS, rast_out_s, gb_depth, gb_pos,
                         gb_geometric_normal, gb_normal, gb_tangent, gb_texc,
                         gb_texc_deriv, view_pos, mesh.material, bsdf,
-                        generator)
+                        generator, None if offsets is None else offsets[i])
         layers.append((pre, rast))
     return v_pos_clip, layers
 
@@ -276,13 +286,14 @@ def render_finish(FLAGS, mesh, v_pos_clip, layers, mc, resolution, spp,
 def render_mesh(FLAGS, mesh, mtx_in, view_pos, lgt, resolution, bvh, perms,
                 generator, spp=1, num_layers=1, msaa=False, background=None,
                 bsdf=None, denoiser_sigma=None, shadow_scale=1.0, rnd_seed=0,
-                uniforms=None):
-    """Depth-peeled render.  mtx_in [B,4,4]; view_pos [B,3]; returns a dict
-    of [B,H*spp,W*spp,4] buffers composited front to back."""
+                uniforms=None, offsets=None):
+    """Depth-peeled render.  mtx_in [B,4,4]; view_pos [B,3]; uniforms and
+    offsets: optional per-layer lists (see render_mc, render_gbuffer).
+    Returns a dict of [B,H*spp,W*spp,4] buffers composited front to back."""
     bsdf = mesh.material['bsdf'] if bsdf is None else bsdf
     v_pos_clip, layers = render_gbuffer(FLAGS, mesh, mtx_in, view_pos,
                                         resolution, spp, num_layers, msaa,
-                                        bsdf, generator)
+                                        bsdf, generator, offsets)
     mc = render_mc(FLAGS, layers, lgt, bvh, bsdf, shadow_scale, rnd_seed,
                    perms, uniforms)
     return render_finish(FLAGS, mesh, v_pos_clip, layers, mc, resolution,

@@ -1,5 +1,6 @@
-"""2D texture container with auto mip chains, and a PNG reader
-(counterpart of nvdiffrecmc_tpu/render/texture.py).
+"""2D texture container with auto mip chains, trainable textures, and a
+PNG reader (counterpart of
+nvdiffrecmc_tpu/render/texture.py).
 
 PNG files are decoded with the standard library's zlib and numpy: 8-bit
 gray, gray+alpha, RGB and RGBA, non-interlaced, filter types 0-4."""
@@ -41,11 +42,40 @@ class Texture2D:
         return tex_ops.texture_sample(self.buildMips(), texc, texc_deriv,
                                       filter_mode)
 
+    def _replace_mips(self, new):
+        return dataclasses.replace(
+            self, data=new if isinstance(self.data, list) else new[0])
+
+    def clamp(self):
+        """A copy projected onto min_max (the post-step projection)."""
+        if self.min_max is None:
+            return self
+        C = self.getMips()[0].shape[-1]
+        mn, mx = (torch.as_tensor(b, dtype=torch.float32,
+                                  device=self.getMips()[0].device)[:C]
+                  for b in self.min_max)
+        return self._replace_mips([torch.clamp(m, mn, mx)
+                                   for m in self.getMips()])
+
+    def normalize(self):
+        """A copy with every texel scaled to unit length."""
+        return self._replace_mips([vecmath.safe_normalize(m)
+                                   for m in self.getMips()])
+
+
+def create_trainable(init, res=None, min_max=None, device=None):
+    """A Texture2D whose data is a fresh tensor, resized to res (bilinear
+    magnification, area minification); its mips are built when sampled.
+    init: an array [C], [H, W, C] or [1, H, W, C]."""
+    init = _to_nhwc(init, device)
+    if res is not None:
+        init = vecmath.scale_img_nhwc(init, res)
+    return Texture2D(data=init.contiguous().clone(), min_max=min_max)
+
 
 def srgb_to_rgb(texture: Texture2D):
-    new = [vecmath.srgb_to_rgb(m) for m in texture.getMips()]
-    return dataclasses.replace(
-        texture, data=new if isinstance(texture.data, list) else new[0])
+    return texture._replace_mips([vecmath.srgb_to_rgb(m)
+                                  for m in texture.getMips()])
 
 
 # ---------------------------------------------------------------------------

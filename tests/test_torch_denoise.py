@@ -1,6 +1,11 @@
 """Port parity, denoiser: the pair denoiser's plain version against the JAX
 bilateral_denoiser_pair (CPU path) at rtol 1e-5, for the slice's sigma 2.0
-and a smaller one whose dynamic radius cuts the 23x23 stencil."""
+and a smaller one whose dynamic radius cuts the 23x23 stencil; its
+backward (grad mode) against the VJP of the JAX package's _premul_pair
+(rtol 1e-5, atol 2e-5: the cotangent has both signs, so a small result
+is a sum of 529 terms of size ~1 that cancel; no gradient reaches the
+guide planes).  Every
+kernel wrapper refuses CPU tensors."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -36,13 +41,36 @@ def test_denoiser_pair_matches_jax(sigma):
                                atol=1e-7)
 
 
+@pytest.mark.parametrize('sigma', [2.0, 0.7])
+def test_denoiser_pair_grad_matches_jax(sigma):
+    import jax
+    col, col2, nrm, zdz = make_buffers(seed=1)
+    col6 = np.concatenate([col, col2], -1)
+    g7 = np.random.RandomState(2).randn(*col6.shape[:3], 7).astype(
+        np.float32)
+    _, vjp = jax.vjp(lambda c: j_pd._premul_pair(c, jnp.asarray(nrm),
+                                                 jnp.asarray(zdz),
+                                                 jnp.float32(sigma)),
+                     jnp.asarray(col6))
+    want, = vjp(jnp.asarray(g7))
+    c6, n, z = (torch.as_tensor(x).requires_grad_()
+                for x in (col6, nrm, zdz))
+    out = t_pd._premul_pair(c6, n, z, sigma)
+    out.backward(torch.as_tensor(g7))
+    np.testing.assert_allclose(c6.grad.numpy(), np.asarray(want), rtol=1e-5,
+                               atol=2e-5)
+    assert n.grad is None and z.grad is None
+
+
 @pytest.mark.parametrize('wrapper', ['resolve', 'sample', 'trace_shade',
-                                     'denoise'])
+                                     'denoise', 'denoise_grad', 'shade_bwd',
+                                     'light_scatter', 'scatter'])
 def test_cuda_wrappers_refuse_cpu_tensors(wrapper):
     """A kernel wrapper takes CUDA tensors only: handed CPU tensors it
     raises before building or launching anything (the public entry points
     send CPU tensors to the plain versions instead)."""
-    from nvdiffrecmc_tpu_torch.ops import bvh, pallas_raster, pallas_shade
+    from nvdiffrecmc_tpu_torch.ops import (bvh, pallas_raster, pallas_scatter,
+                                           pallas_shade)
     x = torch.zeros(4, 15, 128)
     calls = {
         'resolve': lambda: pallas_raster._resolve_cuda(
@@ -58,6 +86,16 @@ def test_cuda_wrappers_refuse_cpu_tensors(wrapper):
         'denoise': lambda: t_pd._denoise_cuda(
             torch.zeros(1, 8, 8, 6), torch.zeros(1, 8, 8, 3),
             torch.zeros(1, 8, 8, 2), 2.0),
+        'denoise_grad': lambda: t_pd._denoise_grad_cuda(
+            torch.zeros(1, 8, 8, 6), torch.zeros(1, 8, 8, 3),
+            torch.zeros(1, 8, 8, 2), 2.0),
+        'shade_bwd': lambda: pallas_shade._shade_bwd_cuda(
+            torch.zeros(4, 16, 16), torch.zeros(19, 16), torch.ones(4, 32),
+            torch.zeros(6, 16), 0),
+        'light_scatter': lambda: pallas_shade._light_scatter_cuda(
+            torch.zeros(4, 8, 16), 4, 8),
+        'scatter': lambda: pallas_scatter._scatter_cuda(
+            torch.zeros(16, dtype=torch.int64), torch.zeros(16, 3), 8),
     }
     with pytest.raises(ValueError, match='CUDA'):
         calls[wrapper]()
