@@ -28,11 +28,30 @@ Phases:
    training steps; prints device time by kernel, launches and host gaps,
    and writes the full tables to chiprun_out/profile_port.txt and
    chiprun_out/profile_train.txt; then a kernel-only trace of 4 more of
-   each gives the device's idle share within one run.
+   each gives the device's idle share within one run (and, in phase 9, a
+   kernel-only trace of one validation view, chiprun_out/
+   profile_validate.txt);
+8. the standalone tracer on 2^21 rays as bench.py's bench_tracer makes
+   them (seed 1, unit directions, origins on a sphere at 0.6 of the spot
+   mesh's bounding radius around its centre; that protocol's mesh was unit
+   sized): shadow Mrays/s of any_hit_pallas (CUDA events, median of 7
+   after a warm-up), the trace kernel against the plain tracer (equal
+   results on every ray) and the mask kernel at ray_block 1024 on the
+   rays' features ([2048, 207], equal on every entry);
+9. validation at the reference protocol with phase 6's trained scene and
+   parameters: train.validate over 2 views of DatasetMesh(validate=True)
+   at 512x512, n_samples 32 (1,024 strata in one call, the stratum loop),
+   no denoiser, checker background, into chiprun_out/validate/; seconds,
+   MSE and PSNR per view, launches per render_eval (sample and trace
+   1,024, resolve 1, trace_shade, denoise and mask 0); the first stratum's
+   inputs hold sample, trace and mask against their plain versions;
+10. a 32x32 validation frame at n_samples 32 with the kernels on the card
+   and with the plain versions on the CPU from the same uniforms.
 
 Any failure raises and exits non-zero before the last line.  The last
-three lines are the kernels JSON, the card line, and
-{"ok": true, "device": {...}}.
+three lines are the kernels JSON (all ten kernels, each with its time, its
+plain version's, its bound and, for the two scatters, index_add_'s), the
+card line, and {"ok": true, "device": {...}}.
 
 Usage: python3 chip_smoke.py [--profile]
 """
@@ -57,6 +76,9 @@ TEX_RES = 1024
 # row scatter per rows_gather (at least one)
 STEP_LAUNCHES = {'resolve': 1, 'sample': 2, 'trace_shade': 1, 'denoise': 1,
                  'denoise_grad': 1, 'shade_bwd': 1, 'light_scatter': 1}
+TRACER_RAYS = 2 ** 21   # bench.py's bench_tracer
+VAL_FRAMES = 2
+VAL_N = 32              # the reference validation protocol's n_samples
 
 
 def smi_line():
@@ -290,7 +312,7 @@ def train_phase(device, results):
     check_step(p, il, rl)
     for name in checks.BACKWARD:
         r = checks.run(name, rec.args)
-        results[name] = r
+        results[name] = dict(r, args=rec.args[name])
         print_compare(r)
     del rec
     bad = [n for n in checks.BACKWARD if not results[n]['ok']]
@@ -384,10 +406,246 @@ def small_step_agreement(device):
     return report
 
 
-def print_compare(r):
-    print('compare %-13s mismatch share %.2e max_abs_err %.3e ok %s'
+# ---------------------------------------------------------------------------
+# The standalone tracer and validation
+# ---------------------------------------------------------------------------
+
+def tracer_rays(mesh, n_rays, device):
+    """bench.py's bench_tracer rays: seed 1, unit directions, origins on a
+    sphere at 0.6 of the mesh's bounding radius around its box centre."""
+    import numpy as np
+    import torch
+    v = mesh.v_pos.detach().cpu().numpy()
+    centre = (v.min(0) + v.max(0)) * 0.5
+    radius = float(np.linalg.norm(v - centre, axis=-1).max())
+    rng = np.random.RandomState(1)
+    n_ = rng.randn(n_rays, 3).astype(np.float32)
+    n_ /= np.linalg.norm(n_, axis=-1, keepdims=True)
+    d = rng.randn(n_rays, 3).astype(np.float32)
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    ro = (centre + n_ * 0.6 * radius).astype(np.float32)
+    return (torch.as_tensor(ro, device=device),
+            torch.as_tensor(d, device=device), radius)
+
+
+def tracer_phase(mesh, device, results):
+    """Phase 8: shadow Mrays/s, trace and mask against their plain
+    versions on the bench rays."""
+    import torch
+    from nvdiffrecmc_tpu_torch import checks
+    from nvdiffrecmc_tpu_torch.ops import bvh as bvh_mod
+    from nvdiffrecmc_tpu_torch.ops import pallas_tracer
+    bvh = bvh_mod.build(mesh.v_pos, mesh.t_pos_idx, leaf_size=128)
+    ro, rd, radius = tracer_rays(mesh, TRACER_RAYS, device)
+    pallas_tracer.any_hit_pallas(ro, rd, bvh)
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(7):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        pallas_tracer.any_hit_pallas(ro, rd, bvh)
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    med = statistics.median(times)
+    print('tracer: %d rays, %d leaves, bounding radius %.4f; median %.3f ms '
+          '(%s ms); shadow Mrays/s %.2f (%s)'
+          % (TRACER_RAYS, bvh.n_leaves, radius, med,
+             ' '.join('%.3f' % t for t in times),
+             TRACER_RAYS / med / 1e3, smi_line()), flush=True)
+    r = checks.check_trace(ro, rd, bvh)
+    print_compare(r, ' (bench rays)')
+    rayf = bvh_mod.ray_features(ro, rd)
+    args = (rayf, bvh.aabb_lo, bvh.aabb_hi, 1024, 0.0, 1e16)
+    rm = checks.check_mask(*args)
+    print_compare(rm, ' (bench rays)')
+    if not (r['ok'] and rm['ok']):
+        raise RuntimeError('trace or mask disagrees with its plain version '
+                           'on the bench rays')
+    results['mask'] = dict(rm, args=args)
+    return med
+
+
+def profile_view(st, ds, device, out_path):
+    """--profile: a kernel-only trace of one more render_eval of view 0:
+    wall and device seconds, the idle share, device time by kernel."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from nvdiffrecmc_tpu_torch import train
+    FLAGS, p = st['FLAGS'], st['params']
+    batch = ds.collate([ds[0]])
+    gen = torch.Generator(device=device)
+    gen.manual_seed(7)
+    target = train.prepare_batch(batch, tuple(batch['img'].shape[1:3]),
+                                 FLAGS['background'], gen, FLAGS)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        train.render_eval(st['geometry'], p['geo'], p['mat'], st['static'],
+                          p['light'], target, FLAGS)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    averages = prof.key_averages()
+    key = 'self_device_time_total'
+    if averages and not hasattr(averages[0], key):
+        key = 'self_cuda_time_total'
+    rows = sorted(((getattr(e, key) / 1e6, e.count, e.key) for e in averages
+                   if e.device_type == torch.autograd.DeviceType.CUDA),
+                  reverse=True)
+    busy = sum(r[0] for r in rows)
+    if busy <= 0.0:
+        raise RuntimeError('the kernel-only trace saw no device time')
+    with open(out_path, 'w') as f:
+        f.write(averages.table(sort_by=key, row_limit=60))
+    print('profile validation view (kernel-only trace): %.3f s wall, %.3f s '
+          'device, %.3f s idle (%.1f%%), %d kernel launches'
+          % (wall, busy, wall - busy, 100.0 * (wall - busy) / wall,
+             sum(r[1] for r in rows)), flush=True)
+    for sec, count, name in rows[:10]:
+        print('profile validation view: %8.4f s  %7d launches  %s'
+              % (sec, count, name[:80]), flush=True)
+
+
+def validation_phase(st, device, results, profile_out=None):
+    """Phase 9: train.validate over 2 views at 512x512, n_samples 32, with
+    the trained scene; per-view seconds, MSE, PSNR and launches; sample,
+    trace and mask on the first stratum's inputs; with profile_out, a
+    kernel-only trace of one more view.  Returns the launch counts of the
+    run."""
+    import torch
+    from nvdiffrecmc_tpu_torch import checks, kernels, train
+    from nvdiffrecmc_tpu_torch.dataset.dataset_mesh import (DatasetMesh,
+                                                            spot256_scene)
+    from nvdiffrecmc_tpu_torch.ops import bvh as bvh_mod
+    FLAGS = st['FLAGS']
+    ds = DatasetMesh(spot256_scene(device), CAM_RADIUS, FLAGS, validate=True)
+    p = st['params']
+    out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           'chiprun_out', 'validate')
+    frames = []
+    render_eval = train.render_eval
+    rec = checks.Recorder()
+
+    def timed(*a, **k):
+        before = dict(kernels.LAUNCHES)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if frames:
+            buf = render_eval(*a, **k)
+        else:
+            with rec:       # the first view's kernel inputs
+                buf = render_eval(*a, **k)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        counts = {n: kernels.LAUNCHES[n] - before[n] for n in before}
+        for k_, v in buf.items():
+            if not bool(torch.isfinite(v).all()):
+                raise RuntimeError('validation buffer %s is not finite' % k_)
+        frames.append((sec, counts))
+        return buf
+
+    train.render_eval = timed
+    try:
+        kernels.reset_launches()
+        avg_psnr = train.validate(
+            st['geometry'], p['geo'], p['mat'], st['static'], p['light'], ds,
+            out_dir, FLAGS, max_frames=VAL_FRAMES)
+        launches = dict(kernels.LAUNCHES)
+    finally:
+        train.render_eval = render_eval
+    lines = open(os.path.join(out_dir, 'metrics.txt')).read().splitlines()
+    for i, (sec, counts) in enumerate(frames):
+        print('validation view %d: %.3f s, %s; launches %s'
+              % (i, sec, lines[1 + i], counts), flush=True)
+        want = {n: 0 for n in counts}
+        want.update(sample=VAL_N * VAL_N, trace=VAL_N * VAL_N, resolve=1)
+        if counts != want:
+            raise RuntimeError('validation view %d launched %s, expected %s'
+                               % (i, counts, want))
+    print('validation: %s; average PSNR %.3f dB; launches in the run %s'
+          % (lines[-1], avg_psnr, launches), flush=True)
+    if not (len(frames) == VAL_FRAMES and avg_psnr == avg_psnr
+            and abs(avg_psnr) != float('inf')):
+        raise RuntimeError('validation gave %d views, PSNR %s'
+                           % (len(frames), avg_psnr))
+    pngs = sorted(f for f in os.listdir(out_dir) if f.endswith('.png'))
+    if len(pngs) != 2 * VAL_FRAMES:
+        raise RuntimeError('validation wrote %s' % pngs)
+    print('validation: wrote metrics.txt and %d PNGs to %s'
+          % (len(pngs), out_dir), flush=True)
+    if profile_out is not None:
+        profile_view(st, ds, device, profile_out)
+    print('median s per validation view: %.3f (512x512, n_samples 32, '
+          'spot 26474 tris; %s)' % (statistics.median(f[0] for f in frames),
+                                    smi_line()), flush=True)
+
+    ro, rd, bvh, tmin = rec.args['trace']
+    u8 = rec.args['sample'][0]
+    # covered pixels: the loop starts the rays of the others at BIG
+    covered = ro[:u8.shape[2], 0] < 1e37
+    with torch.no_grad():
+        rs = checks.check_sample(*rec.args['sample'], mask=covered)
+        print_compare(rs, ' (validation stratum 0)')
+        r = checks.check_trace(ro, rd, bvh, tmin)
+        print_compare(r, ' (validation stratum 0)')
+        rm = checks.check_mask(bvh_mod.ray_features(ro, rd), bvh.aabb_lo,
+                               bvh.aabb_hi, 1024, tmin, 1e16)
+    results['trace'] = dict(r, args=(ro, rd, bvh, tmin))
+    print_compare(rm, ' (validation stratum 0)')
+    if not (rs['ok'] and r['ok'] and rm['ok']):
+        raise RuntimeError('sample, trace or mask disagrees with its plain '
+                           'version on the validation stratum')
+    return launches
+
+
+def small_validation_agreement(device):
+    """A 32x32 validation frame of the spot scene at n_samples 32: kernels
+    on the card vs plain versions on the CPU, the same uniforms."""
+    import torch
+    from nvdiffrecmc_tpu_torch import config, train
+    from nvdiffrecmc_tpu_torch.dataset.dataset_mesh import (
+        SPOT256_PROBE, DatasetMesh, spot256_scene)
+    from nvdiffrecmc_tpu_torch.geometry import DLMesh
+    from nvdiffrecmc_tpu_torch.ops import pallas_shade, vecmath
+    res, n = 32, VAL_N
+    gen = torch.Generator()
+    gen.manual_seed(9)
+    uniforms = pallas_shade.make_uniforms(gen, n * n, res * res, n)
+    shaded = {}
+    for dev in (device, 'cpu'):
+        mesh = spot256_scene(dev)
+        FLAGS = config.make_flags(train_res=[res, res], n_samples=2,
+                                  envlight=SPOT256_PROBE)
+        ds = DatasetMesh(mesh, CAM_RADIUS, FLAGS, validate=True)
+        geometry = DLMesh(ds.ref_mesh, FLAGS)
+        _, mvp, campos, r = ds._rotate_scene(0)
+        mat = mesh.material
+        target = {'mvp': torch.as_tensor(mvp, device=dev),
+                  'campos': torch.as_tensor(campos, device=dev),
+                  'resolution': r,
+                  'background': torch.as_tensor(vecmath.checkerboard(
+                      r, 8), device=dev)[None]}
+        buf = train.render_eval(
+            geometry, geometry.parameters(),
+            {'kd': mat['kd'].data, 'ks': mat['ks'].data},
+            {'bsdf': 'pbr', 'no_perturbed_nrm': False,
+             'min_max': {'kd': None, 'ks': None}}, ds.envlight, target,
+            FLAGS, n_samples=n,
+            uniforms=[uniforms.to(dev)])
+        shaded[dev] = buf['shaded'].cpu()
+    diff = (shaded[device] - shaded['cpu']).abs().amax(-1)
+    share = float((diff <= 1e-3).float().mean())
+    if share < 0.99:
+        raise RuntimeError('32x32 validation frame: only %.4f of pixels '
+                           'within 1e-3 of the plain CPU render' % share)
+    return share, float(diff.max())
+
+
+def print_compare(r, label=''):
+    print('compare %-13s%s mismatch share %.2e max_abs_err %.3e ok %s'
           '  kernel %.3f ms  plain %.3f ms%s%s'
-          % (r['name'], 1.0 - r['agree'], r['max_abs_err'], r['ok'],
+          % (r['name'], label, 1.0 - r['agree'], r['max_abs_err'], r['ok'],
              r['ms'], r['plain_ms'],
              ('  err/bound %.3f' % r['err_over_bound'])
              if 'err_over_bound' in r else '',
@@ -451,7 +709,7 @@ def main():
     with torch.no_grad():
         for name in checks.FORWARD:
             r = checks.run(name, rec.args)
-            results[name] = r
+            results[name] = dict(r, args=rec.args[name])
             print_compare(r)
         # the depth-peel rule: a second layer behind the first one
         from nvdiffrecmc_tpu_torch.ops import pallas_raster
@@ -525,18 +783,46 @@ def main():
         profile_run(train_step, 'train step', device,
                     os.path.join(out_dir, 'profile_train.txt'))
 
+    # 8. the standalone tracer on the bench rays
+    tracer_phase(mesh, device, results)
+
+    # 9. validation at the reference protocol
+    val_launches = validation_phase(
+        st, device, results,
+        os.path.join(here, 'chiprun_out', 'profile_validate.txt')
+        if args.profile else None)
+
+    # 10. a small validation frame against the plain versions on the CPU
+    share, worst = small_validation_agreement(device)
+    print('32x32 validation frame (n_samples 32) vs plain CPU render: %.4f '
+          'of pixels within 1e-3 (max %.3e)' % (share, worst), flush=True)
+
     rows = []
-    for name, r in results.items():
+    for name in checks.FORWARD + checks.BACKWARD + checks.VALIDATE:
+        r = results[name]
+        args = r['args']
         src, rep = checks.SOURCES[name]
-        path = launches if name in checks.FORWARD else step_launches
+        path = (launches if name in checks.FORWARD else step_launches
+                if name in checks.BACKWARD else val_launches)
+        b = checks.bound(name, args)
         row = dict(name=name, route='cuda', source=src, replaces=rep,
                    launches=path[name], max_abs_err=r['max_abs_err'],
-                   ms=r['ms'], plain_ms=r['plain_ms'], agree=r['agree'])
+                   ms=r['ms'], plain_ms=r['plain_ms'],
+                   bound_ms=b['bound_ms'], bound_by=b['bound_by'],
+                   library_ms=checks.library_ms(name, args),
+                   agree=r['agree'], bound_bytes=b['bound_bytes'],
+                   bound_ops=b['bound_ops'])
         if name in checks.FORWARD:
             row['launches_in_%d_train_steps' % TRAIN_STEPS] = \
                 step_launches[name]
         if 'compared_on' in r:
             row['compared_on'] = r['compared_on']
+        print('bound %-13s %.4f ms by %s (%.3e bytes, %.3e ops); kernel '
+              '%.4f ms%s' % (name, b['bound_ms'], b['bound_by'],
+                             b['bound_bytes'], b['bound_ops'], r['ms'],
+                             '' if row['library_ms'] is None else
+                             '; index_add_ %.4f ms' % row['library_ms']),
+              flush=True)
         rows.append(row)
     print(json.dumps({'kernels': rows}))
     print(smi_line())

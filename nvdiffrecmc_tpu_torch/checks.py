@@ -28,18 +28,31 @@ Tolerances, with their reasons:
   the float64 sum of its n terms within (1e-6 + 4 sqrt(n) 2^-24) times
   the sum of their absolute values: a float32 sum in a random order errs
   by ~sqrt(n/3) 2^-24 of that at most in the mean, and a lost or doubled
-  term moves the entry by the term itself.
+  term moves the entry by the term itself.  A float32 atomic add flushes
+  subnormal inputs and results to zero (PTX red.add.f32; index_add_ on
+  the card does the same), so each entry may also lose up to n 2^-126.
 - shade_bwd, on an evenly spaced subset of the covered pixels (the plain
   version is autograd over every stratum): >= 99.9% of the entries within
   1e-4 |x| + 1e-6 max|x| of their row, every entry within 2e-2 |x| +
   1e-4 max|x|.  The wide bound is the GGX D term at roughness 0.08
   (alpha^2 = 4.1e-5), whose denominator 1 - c^2 (1 - alpha^2) cancels to
   that size; the CPU tests measured ~1% between the JAX package and the
-  port there."""
+  port there.
+- trace: every ray's result equal to the plain tracer's (the walk computes
+  the plain version's quantities in its order, --fmad=false).
+- mask: every entry equal to the plain version's (the same slab
+  arithmetic; max/min are exact).
+
+`bound` gives each kernel's bound: the least time the card could take
+for the same work, the larger of the bytes the function
+must move (each input read once, each output written once) over 3.35 TB/s
+and the float operations these inputs need over 67 TFLOP/s, the H100 SXM's
+published float32 rates at 700 W."""
 
 import torch
 
-from .ops import pallas_denoise, pallas_raster, pallas_scatter, pallas_shade
+from .ops import (bvh as bvh_mod, pallas_denoise, pallas_raster,
+                  pallas_scatter, pallas_shade, pallas_tracer, tracer)
 
 MIN_AGREE = 0.999
 TRACE_SUBSET = 8192   # covered pixels the plain tracer is held to
@@ -148,16 +161,21 @@ def check_denoise(col6, nrm, zdz, sigma, reps=20):
             col6, nrm, zdz, sigma), 2))
 
 
-def _sum_bound(got, want, abs_sum, rel):
+def _sum_bound(got, want, abs_sum, rel, floor=0.0):
     """Share of entries within, and the worst ratio to, the bound
-    rel sum|terms| (an entry with no terms must be 0)."""
+    rel sum|terms| + floor (an entry with no terms must be 0)."""
     ratio = (got.double() - want.double()).abs() / (
-        rel * abs_sum.double() + 1e-300)
+        rel * abs_sum.double() + floor + 1e-300)
     return float((ratio <= 1.0).double().mean()), float(ratio.max())
 
 
 def _sqrt_n_bound(count):
     return 1e-6 + 4.0 * count.double().sqrt() * 2.0 ** -24
+
+
+def _flushed(count):
+    """What float32 atomics may flush to zero in n adds: n 2^-126."""
+    return count.double() * 2.0 ** -126
 
 
 def check_denoise_grad(g6, nrm, zdz, sigma, reps=20):
@@ -184,7 +202,8 @@ def check_scatter(idx, vals, out_rows, reps=20):
     abs_sum = pallas_scatter.scatter_add_plain(idx, exact.abs(), out_rows)
     count = pallas_scatter.scatter_add_plain(
         idx, torch.ones_like(exact[:, :1]), out_rows)
-    share, worst = _sum_bound(got, want, abs_sum, _sqrt_n_bound(count))
+    share, worst = _sum_bound(got, want, abs_sum, _sqrt_n_bound(count),
+                              _flushed(count))
     return dict(
         name='scatter', agree=share, err_over_bound=worst,
         max_abs_err=float((got - want).abs().max()), ok=worst <= 1.0,
@@ -202,9 +221,10 @@ def check_light_scatter(drad, Hl, Wl, reps=20):
     want = pallas_shade.light_scatter_plain(exact, Hl, Wl)
     absd = torch.cat([exact[:, 0:6].abs(), exact[:, 6:8]], 1)
     ones = torch.cat([torch.ones_like(exact[:, 0:6]), exact[:, 6:8]], 1)
+    count = pallas_shade.light_scatter_plain(ones, Hl, Wl)
     share, worst = _sum_bound(
         got, want, pallas_shade.light_scatter_plain(absd, Hl, Wl),
-        _sqrt_n_bound(pallas_shade.light_scatter_plain(ones, Hl, Wl)))
+        _sqrt_n_bound(count), _flushed(count))
     return dict(
         name='light_scatter', agree=share, err_over_bound=worst,
         max_abs_err=float((got - want).abs().max()), ok=worst <= 1.0,
@@ -245,12 +265,186 @@ def check_shade_bwd(samp, gb, vw, g6, BSDF=0, reps=10):
                          1, warmup=0))
 
 
+def check_trace(ro, rd, bvh, tmin=0.0, reps=5):
+    got = pallas_tracer._trace_cuda(ro, rd, bvh, tmin)
+    want = tracer.any_hit(ro, rd, bvh, tmin=tmin)
+    share = float((got == want).double().mean())
+    return dict(
+        name='trace', agree=share, max_abs_err=float(
+            (got.float() - want.float()).abs().max()) if got.numel() else 0.0,
+        ok=share == 1.0,
+        compared_on='%d rays, %.4f occluded' % (ro.shape[0],
+                                               float(want.float().mean())),
+        ms=time_ms(lambda: pallas_tracer._trace_cuda(ro, rd, bvh, tmin),
+                   reps),
+        plain_ms=time_ms(lambda: tracer.any_hit(ro, rd, bvh, tmin=tmin), 1,
+                         warmup=0))
+
+
+def check_mask(rayf, aabb_lo, aabb_hi, ray_block, tmin, tmax, reps=10):
+    args = (rayf, aabb_lo, aabb_hi, ray_block, tmin, tmax)
+    got = pallas_tracer._mask_cuda(*args)
+    want = pallas_tracer.visit_masks_plain(*args)
+    share = float((got == want).double().mean())
+    return dict(
+        name='mask', agree=share,
+        max_abs_err=float((got - want).abs().max()), ok=share == 1.0,
+        compared_on='[%d, %d] mask, %.4f set' % (
+            got.shape[0], got.shape[1], float(want.double().mean())),
+        ms=time_ms(lambda: pallas_tracer._mask_cuda(*args), reps),
+        plain_ms=time_ms(lambda: pallas_tracer.visit_masks_plain(*args), 2))
+
+
 CHECKS = {'resolve': check_resolve, 'sample': check_sample,
           'trace_shade': check_trace_shade, 'denoise': check_denoise,
           'denoise_grad': check_denoise_grad, 'shade_bwd': check_shade_bwd,
-          'light_scatter': check_light_scatter, 'scatter': check_scatter}
+          'light_scatter': check_light_scatter, 'scatter': check_scatter,
+          'trace': check_trace, 'mask': check_mask}
 FORWARD = ('resolve', 'sample', 'trace_shade', 'denoise')
 BACKWARD = ('denoise_grad', 'shade_bwd', 'light_scatter', 'scatter')
+VALIDATE = ('trace', 'mask')
+
+
+# ---------------------------------------------------------------------------
+# Bounds: the least time the card could take for each kernel's work
+# ---------------------------------------------------------------------------
+
+BYTES_PER_S = 3.35e12     # H100 SXM HBM3
+F32_PER_S = 67e12         # H100 SXM float32 outside the tensor cores
+# float operations per test, counted from the sources: a slab test is 2
+# subtractions, 2 products, 4 min/max per axis and a compare; the Plücker
+# triangle test 3 x 11 for the edges, 11 for num and den, 2 for tmin and
+# 8 for the sign tests
+SLAB_OPS = 25
+TRI_OPS = 54
+# per item, counted from the sources and rounded down: the BSDF and light
+# sampling of one (stratum, pixel) (two CDF inversions, a cosine and a GGX
+# sample, three pdfs); the shading of one ray; its adjoint; one (pixel, tap)
+# of the denoiser (weights of 3 factors and 7 accumulations); one (pixel,
+# triangle) inside test of the resolve
+SAMPLE_OPS = 300
+SHADE_OPS = 100
+SHADE_BWD_OPS = 300
+TAP_OPS = 30
+RESOLVE_OPS = 20
+
+
+def _nbytes(*ts):
+    return sum(t.numel() * t.element_size() for t in ts
+               if isinstance(t, torch.Tensor))
+
+
+def trace_work(ro, rd, bvh, tmin=0.0, chunk=1 << 16):
+    """(slab tests, triangle tests) that any walk of this BVH needs for
+    these rays: a ray that hits nothing tests every supernode box, the leaf
+    boxes of the supernodes it enters and every triangle of the leaves it
+    enters; a ray that hits needs at least the supernode box, the leaf box
+    and the triangle of one hit."""
+    C, S = bvh.n_leaves, bvh.super_lo.shape[0]
+    per_super = torch.clamp(C - bvh_mod.SUPER * torch.arange(
+        S, device=ro.device), max=bvh_mod.SUPER).double()
+    slabs = tris = 0
+    for s in range(0, ro.shape[0], chunk):
+        o, d = ro[s:s + chunk], rd[s:s + chunk]
+        miss = ~tracer.any_hit(o, d, bvh, tmin=tmin)
+        o, d = o[miss], d[miss]
+        n_hit = int((~miss).sum())
+        inv = 1.0 / d
+        sup = tracer.slab_hits(o, inv, bvh.super_lo, bvh.super_hi, tmin)
+        leaves = tracer.slab_hits(o, inv, bvh.aabb_lo, bvh.aabb_hi, tmin)
+        leaves = leaves & sup.repeat_interleave(bvh_mod.SUPER, 1)[:, :C]
+        slabs += (o.shape[0] * S + int((sup.double() @ per_super).sum())
+                  + 2 * n_hit)
+        tris += int(leaves.sum()) * bvh.leaf_size + n_hit
+    return slabs, tris
+
+
+def _bound_of(nbytes, ops):
+    t_bytes, t_ops = nbytes / BYTES_PER_S, ops / F32_PER_S
+    return dict(bound_ms=1e3 * max(t_bytes, t_ops),
+                bound_by='bytes' if t_bytes >= t_ops else 'operations',
+                bound_bytes=nbytes, bound_ops=ops)
+
+
+def bound(name, args):
+    """The bound of kernel `name` on the arguments a Recorder took (or the
+    check was given); see the module docstring."""
+    if name == 'resolve':
+        coef, bbox, H, W, pz, pid = args
+        N = pz.shape[0]
+        # at least one inside test per pixel, outputs z and id
+        return _bound_of(_nbytes(coef, bbox, pz, pid) + N * H * W * 8,
+                         RESOLVE_OPS * N * H * W)
+    if name == 'sample':
+        u8, gb8, rows, cols, pdf, base, n = args
+        n2, _, P = u8.shape
+        return _bound_of(_nbytes(u8, gb8, rows, cols, pdf, base)
+                         + n2 * 16 * P * 4, SAMPLE_OPS * n2 * P)
+    if name == 'trace_shade':
+        samp, gb, bvh = args[:3]
+        n2, _, P = samp.shape
+        covered = gb[pallas_shade.GB_MASK] > 0
+        ro = gb[0:3].T[covered].contiguous()
+        slabs = tris = 0
+        for s in range(n2):
+            for k in (pallas_shade.S_LDIR, pallas_shade.S_BDIR):
+                rd = samp[s, k:k + 3].T[covered].contiguous()
+                a, b = trace_work(ro, rd, bvh)
+                slabs, tris = slabs + a, tris + b
+        ops = (SLAB_OPS * slabs + TRI_OPS * tris
+               + SHADE_OPS * 2 * n2 * int(covered.sum()))
+        return _bound_of(_nbytes(samp, gb, bvh.tri, bvh.aabb_lo, bvh.aabb_hi)
+                         + (12 * P + 2 * n2 * P) * 4, ops)
+    if name in ('denoise', 'denoise_grad'):
+        col6, nrm, zdz, sigma = args
+        pixels = col6.shape[0] * col6.shape[1] * col6.shape[2]
+        return _bound_of(_nbytes(col6, nrm, zdz) + pixels * 7 * 4,
+                         TAP_OPS * 23 * 23 * pixels)
+    if name == 'shade_bwd':
+        samp, gb, vw, g6 = args[:4]
+        n2, _, P = samp.shape
+        covered = int((gb[pallas_shade.GB_MASK] > 0).sum())
+        return _bound_of(_nbytes(samp, gb, vw, g6) + (15 + n2 * 8) * P * 4,
+                         SHADE_BWD_OPS * 2 * n2 * covered)
+    if name == 'light_scatter':
+        drad, Hl, Wl = args
+        return _bound_of(_nbytes(drad) + Hl * Wl * 3 * 4,
+                         int((drad[:, 0:6] != 0).sum()))
+    if name == 'scatter':
+        idx, vals, out_rows = args
+        return _bound_of(_nbytes(idx, vals) + out_rows * vals.shape[1] * 4,
+                         int((vals != 0).sum()))
+    if name == 'trace':
+        ro, rd, bvh = args[:3]
+        slabs, tris = trace_work(ro, rd, bvh, *args[3:])
+        return _bound_of(_nbytes(ro, rd, bvh.tri, bvh.aabb_lo, bvh.aabb_hi)
+                         + ro.shape[0], SLAB_OPS * slabs + TRI_OPS * tris)
+    if name == 'mask':
+        rayf, aabb_lo, aabb_hi, ray_block = args[:4]
+        m = pallas_tracer.visit_masks_plain(*args)
+        # a block's unset leaf needs every ray tested, a set one at least one
+        tests = int((m == 0).sum()) * ray_block + int(m.sum())
+        return _bound_of(_nbytes(rayf, aabb_lo, aabb_hi) + m.numel() * 4,
+                         SLAB_OPS * tests)
+    raise KeyError(name)
+
+
+def library_ms(name, args, reps=20):
+    """Time of the one PyTorch call that computes kernel `name`'s function
+    (index_add_ for the two scatters), or None where there is none.  Used
+    as a yardstick only; the port never calls it on the card."""
+    if name == 'scatter':
+        idx, vals, out_rows = args
+        out = torch.zeros((out_rows, vals.shape[1]), device=vals.device)
+        return time_ms(lambda: out.index_add_(0, idx, vals), reps)
+    if name == 'light_scatter':
+        drad, Hl, Wl = args
+        tex = torch.cat([drad[:, 6], drad[:, 7]]).long().reshape(-1)
+        gr = torch.cat([drad[:, 0:3], drad[:, 3:6]]).permute(0, 2, 1)
+        gr = gr.reshape(-1, 3).contiguous()
+        out = torch.zeros((Hl * Wl, 3), device=drad.device)
+        return time_ms(lambda: out.index_add_(0, tex, gr), reps)
+    return None
 
 
 def run(name, recorded, **kw):
@@ -278,6 +472,10 @@ SOURCES = {
                       'nvdiffrecmc_tpu/ops/pallas_shade.py:777'),
     'scatter': ('nvdiffrecmc_tpu_torch/csrc/scatter.cu',
                 'nvdiffrecmc_tpu/ops/pallas_scatter.py:45'),
+    'trace': ('nvdiffrecmc_tpu_torch/csrc/trace.cu',
+              'nvdiffrecmc_tpu/ops/pallas_tracer.py:189'),
+    'mask': ('nvdiffrecmc_tpu_torch/csrc/mask.cu',
+             'nvdiffrecmc_tpu/ops/pallas_tracer.py:94'),
 }
 
 
@@ -294,7 +492,9 @@ class Recorder:
                 (pallas_denoise, '_denoise_grad_cuda', 'denoise_grad'),
                 (pallas_shade, '_shade_bwd_cuda', 'shade_bwd'),
                 (pallas_shade, '_light_scatter_cuda', 'light_scatter'),
-                (pallas_scatter, '_scatter_cuda', 'scatter'))
+                (pallas_scatter, '_scatter_cuda', 'scatter'),
+                (pallas_tracer, '_trace_cuda', 'trace'),
+                (pallas_tracer, '_mask_cuda', 'mask'))
 
     def __init__(self):
         self.args = {}

@@ -1,4 +1,4 @@
-"""Training defaults of the port (the pass-2 settings of
+"""Training defaults of the port (the pass-2 and validation settings of
 nvdiffrecmc_tpu/config.py, as a plain dict; the command line is not
 ported yet)."""
 
@@ -10,8 +10,10 @@ DEFAULTS = dict(
     spp=1,
     layers=1,
     train_res=[512, 512],
+    display_res=None,
     texture_res=[1024, 1024],
     learning_rate=0.01,
+    background='checker',
     loss='logl1',
     n_samples=4,
     bsdf='pbr',
@@ -46,10 +48,13 @@ REFERENCE_LR_DECAY = 0.0002     # lr = 10^(-rate * it)
 
 
 def make_flags(**overrides):
-    """DEFAULTS updated with overrides; lr_decay_rate scaled with
-    5000 / iter, as the JAX package scales its schedules."""
+    """DEFAULTS updated with overrides; display_res defaults to train_res;
+    lr_decay_rate scaled with 5000 / iter, as the JAX package scales its
+    schedules."""
     FLAGS = copy.deepcopy(DEFAULTS)
     FLAGS.update(overrides)
+    if FLAGS['display_res'] is None:
+        FLAGS['display_res'] = FLAGS['train_res']
     FLAGS['lr_decay_rate'] = REFERENCE_LR_DECAY / (
         max(FLAGS['iter'], 1) / float(REFERENCE_BUDGET))
     return FLAGS

@@ -13,10 +13,11 @@
 // coalesced along pixels.  It is latency-bound on those dependent loads; the
 // BSDF math is a few hundred flops.  Launch: x over pixels, y over strata.
 //
-// Layouts (pallas_shade.py): u8 [n2, 8, P] (u0..u4, cell_l, cell_b, pad);
+// Layouts (pallas_shade.py): u8 [S, 8, P] (u0..u4, cell_l, cell_b, pad);
 // gb8 [8, P] (nrm3, wo3, alpha, p_diffuse); rows [Hl]; cols, pdf [Hl, Wl];
-// base [Hl, Wl, 3]; out [n2, 16, P] (l_dir3, b_dir3, l_pdfsum, b_pdfsum,
-// l_rad3, b_rad3, l_tex, b_tex).
+// base [Hl, Wl, 3]; out [S, 16, P] (l_dir3, b_dir3, l_pdfsum, b_pdfsum,
+// l_rad3, b_rad3, l_tex, b_tex).  The cell ids arrive in u8, so S may be
+// all n2 strata (the fused pipeline) or one (the stratum loop).
 
 #include "common.cuh"
 
@@ -116,10 +117,10 @@ __global__ void sample_kernel(const float* __restrict__ u8,
 extern "C" int nvk_sample(const float* u8, const float* gb8, const float* rows,
                           const float* cols, const float* pdf_tex,
                           const float* base, float* out, int n_samples_x,
-                          int P, int Hl, int Wl, cudaStream_t stream) {
-    int n2 = n_samples_x * n_samples_x;
+                          int n_strata, int P, int Hl, int Wl,
+                          cudaStream_t stream) {
     dim3 block(256);
-    dim3 grid((P + 255) / 256, n2);
+    dim3 grid((P + 255) / 256, n_strata);
     sample_kernel<<<grid, block, 0, stream>>>(u8, gb8, rows, cols, pdf_tex,
                                               base, out, n_samples_x, P, Hl,
                                               Wl);

@@ -9,6 +9,8 @@
 // update is added where it lands.  The order of the additions is the order
 // in which the atomics reach L2, which changes from run to run; the sums
 // agree with the plain version (index_add_) to rounding, not to the bit.
+// A float atomic add flushes subnormal terms and sums to zero, as
+// index_add_'s atomics on the card do.
 //
 // Rows whose id lies outside [0, V) are dropped, as in the TPU kernel.
 // Zero updates are skipped (x + 0 == x), which removes most of the atomics

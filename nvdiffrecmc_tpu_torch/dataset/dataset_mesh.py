@@ -72,12 +72,16 @@ def spot256_scene(device=None):
 
 
 class DatasetMesh:
-    """Training views (the JAX package's validation orbit is not ported
-    yet): seeded random cameras and their ground-truth renders."""
+    """Seeded random training cameras, or with validate=True the
+    validation orbit of num_validation_frames views, and their ground-truth
+    renders."""
 
-    def __init__(self, ref_mesh: mesh_mod.Mesh, cam_radius, FLAGS, seed=0):
+    def __init__(self, ref_mesh: mesh_mod.Mesh, cam_radius, FLAGS,
+                 validate=False, num_validation_frames=200, seed=0):
         self.cam_radius = cam_radius
         self.FLAGS = FLAGS
+        self.validate = validate
+        self.num_validation_frames = num_validation_frames
         self.fovy = np.deg2rad(45)
         self.rng = np.random.RandomState(seed)
         self.device = ref_mesh.v_pos.device
@@ -99,22 +103,41 @@ class DatasetMesh:
                                          device=self.device)
         self._frame_count = 0
 
-    def _random_scene(self):
-        res = tuple(self.FLAGS['train_res'])
+    def getMesh(self):
+        return self.ref_mesh
+
+    def _camera(self, res, rotation):
         proj = vecmath.perspective(self.fovy, res[1] / res[0],
                                    self.FLAGS['cam_near_far'][0],
                                    self.FLAGS['cam_near_far'][1])
-        mv = vecmath.translate(0, 0, -self.cam_radius) \
-            @ vecmath.random_rotation_translation(0.25, self.rng)
+        mv = vecmath.translate(0, 0, -self.cam_radius) @ rotation
         mvp = proj @ mv
         campos = np.linalg.inv(mv)[:3, 3]
         return mv[None], mvp[None], campos[None], res
 
+    def _rotate_scene(self, itr):
+        """View itr of the orbit: tilted by -0.4 rad about x, turned by
+        2 pi itr / num_validation_frames about y, at display_res (None:
+        train_res)."""
+        res = tuple(self.FLAGS.get('display_res') or self.FLAGS['train_res'])
+        ang = (itr / self.num_validation_frames) * np.pi * 2
+        return self._camera(res, vecmath.rotate_x(-0.4)
+                            @ vecmath.rotate_y(ang))
+
+    def _random_scene(self):
+        return self._camera(tuple(self.FLAGS['train_res']),
+                            vecmath.random_rotation_translation(0.25,
+                                                                self.rng))
+
     def __len__(self):
-        return self.FLAGS['iter'] * self.FLAGS['batch']
+        return (self.num_validation_frames if self.validate
+                else self.FLAGS['iter'] * self.FLAGS['batch'])
 
     def __getitem__(self, itr):
-        mv, mvp, campos, res = self._random_scene()
+        if self.validate:
+            mv, mvp, campos, res = self._rotate_scene(itr)
+        else:
+            mv, mvp, campos, res = self._random_scene()
         self._frame_count += 1
         gen = torch.Generator(device=self.device)
         gen.manual_seed(self._frame_count * 7919 + 13)
@@ -136,3 +159,11 @@ class DatasetMesh:
             'spp': self.FLAGS['spp'],
             'img': img,
         }
+
+    def collate(self, batch):
+        """Stack a list of items into one batch (images, cameras)."""
+        out = dict(batch[0])
+        out['img'] = torch.cat([b['img'] for b in batch])
+        for k in ('mv', 'mvp', 'campos'):
+            out[k] = np.concatenate([b[k] for b in batch])
+        return out

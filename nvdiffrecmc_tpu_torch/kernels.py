@@ -32,7 +32,7 @@ NVCC_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
 # and nowhere else; reset_launches() zeroes them.
 LAUNCHES = {'resolve': 0, 'sample': 0, 'trace_shade': 0, 'denoise': 0,
             'denoise_grad': 0, 'shade_bwd': 0, 'light_scatter': 0,
-            'scatter': 0}
+            'scatter': 0, 'trace': 0, 'mask': 0}
 
 _VP = ctypes.c_void_p
 _I = ctypes.c_int
@@ -41,13 +41,17 @@ _LL = ctypes.c_longlong
 # argtypes of each C entry point (every pointer and the stream are void*)
 _SIGNATURES = {
     'nvk_resolve': [_VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _VP],
-    'nvk_sample': [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _VP],
+    'nvk_sample': [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I,
+                   _VP],
     'nvk_trace_shade': [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _I,
                         _I, _I, _I, _I, _I, _F, _VP],
     'nvk_denoise': [_VP, _VP, _VP, _VP, _I, _I, _I, _F, _I, _VP],
     'nvk_shade_bwd': [_VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _VP],
     'nvk_light_scatter': [_VP, _VP, _I, _I, _I, _VP],
     'nvk_scatter_add': [_VP, _VP, _VP, _LL, _I, _LL, _VP],
+    'nvk_trace': [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _F,
+                  _VP],
+    'nvk_mask': [_VP, _VP, _VP, _VP, _I, _I, _I, _F, _F, _VP],
 }
 
 _lib = None

@@ -39,6 +39,14 @@ class LeafBVH:
         return self.aabb_lo.shape[0]
 
 
+def ray_features(o, d):
+    """[R, 16] Plücker ray features [d, o x d, o, 1, 0...] of rays (o, d)
+    [R, 3] (the JAX package's layout, read by pallas_tracer)."""
+    R = o.shape[0]
+    return torch.cat([d, torch.linalg.cross(o, d), o, o.new_ones((R, 1)),
+                      o.new_zeros((R, 6))], dim=-1)
+
+
 def _morton3(q):
     """Interleave 10-bit quantized coords [T, 3] into 30-bit Morton codes."""
     def spread(v):

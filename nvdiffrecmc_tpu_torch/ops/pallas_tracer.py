@@ -1,0 +1,149 @@
+"""Standalone any-hit tracing and the ray-block x leaf visit mask
+(counterpart of nvdiffrecmc_tpu/ops/pallas_tracer.py).
+
+Two kernels, each beside its plain PyTorch version:
+
+- `any_hit_pallas` / `trace_rayf` (csrc/trace.cu; plain: tracer.any_hit):
+  one thread per ray walks supernode -> leaf -> triangles and stops at the
+  first hit.  The walk is csrc/trace.cuh, shared with the trace + shade
+  kernel, and computes every quantity in the plain version's order, so
+  both give the same bits.
+- `visit_masks` (csrc/mask.cu; plain: `visit_masks_plain`): per block of
+  ray_block rays and per leaf, whether any ray of the block enters the
+  leaf's box in [tmin, tmax].  Its slab test follows the JAX package
+  exactly: inv = 1/d where |d| > 1e-12, else 2e12; tmax is applied.  The
+  tracer's cull keeps its own convention instead (IEEE 1/d, fmin/fmax,
+  tracer.slab_hits).
+
+The JAX package's block tactics (ray_block of the trace, visit lists,
+`sort_rays`, the NVDR_LEAF_BATCH / NVDR_EARLY_EXIT loops) are TPU
+scheduling and are not carried over.  Shadow rays are infinite, as the
+reference's (tmax 1e16): the tracer takes no other tmax."""
+
+import torch
+
+from .. import kernels
+from . import tracer
+from .bvh import LeafBVH
+
+BIG = 3e37
+TMAX_INF = 1e16
+_MASK_BUDGET = 1 << 24      # floats live per block group of the plain mask
+MASK_MAX_LEAVES = 12288     # the kernel's one int flag per leaf, in 48 KB
+
+
+def _check_tmax(tmax):
+    if tmax < TMAX_INF:
+        raise ValueError('shadow rays are infinite: tmax must be >= %g, got '
+                         '%r' % (TMAX_INF, tmax))
+
+
+def _trace_cuda(ro, rd, bvh: LeafBVH, tmin):
+    R = ro.shape[0]
+    dev = ro.device
+    f32 = torch.float32
+    L, C = bvh.leaf_size, bvh.n_leaves
+    S = bvh.super_lo.shape[0]
+    kernels.require(ro, 'ro', f32, (R, 3))
+    kernels.require(rd, 'rd', f32, (R, 3), dev)
+    kernels.require(bvh.tri, 'bvh.tri', f32, (C * L, 24), dev)
+    kernels.require(bvh.aabb_lo, 'bvh.aabb_lo', f32, (C, 3), dev)
+    kernels.require(bvh.aabb_hi, 'bvh.aabb_hi', f32, (C, 3), dev)
+    kernels.require(bvh.super_lo, 'bvh.super_lo', f32, (S, 3), dev)
+    kernels.require(bvh.super_hi, 'bvh.super_hi', f32, (S, 3), dev)
+    occ = torch.empty((R,), dtype=torch.bool, device=dev)
+    with torch.cuda.device(dev):
+        rc = kernels.lib().nvk_trace(
+            ro.data_ptr(), rd.data_ptr(), bvh.tri.data_ptr(),
+            bvh.aabb_lo.data_ptr(), bvh.aabb_hi.data_ptr(),
+            bvh.super_lo.data_ptr(), bvh.super_hi.data_ptr(), occ.data_ptr(),
+            R, C, S, L, float(tmin), kernels.stream_ptr(ro))
+    kernels.LAUNCHES['trace'] += 1
+    kernels.check(rc, 'nvk_trace')
+    return occ
+
+
+def any_hit_pallas(ro, rd, bvh: LeafBVH, tmin=0.0, tmax=TMAX_INF):
+    """Any-hit of rays (ro, rd) [R, 3] against bvh for t > tmin.  Returns
+    bool [R]."""
+    _check_tmax(tmax)
+    if ro.is_cuda:
+        return _trace_cuda(ro, rd, bvh, tmin)
+    return tracer.any_hit(ro, rd, bvh, tmin=tmin)
+
+
+def trace_rayf(rayf, bvh: LeafBVH, tmin=0.0, tmax=TMAX_INF):
+    """Any-hit on ray features [R, 16] (bvh.ray_features layout: d | m |
+    o | 1 | 0...).  Returns bool [R]."""
+    return any_hit_pallas(rayf[:, 6:9].contiguous(),
+                          rayf[:, 0:3].contiguous(), bvh, tmin, tmax)
+
+
+# ---------------------------------------------------------------------------
+# Visit mask (kernel 9)
+# ---------------------------------------------------------------------------
+
+def visit_masks_plain(rayf, aabb_lo, aabb_hi, ray_block, tmin, tmax):
+    """Plain PyTorch version of the mask kernel (the JAX package's
+    visit_masks_od): per-axis slab accumulation over [G*RB, C]
+    temporaries, block groups bounded to ~2^24 floats."""
+    Rp = rayf.shape[0]
+    NB = Rp // ray_block
+    C = aabb_lo.shape[0]
+    o, d = rayf[:, 6:9], rayf[:, 0:3]
+    inv = torch.where(torch.abs(d) > 1e-12,
+                      1.0 / torch.where(d == 0.0, 1.0, d),
+                      torch.full_like(d, 2e12))
+    G = max(1, min(NB, _MASK_BUDGET // max(1, ray_block * C)))
+    while NB % G:
+        G -= 1
+    out = []
+    for g0 in range(0, NB, G):
+        og = o[g0 * ray_block:(g0 + G) * ray_block].reshape(G, ray_block, 3)
+        ig = inv[g0 * ray_block:(g0 + G) * ray_block].reshape(G, ray_block, 3)
+        tn = torch.full((G, ray_block, C), float(tmin), device=rayf.device)
+        tf = torch.full((G, ray_block, C), float(tmax), device=rayf.device)
+        for ax in range(3):
+            t0 = (aabb_lo[None, None, :, ax] - og[:, :, None, ax]) \
+                * ig[:, :, None, ax]
+            t1 = (aabb_hi[None, None, :, ax] - og[:, :, None, ax]) \
+                * ig[:, :, None, ax]
+            tn = torch.maximum(tn, torch.minimum(t0, t1))
+            tf = torch.minimum(tf, torch.maximum(t0, t1))
+        out.append(torch.any(tf >= tn, dim=1).to(torch.int32))
+    return torch.cat(out)
+
+
+def _mask_cuda(rayf, aabb_lo, aabb_hi, ray_block, tmin, tmax):
+    Rp = rayf.shape[0]
+    NB = Rp // ray_block
+    C = aabb_lo.shape[0]
+    dev = rayf.device
+    f32 = torch.float32
+    kernels.require(rayf, 'rayf', f32, (Rp, 16))
+    kernels.require(aabb_lo, 'aabb_lo', f32, (C, 3), dev)
+    kernels.require(aabb_hi, 'aabb_hi', f32, (C, 3), dev)
+    if C > MASK_MAX_LEAVES:
+        raise ValueError('visit_masks: %d leaves exceed the kernel\'s %d'
+                         % (C, MASK_MAX_LEAVES))
+    out = torch.empty((NB, C), dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        rc = kernels.lib().nvk_mask(
+            rayf.data_ptr(), aabb_lo.data_ptr(), aabb_hi.data_ptr(),
+            out.data_ptr(), NB, ray_block, C, float(tmin), float(tmax),
+            kernels.stream_ptr(rayf))
+    kernels.LAUNCHES['mask'] += 1
+    kernels.check(rc, 'nvk_mask')
+    return out
+
+
+def visit_masks(rayf, aabb_lo, aabb_hi, ray_block, tmin, tmax):
+    """[NB, C] int32 visit masks of ray features [NB*ray_block, 16]
+    against leaf boxes aabb_lo/hi [C, 3]: 1 where some ray of the block
+    enters the box for t in [tmin, tmax]."""
+    if rayf.shape[0] % ray_block:
+        raise ValueError('visit_masks: %d rays are not a whole number of '
+                         'blocks of %d' % (rayf.shape[0], ray_block))
+    if rayf.is_cuda:
+        return _mask_cuda(rayf, aabb_lo, aabb_hi, ray_block, tmin, tmax)
+    return visit_masks_plain(rayf, aabb_lo, aabb_hi, ray_block, tmin, tmax)

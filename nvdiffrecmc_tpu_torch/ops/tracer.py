@@ -2,8 +2,8 @@
 of nvdiffrecmc_tpu/ops/tracer.py).
 
 This is the tracer's plain version: rays are processed in chunks, each leaf
-box is slab-tested against the whole chunk, and the rays that enter a leaf
-(and have not hit yet) test its triangles.  The CUDA tracer inside
+box is slab-tested against the whole chunk, and every (ray, leaf) pair that
+enters tests the leaf's triangles.  The CUDA tracer inside
 csrc/shade.cu walks the same boxes per ray (supernode, leaf, triangles) and
 computes every quantity below in the same order, so both give the same bits.
 """
@@ -29,12 +29,13 @@ def slab_hits(o, inv, lo, hi, tmin):
 
 
 def tri_hits(o, d, rows, tmin):
-    """[R, L] Plücker any-hit of rays (o, d) [R, 3] against triangle rows
-    [L, 24] (layout in bvh.py)."""
+    """Plücker any-hit of rays (o, d) [R, 3] against triangle rows (layout
+    in bvh.py): rows [L, 24] gives [R, L] (every ray against every row),
+    rows [R, L, 24] gives [R, L] (ray i against its own L rows)."""
     m = torch.linalg.cross(o, d)
 
     def col(k):
-        return rows[None, :, k]
+        return rows[..., k]
 
     def dot3(a, k):
         return a[:, 0:1] * col(k) + a[:, 1:2] * col(k + 1) + a[:, 2:3] * col(k + 2)
@@ -51,21 +52,39 @@ def tri_hits(o, d, rows, tmin):
     return same & (num * den > 0.0)
 
 
-def any_hit(ro, rd, bvh: LeafBVH, tmin=0.0, ray_chunk=1 << 18):
-    """Boolean occlusion [R] of rays (ro, rd) [R, 3] for t > tmin."""
+def any_hit(ro, rd, bvh: LeafBVH, tmin=0.0, ray_chunk=1 << 16):
+    """Boolean occlusion [R] of rays (ro, rd) [R, 3] for t > tmin.  Each
+    chunk of rays is slab-tested against every leaf box; the (ray, leaf)
+    pairs that enter test the leaf's triangles in batches of at most 2^24
+    gathered floats on the CPU, 2^27 on a card."""
     R = ro.shape[0]
     L = bvh.leaf_size
+    rows = bvh.tri.reshape(bvh.n_leaves, L, -1)
+    pair_chunk = max(1, (1 << (27 if ro.is_cuda else 24))
+                     // (L * rows.shape[-1]))
     occ = torch.zeros(R, dtype=torch.bool, device=ro.device)
     for s in range(0, R, ray_chunk):
         o, d = ro[s:s + ray_chunk], rd[s:s + ray_chunk]
         box = slab_hits(o, 1.0 / d, bvh.aabb_lo, bvh.aabb_hi, tmin)
+        pr, pc = torch.nonzero(box, as_tuple=True)
         hit = torch.zeros(o.shape[0], dtype=torch.bool, device=ro.device)
-        for c in range(bvh.n_leaves):
-            idx = torch.nonzero(box[:, c] & ~hit)[:, 0]
-            if idx.numel() == 0:
-                continue
-            h = tri_hits(o[idx], d[idx], bvh.tri[c * L:(c + 1) * L],
-                         tmin).any(-1)
-            hit[idx[h]] = True
+        for p in range(0, pr.numel(), pair_chunk):
+            r_, c_ = pr[p:p + pair_chunk], pc[p:p + pair_chunk]
+            h = tri_hits(o[r_], d[r_], rows[c_], tmin).any(-1)
+            hit[r_[h]] = True
         occ[s:s + ray_chunk] = hit
     return occ
+
+
+def make_occlusion_fn():
+    """occ(ro, rd, bvh) -> bool [R] through pallas_tracer.any_hit_pallas
+    (t > 0), on detached rays: visibility is binary and carries no
+    gradient, as the JAX package's explicit zero VJP and the reference
+    (kernel.cu:96-99).  A CPU tensor takes the plain version inside
+    any_hit_pallas."""
+
+    def occlusion(ro, rd, bvh):
+        from .pallas_tracer import any_hit_pallas
+        return any_hit_pallas(ro.detach().contiguous(),
+                              rd.detach().contiguous(), bvh)
+    return occlusion

@@ -75,6 +75,14 @@ def srgb_to_rgb(f):
 
 
 # ---------------------------------------------------------------------------
+# Metrics (the JAX package's PSNR convention)
+# ---------------------------------------------------------------------------
+
+def mse_to_psnr(mse):
+    return -10.0 / np.log(10.0) * np.log(mse)
+
+
+# ---------------------------------------------------------------------------
 # Image scaling (NHWC)
 # ---------------------------------------------------------------------------
 

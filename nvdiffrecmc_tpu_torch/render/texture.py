@@ -1,9 +1,10 @@
 """2D texture container with auto mip chains, trainable textures, and a
-PNG reader (counterpart of
+PNG reader and writer (counterpart of
 nvdiffrecmc_tpu/render/texture.py).
 
-PNG files are decoded with the standard library's zlib and numpy: 8-bit
-gray, gray+alpha, RGB and RGBA, non-interlaced, filter types 0-4."""
+PNG files are decoded and encoded with the standard library's zlib and
+numpy: 8-bit gray, gray+alpha, RGB and RGBA, non-interlaced; the decoder
+takes filter types 0-4, the encoder writes filter 0."""
 
 import dataclasses
 import struct
@@ -162,6 +163,37 @@ def load_image(fn):
     """PNG -> float32 [H, W, C] in [0, 1]."""
     with open(fn, 'rb') as f:
         return decode_png(f.read()).astype(np.float32) / 255.0
+
+
+def encode_png(img):
+    """uint8 [H, W, C] (C = 1, 2, 3 or 4) -> PNG bytes (8 bits per channel,
+    no filtering)."""
+    img = np.ascontiguousarray(img, dtype=np.uint8)
+    if img.ndim == 2:
+        img = img[..., None]
+    H, W, C = img.shape
+    color = {v: k for k, v in _PNG_CHANNELS.items()}[C]
+
+    def chunk(ctype, body):
+        return (struct.pack('>I', len(body)) + ctype + body
+                + struct.pack('>I', zlib.crc32(ctype + body) & 0xFFFFFFFF))
+    rows = np.concatenate([np.zeros((H, 1), np.uint8),
+                           img.reshape(H, W * C)], axis=1)
+    return (_PNG_SIG
+            + chunk(b'IHDR', struct.pack('>IIBBBBB', W, H, 8, color, 0, 0, 0))
+            + chunk(b'IDAT', zlib.compress(rows.tobytes(), 6))
+            + chunk(b'IEND', b''))
+
+
+def save_image(fn, x):
+    """Write x (float [H, W, C] in [0, 1], a tensor or an array) as an
+    8-bit PNG, rounded and clipped as the JAX package does.  Raises on
+    failure."""
+    if torch.is_tensor(x):
+        x = x.detach().cpu().numpy()
+    x = np.clip(np.rint(np.asarray(x) * 255.0), 0, 255).astype(np.uint8)
+    with open(fn, 'wb') as f:
+        f.write(encode_png(x))
 
 
 def _to_nhwc(init, device):

@@ -1,18 +1,24 @@
-"""The pass-2 training step of the port (counterpart of the repository's
-train.py): losses, batch preparation, the trainable material, three Adam
-optimizers with the JAX package's learning-rate schedule, the gradient
-conventions and the post-step projections.  There is no command line yet.
+"""The pass-2 training step and validation of the port (counterpart of the
+repository's train.py): losses, batch preparation, the trainable material,
+three Adam optimizers with the JAX package's learning-rate schedule, the
+gradient conventions, the post-step projections, and the validation render
+at the reference protocol.  There is no command line yet.
 
 Parameters are a dict {'geo': {'v_pos'}, 'mat': {'kd', 'ks', 'normal'},
 'light'} of leaf tensors; `train_step` renders one view through
-`DLMesh.tick`, runs `backward()`, and updates them in place."""
+`DLMesh.tick`, runs `backward()`, and updates them in place.  `validate`
+renders the validation views with `render_eval` and writes their PSNR."""
+
+import os
 
 import numpy as np
 import torch
 
+from .ops import envshade
 from .ops import loss as loss_ops
 from .ops import vecmath
 from .render import light as light_mod
+from .render import render as render_mod
 from .render import texture as texture_mod
 
 _LOSSES = {
@@ -221,3 +227,97 @@ def train_step(geometry, params, optimizers, mat_static, target, it, FLAGS,
                            loss_fn, perms, generator, **kw)
     apply_grads(params, optimizers, mat_static, FLAGS)
     return losses
+
+
+# ---------------------------------------------------------------------------
+# Validation (reference train.py:205-307)
+# ---------------------------------------------------------------------------
+
+@torch.no_grad()
+def render_eval(geometry, geo_params, mat_params, mat_static, light_base,
+                target, FLAGS, n_samples=32, uniforms=None):
+    """The reference's validation render: n_samples x n_samples strata in
+    one call (the JAX package's split into K renders of 4x4 strata is a TPU
+    watchdog tactic), spp FLAGS['spp'], no MSAA, no denoiser, shadow scale
+    1, MC seed 1000.  uniforms: optional per-layer lists for env_shade.
+    Returns the render buffers."""
+    res = tuple(target.get('resolution', FLAGS['train_res']))
+    bsdf = mat_static['bsdf']
+    F = dict(FLAGS, n_samples=n_samples)
+    spp = FLAGS['spp']
+    dev = light_base.device
+    n2 = n_samples * n_samples
+    perms = (None if n2 & (n2 - 1) == 0
+             else envshade.make_perms(n_samples, device=dev))
+    material = make_material(mat_params, mat_static)
+    opt_mesh, bvh = geometry.getMesh(geo_params, material)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    v_pos_clip, layers = render_mod.render_gbuffer(
+        F, opt_mesh, target['mvp'], target['campos'], res, spp,
+        FLAGS['layers'], False, bsdf, gen)
+    tables = light_mod.update_pdf(light_base)
+    lgt = {'base': light_base, 'pdf': tables.pdf, 'rows': tables.rows,
+           'cols': tables.cols}
+    mc = render_mod.render_mc(F, layers, lgt, bvh, bsdf, 1.0, 1000, perms,
+                              uniforms)
+    return render_mod.render_finish(F, opt_mesh, v_pos_clip, layers, mc, res,
+                                    spp, False, target['background'], bsdf,
+                                    None)
+
+
+@torch.no_grad()
+def validate_itr(target, ref_mesh, geometry, geo_params, mat_params,
+                 mat_static, light_base, FLAGS, n_samples=32):
+    """One validation view: (the [H, 2W, 3] sRGB image of the render beside
+    the target, {'ref', 'opt'} sRGB images)."""
+    buffers = render_eval(geometry, geo_params, mat_params, mat_static,
+                          light_base, target, FLAGS, n_samples)
+    result_dict = {
+        'ref': vecmath.rgb_to_srgb(target['img'][0, ..., 0:3]),
+        'opt': vecmath.rgb_to_srgb(buffers['shaded'][0, ..., 0:3]),
+    }
+    result_image = torch.cat([result_dict['opt'], result_dict['ref']], dim=1)
+    return result_image, result_dict
+
+
+@torch.no_grad()
+def validate(geometry, geo_params, mat_params, mat_static, light_base,
+             dataset_validate, out_dir, FLAGS, max_frames=None):
+    """Render every view of dataset_validate (at most max_frames) at its
+    native resolution; write metrics.txt (per-view MSE and PSNR of the
+    clipped sRGB images, then their averages) and val_%06d_{ref,opt}.png
+    into out_dir.  Returns the average PSNR."""
+    os.makedirs(out_dir, exist_ok=True)
+    mse_values, psnr_values = [], []
+    n = len(dataset_validate) if max_frames is None \
+        else min(max_frames, len(dataset_validate))
+    gen = torch.Generator(device=light_base.device)
+    gen.manual_seed(7)
+    with open(os.path.join(out_dir, 'metrics.txt'), 'w') as fout:
+        fout.write('ID, MSE, PSNR\n')
+        print("Running validation")
+        for it in range(n):
+            batch = dataset_validate.collate([dataset_validate[it]])
+            native_res = tuple(batch['img'].shape[1:3])
+            target = prepare_batch(batch, native_res, FLAGS['background'],
+                                   gen, FLAGS)
+            result_image, rd = validate_itr(
+                target, dataset_validate.getMesh(), geometry, geo_params,
+                mat_params, mat_static, light_base, FLAGS)
+            opt = np.clip(rd['opt'].cpu().numpy(), 0, 1)
+            ref = np.clip(rd['ref'].cpu().numpy(), 0, 1)
+            mse = float(np.mean((opt - ref) ** 2))
+            psnr = float(vecmath.mse_to_psnr(mse))
+            mse_values.append(mse)
+            psnr_values.append(psnr)
+            fout.write("%d, %1.8f, %1.8f \n" % (it, mse, psnr))
+            for k in rd:
+                texture_mod.save_image(
+                    os.path.join(out_dir, 'val_%06d_%s.png' % (it, k)), rd[k])
+        avg_mse = float(np.mean(mse_values))
+        avg_psnr = float(np.mean(psnr_values))
+        fout.write("AVERAGES: %1.4f, %2.3f\n" % (avg_mse, avg_psnr))
+        print("MSE,      PSNR")
+        print("%1.8f, %2.3f" % (avg_mse, avg_psnr))
+    return avg_psnr

@@ -2,7 +2,11 @@
 (the checks of chip_smoke.py phases 3 and 6, on smaller frames of the same
 scene: the slice's settings at 256x256, and a ragged two-camera frame;
 the backward kernels on the inputs of one training step at each, and the
-light scatter with every ray on one texel).
+light scatter with every ray on one texel; the standalone tracer and the
+visit mask on 2^18 rays made as bench.py makes them, the mask also on
+synthetic box sets of 5 and 300 leaves; the sample kernel on one stratum,
+as the stratum loop launches it; the launches of a validation render past
+256 strata).
 Marked `gpu`; skipped where torch.cuda.is_available() is false.  On a machine with a GPU and no JAX:
 
     python -m pytest --noconftest -m gpu tests/test_torch_kernels_cuda.py
@@ -196,3 +200,120 @@ def test_light_scatter_hot_texel_random():
         got[1234], want)
     got[1234] = 0.0
     assert float(got.abs().max()) == 0.0
+
+
+def test_sample_one_stratum_matches_plain(recorded):
+    """The stratum loop launches the sample kernel on one stratum's uniforms
+    at a time: on u8[i:i+1] it agrees with its plain version, and with
+    stratum i of the launch over all strata bit for bit."""
+    from nvdiffrecmc_tpu_torch import checks
+    from nvdiffrecmc_tpu_torch.ops import pallas_shade
+    u8, *rest = recorded['sample']
+    mask = recorded['trace_shade'][1][pallas_shade.GB_MASK] > 0
+    i = u8.shape[0] // 2
+    one = u8[i:i + 1].contiguous()
+    with torch.no_grad():
+        r = checks.check_sample(one, *rest, mask=mask, reps=1)
+        assert r['ok'], r
+        whole = pallas_shade._sample_cuda(u8, *rest)
+        assert torch.equal(pallas_shade._sample_cuda(one, *rest)[0],
+                           whole[i])
+
+
+def test_trace_shade_bit_exact(recorded):
+    """After the BVH walk moved into csrc/trace.cuh, trace + shade's
+    visibility still equals the plain tracer's on every compared ray."""
+    from nvdiffrecmc_tpu_torch import checks
+    with torch.no_grad():
+        r = checks.run('trace_shade', recorded, reps=1)
+    assert r['agree'] == 1.0, r
+
+
+@pytest.fixture(scope='module')
+def spot_rays():
+    """The spot mesh's BVH and 2^18 rays made as bench.py's bench_tracer
+    makes them (chip_smoke.tracer_rays)."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA device')
+    import chip_smoke
+    from nvdiffrecmc_tpu_torch import kernels
+    from nvdiffrecmc_tpu_torch.dataset.dataset_mesh import spot256_scene
+    from nvdiffrecmc_tpu_torch.ops import bvh as bvh_mod
+    kernels.build()
+    dev = torch.device('cuda', 0)
+    mesh = spot256_scene(dev)
+    bvh = bvh_mod.build(mesh.v_pos, mesh.t_pos_idx, leaf_size=128)
+    ro, rd, _ = chip_smoke.tracer_rays(mesh, 1 << 18, dev)
+    return ro, rd, bvh
+
+
+def test_trace_matches_plain(spot_rays):
+    from nvdiffrecmc_tpu_torch import checks
+    ro, rd, bvh = spot_rays
+    r = checks.check_trace(ro, rd, bvh, reps=1)
+    assert r['ok'] and r['agree'] == 1.0, r
+    # disabled rays (origin at BIG, zero direction) never hit
+    from nvdiffrecmc_tpu_torch.ops import pallas_tracer
+    occ = pallas_tracer.any_hit_pallas(torch.full_like(ro[:300], 3e37),
+                                       torch.zeros_like(rd[:300]), bvh)
+    assert not bool(occ.any())
+
+
+@pytest.mark.parametrize('ray_block,n_leaves', [(1024, None), (256, 5),
+                                                (64, 300)])
+def test_mask_matches_plain(spot_rays, ray_block, n_leaves):
+    """The spot BVH's 207 leaves (not a multiple of the kernel's 256
+    threads), and synthetic box sets of 5 and 300 leaves."""
+    from nvdiffrecmc_tpu_torch import checks
+    from nvdiffrecmc_tpu_torch.ops import bvh as bvh_mod
+    ro, rd, bvh = spot_rays
+    rayf = bvh_mod.ray_features(ro, rd)
+    lo, hi = bvh.aabb_lo, bvh.aabb_hi
+    if n_leaves is not None:
+        g = torch.Generator(device=ro.device)
+        g.manual_seed(n_leaves)
+        c = torch.rand((n_leaves, 3), generator=g, device=ro.device) * 2 - 1
+        e = torch.rand((n_leaves, 3), generator=g, device=ro.device) * 0.05
+        lo, hi = (c - e).contiguous(), (c + e).contiguous()
+        lo[0], hi[0] = 3e37, -3e37                    # an empty leaf
+    r = checks.check_mask(rayf, lo, hi, ray_block, 0.0, 1e16, reps=1)
+    assert r['ok'], r
+
+
+def test_validation_render_launches():
+    """render_eval past 256 strata runs the stratum loop: one sample and
+    one trace launch per stratum, one resolve, nothing else (64x64,
+    n_samples 17)."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA device')
+    from nvdiffrecmc_tpu_torch import config, kernels, train
+    from nvdiffrecmc_tpu_torch.dataset.dataset_mesh import (
+        SPOT256_PROBE, DatasetMesh, spot256_scene)
+    from nvdiffrecmc_tpu_torch.geometry import DLMesh
+    from nvdiffrecmc_tpu_torch.ops import vecmath
+    kernels.build()
+    dev = torch.device('cuda', 0)
+    mesh = spot256_scene(dev)
+    FLAGS = config.make_flags(train_res=[64, 64], n_samples=2,
+                              envlight=SPOT256_PROBE)
+    ds = DatasetMesh(mesh, 3.0, FLAGS, validate=True)
+    geometry = DLMesh(ds.ref_mesh, FLAGS)
+    _, mvp, campos, res = ds._rotate_scene(3)
+    target = {'mvp': torch.as_tensor(mvp, device=dev),
+              'campos': torch.as_tensor(campos, device=dev),
+              'resolution': res,
+              'background': torch.as_tensor(vecmath.checkerboard(res, 8),
+                                            device=dev)[None]}
+    mat = mesh.material
+    kernels.reset_launches()
+    buf = train.render_eval(
+        geometry, geometry.parameters(),
+        {'kd': mat['kd'].data, 'ks': mat['ks'].data},
+        {'bsdf': 'pbr', 'no_perturbed_nrm': False,
+         'min_max': {'kd': None, 'ks': None}}, ds.envlight, target, FLAGS,
+        n_samples=17)
+    torch.cuda.synchronize()
+    assert dict(kernels.LAUNCHES) == dict(
+        {k: 0 for k in kernels.LAUNCHES}, sample=289, trace=289, resolve=1)
+    assert all(bool(torch.isfinite(v).all()) for v in buf.values())
+    assert float((buf['shaded'][..., 3] > 0).float().mean()) > 0.05
