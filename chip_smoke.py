@@ -37,14 +37,17 @@ Phases:
    sized): shadow Mrays/s of any_hit_pallas (CUDA events, median of 7
    after a warm-up), the trace kernel against the plain tracer (equal
    results on every ray) and the mask kernel at ray_block 1024 on the
-   rays' features ([2048, 207], equal on every entry);
+   rays' features ([2048, 207], equal on every entry); the triangle tests
+   per ray that the walk needs under the three-level structure (sub-boxes
+   of bvh.SUB triangles) and under the two-level one (whole leaves);
 9. validation at the reference protocol with phase 6's trained scene and
    parameters: train.validate over 2 views of DatasetMesh(validate=True)
    at 512x512, n_samples 32 (1,024 strata in one call, the stratum loop),
    no denoiser, checker background, into chiprun_out/validate/; seconds,
    MSE and PSNR per view, launches per render_eval (sample and trace
    1,024, resolve 1, trace_shade, denoise and mask 0); the first stratum's
-   inputs hold sample, trace and mask against their plain versions;
+   inputs hold sample, trace and mask against their plain versions, and
+   give the triangle tests per covered ray as in phase 8;
 10. a 32x32 validation frame at n_samples 32 with the kernels on the card
    and with the plain versions on the CPU from the same uniforms.
 
@@ -141,7 +144,8 @@ def small_agreement(device):
     shaded = {}
     gen = torch.Generator()
     gen.manual_seed(7)
-    uniforms = pallas_shade.make_uniforms(gen, n * n, res * res, n)
+    uniforms = pallas_shade.make_uniforms(gen, n * n, res * res, n,
+                                          device='cpu')
     for dev in (device, 'cpu'):
         mesh = spot256_scene(dev)
         FLAGS = flags(res, n)
@@ -370,7 +374,8 @@ def small_step_agreement(device):
         0.0, 0.3, (1, tex, tex, 3)).astype(np.float32)
     gen = torch.Generator()
     gen.manual_seed(7)
-    uniforms = pallas_shade.make_uniforms(gen, n * n, res * res, n)
+    uniforms = pallas_shade.make_uniforms(gen, n * n, res * res, n,
+                                          device='cpu')
     offsets = torch.randn((1, res, res, 2), generator=gen) * 0.005
     target = None
     out = {}
@@ -456,6 +461,8 @@ def tracer_phase(mesh, device, results):
              TRACER_RAYS / med / 1e3, smi_line()), flush=True)
     r = checks.check_trace(ro, rd, bvh)
     print_compare(r, ' (bench rays)')
+    print_tests(checks.trace_work(ro, rd, bvh), ro.shape[0], bvh.sub_size,
+                'bench rays')
     rayf = bvh_mod.ray_features(ro, rd)
     args = (rayf, bvh.aabb_lo, bvh.aabb_hi, 1024, 0.0, 1e16)
     rm = checks.check_mask(*args)
@@ -591,6 +598,10 @@ def validation_phase(st, device, results, profile_out=None):
         print_compare(r, ' (validation stratum 0)')
         rm = checks.check_mask(bvh_mod.ray_features(ro, rd), bvh.aabb_lo,
                                bvh.aabb_hi, 1024, tmin, 1e16)
+        lit = ro[:, 0] < 1e37
+        print_tests(checks.trace_work(ro[lit], rd[lit], bvh, tmin),
+                    int(lit.sum()), bvh.sub_size,
+                    'validation stratum 0, covered rays')
     results['trace'] = dict(r, args=(ro, rd, bvh, tmin))
     print_compare(rm, ' (validation stratum 0)')
     if not (rs['ok'] and r['ok'] and rm['ok']):
@@ -611,7 +622,8 @@ def small_validation_agreement(device):
     res, n = 32, VAL_N
     gen = torch.Generator()
     gen.manual_seed(9)
-    uniforms = pallas_shade.make_uniforms(gen, n * n, res * res, n)
+    uniforms = pallas_shade.make_uniforms(gen, n * n, res * res, n,
+                                          device='cpu')
     shaded = {}
     for dev in (device, 'cpu'):
         mesh = spot256_scene(dev)
@@ -640,6 +652,19 @@ def small_validation_agreement(device):
         raise RuntimeError('32x32 validation frame: only %.4f of pixels '
                            'within 1e-3 of the plain CPU render' % share)
     return share, float(diff.max())
+
+
+def print_tests(work, rays, G, label):
+    """Triangle tests per ray (checks.trace_work): the walk's, in its order
+    with its early exit, and the least any walk needs, each with sub-boxes
+    of G triangles and with whole leaves."""
+    print('triangle tests per ray (%s, %d rays): walk %.2f with sub-boxes of '
+          '%d, %.2f with whole leaves; least %.2f and %.2f; box tests per '
+          'ray (least) %.2f'
+          % (label, rays, work['walk_tris'] / rays, G,
+             work['walk_tris_two_level'] / rays, work['tris'] / rays,
+             work['tris_two_level'] / rays, work['slabs'] / rays),
+          flush=True)
 
 
 def print_compare(r, label=''):
@@ -823,6 +848,8 @@ def main():
                              '' if row['library_ms'] is None else
                              '; index_add_ %.4f ms' % row['library_ms']),
               flush=True)
+        if 'rays' in b:
+            print_tests(b, b['rays'], args[2].sub_size, name + ' bound')
         rows.append(row)
     print(json.dumps({'kernels': rows}))
     print(smi_line())

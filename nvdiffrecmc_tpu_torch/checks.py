@@ -334,29 +334,80 @@ def _nbytes(*ts):
                if isinstance(t, torch.Tensor))
 
 
-def trace_work(ro, rd, bvh, tmin=0.0, chunk=1 << 16):
-    """(slab tests, triangle tests) that any walk of this BVH needs for
-    these rays: a ray that hits nothing tests every supernode box, the leaf
-    boxes of the supernodes it enters and every triangle of the leaves it
-    enters; a ray that hits needs at least the supernode box, the leaf box
-    and the triangle of one hit."""
+def _walk_tests(o, d, rows, entered, tmin, pair_chunk=1 << 14):
+    """Triangle tests [R] of a walk that visits the entered boxes of each
+    ray in index order, `rows` [boxes, n, 24] each, and stops at the first
+    hit, and whether the ray hit [R].  The walk of trace.cuh visits boxes
+    in index order: supernodes hold consecutive leaves, leaves consecutive
+    sub-boxes, and it tests each level in order."""
+    R, n_box = entered.shape
+    n = rows.shape[1]
+    pr, pb = torch.nonzero(entered, as_tuple=True)
+    hit_any, pos = [], []
+    for p in range(0, pr.numel(), pair_chunk):
+        h = tracer.tri_hits(o[pr[p:p + pair_chunk]], d[pr[p:p + pair_chunk]],
+                            rows[pb[p:p + pair_chunk]], tmin)
+        hit_any.append(h.any(1))
+        pos.append(h.int().argmax(1))           # the first hit's row
+    hit_any = torch.cat(hit_any) if hit_any else pr.bool()
+    pos = torch.cat(pos) if pos else pr
+    first = torch.full((R,), n_box, dtype=torch.long, device=o.device)
+    first.scatter_reduce_(0, pr, torch.where(hit_any, pb, n_box), 'amin')
+    count = torch.zeros(R, dtype=torch.long, device=o.device)
+    count.index_add_(0, pr, (pb < first[pr]).long() * n)
+    at = pb == first[pr]
+    count.index_add_(0, pr[at], pos[at] + 1)
+    return count, first < n_box
+
+
+def trace_work(ro, rd, bvh, tmin=0.0, chunk=1 << 14):
+    """The work of the walk on these rays, as a dict:
+
+    - `walk_tris`: the triangle tests of the walk of trace.cuh, which
+      visits the sub-boxes it enters in order and stops at the first hit;
+      `walk_tris_two_level` the same when every leaf entered costs all its
+      L triangles (the walk before the sub-box level);
+    - `slabs` and `tris`: the box and triangle tests that any walk of this
+      structure needs (the bound's count): a ray that hits nothing tests
+      every supernode box, the leaf boxes of the supernodes it enters, the
+      sub-boxes of the leaves it enters and the triangles of the sub-boxes
+      it enters; a ray that hits needs at least one box of each level and
+      the triangle of one hit; `tris_two_level` the same with whole
+      leaves."""
     C, S = bvh.n_leaves, bvh.super_lo.shape[0]
+    L, G = bvh.leaf_size, bvh.sub_size
     per_super = torch.clamp(C - bvh_mod.SUPER * torch.arange(
         S, device=ro.device), max=bvh_mod.SUPER).double()
-    slabs = tris = 0
+    sub_rows = bvh.tri.reshape(-1, G, bvh.tri.shape[-1])
+    leaf_rows = bvh.tri.reshape(C, L, bvh.tri.shape[-1])
+    work = dict(slabs=0, tris=0, tris_two_level=0, walk_tris=0,
+                walk_tris_two_level=0)
     for s in range(0, ro.shape[0], chunk):
         o, d = ro[s:s + chunk], rd[s:s + chunk]
-        miss = ~tracer.any_hit(o, d, bvh, tmin=tmin)
-        o, d = o[miss], d[miss]
-        n_hit = int((~miss).sum())
         inv = 1.0 / d
         sup = tracer.slab_hits(o, inv, bvh.super_lo, bvh.super_hi, tmin)
-        leaves = tracer.slab_hits(o, inv, bvh.aabb_lo, bvh.aabb_hi, tmin)
-        leaves = leaves & sup.repeat_interleave(bvh_mod.SUPER, 1)[:, :C]
-        slabs += (o.shape[0] * S + int((sup.double() @ per_super).sum())
-                  + 2 * n_hit)
-        tris += int(leaves.sum()) * bvh.leaf_size + n_hit
-    return slabs, tris
+        leaves = (tracer.slab_hits(o, inv, bvh.aabb_lo, bvh.aabb_hi, tmin)
+                  & sup.repeat_interleave(bvh_mod.SUPER, 1)[:, :C])
+        subs = tracer.entered(o, d, bvh, tmin)
+        walk, hit = _walk_tests(o, d, sub_rows, subs, tmin)
+        walk2, _ = _walk_tests(o, d, leaf_rows, leaves, tmin)
+        miss = ~hit
+        n_hit = int(hit.sum())
+        n_leaves = int(leaves[miss].sum())
+        work['walk_tris'] += int(walk.sum())
+        work['walk_tris_two_level'] += int(walk2.sum())
+        work['slabs'] += (int(miss.sum()) * S
+                          + int((sup[miss].double() @ per_super).sum())
+                          + n_leaves * (L // G) + 3 * n_hit)
+        work['tris'] += int(subs[miss].sum()) * G + n_hit
+        work['tris_two_level'] += n_leaves * L + n_hit
+    return work
+
+
+def _walk_tensors(bvh):
+    """What the walk reads of the structure: triangle rows and boxes."""
+    return (bvh.tri, bvh.aabb_lo, bvh.aabb_hi, bvh.super_lo, bvh.super_hi,
+            bvh.sub_lo, bvh.sub_hi)
 
 
 def _bound_of(nbytes, ops):
@@ -385,16 +436,17 @@ def bound(name, args):
         n2, _, P = samp.shape
         covered = gb[pallas_shade.GB_MASK] > 0
         ro = gb[0:3].T[covered].contiguous()
-        slabs = tris = 0
+        work = dict(rays=0)
         for s in range(n2):
             for k in (pallas_shade.S_LDIR, pallas_shade.S_BDIR):
                 rd = samp[s, k:k + 3].T[covered].contiguous()
-                a, b = trace_work(ro, rd, bvh)
-                slabs, tris = slabs + a, tris + b
-        ops = (SLAB_OPS * slabs + TRI_OPS * tris
+                for key, v in trace_work(ro, rd, bvh).items():
+                    work[key] = work.get(key, 0) + v
+                work['rays'] += ro.shape[0]
+        ops = (SLAB_OPS * work['slabs'] + TRI_OPS * work['tris']
                + SHADE_OPS * 2 * n2 * int(covered.sum()))
-        return _bound_of(_nbytes(samp, gb, bvh.tri, bvh.aabb_lo, bvh.aabb_hi)
-                         + (12 * P + 2 * n2 * P) * 4, ops)
+        return dict(_bound_of(_nbytes(samp, gb, *_walk_tensors(bvh))
+                              + (12 * P + 2 * n2 * P) * 4, ops), **work)
     if name in ('denoise', 'denoise_grad'):
         col6, nrm, zdz, sigma = args
         pixels = col6.shape[0] * col6.shape[1] * col6.shape[2]
@@ -416,9 +468,11 @@ def bound(name, args):
                          int((vals != 0).sum()))
     if name == 'trace':
         ro, rd, bvh = args[:3]
-        slabs, tris = trace_work(ro, rd, bvh, *args[3:])
-        return _bound_of(_nbytes(ro, rd, bvh.tri, bvh.aabb_lo, bvh.aabb_hi)
-                         + ro.shape[0], SLAB_OPS * slabs + TRI_OPS * tris)
+        work = trace_work(ro, rd, bvh, *args[3:])
+        return dict(_bound_of(_nbytes(ro, rd, *_walk_tensors(bvh))
+                              + ro.shape[0], SLAB_OPS * work['slabs']
+                              + TRI_OPS * work['tris']),
+                    rays=ro.shape[0], **work)
     if name == 'mask':
         rayf, aabb_lo, aabb_hi, ray_block = args[:4]
         m = pallas_tracer.visit_masks_plain(*args)

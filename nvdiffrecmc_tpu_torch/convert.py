@@ -10,6 +10,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from .device import resolve
 from .render import mesh as mesh_mod
 from .render import texture as texture_mod
 
@@ -17,6 +18,7 @@ from .render import texture as texture_mod
 def tensor(x, device=None):
     """numpy-convertible array -> tensor on `device` (float32 stays
     float32, integer index arrays become int32)."""
+    device = resolve(device)
     a = np.asarray(x)
     if np.issubdtype(a.dtype, np.integer):
         a = a.astype(np.int32)
@@ -28,6 +30,7 @@ def tensor(x, device=None):
 def texture(tex, device=None):
     """A Texture2D-like object (`data`: one [1,H,W,C] array or a list of
     mips; `min_max`) -> texture.Texture2D."""
+    device = resolve(device)
     data = tex.data
     data = ([tensor(m, device) for m in data] if isinstance(data, list)
             else tensor(data, device))
@@ -38,6 +41,7 @@ def texture(tex, device=None):
 
 def material(mat, device=None):
     """Material dict: textures converted, other entries copied."""
+    device = resolve(device)
     out = {}
     for k, v in mat.items():
         out[k] = texture(v, device) if hasattr(v, 'getMips') else v
@@ -47,6 +51,7 @@ def material(mat, device=None):
 def mesh(m, device=None):
     """Mesh-like object -> mesh.Mesh.  Index buffers that are one object on
     the JAX side stay one tensor here (render.gbuffer_layer tests it)."""
+    device = resolve(device)
     fields = {}
     seen = {}
     for f in dataclasses.fields(mesh_mod.Mesh):
@@ -64,12 +69,14 @@ def mesh(m, device=None):
 
 def light(lgt, device=None):
     """Light dict {'base', 'pdf', 'rows', 'cols'} -> the same of tensors."""
+    device = resolve(device)
     return {k: tensor(lgt[k], device) for k in ('base', 'pdf', 'rows', 'cols')}
 
 
 def params(p, device=None):
     """The JAX trainer's {'geo', 'mat', 'light'} parameters (nested dicts
     or lists of arrays) -> the same structure of tensors."""
+    device = resolve(device)
     if isinstance(p, dict):
         return {k: params(v, device) for k, v in p.items()}
     if isinstance(p, (list, tuple)):

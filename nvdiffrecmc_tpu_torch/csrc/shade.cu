@@ -1,32 +1,40 @@
-// Shadow-ray tracing + demodulated shading, forward: one thread per pixel.
+// Shadow-ray tracing + demodulated shading, forward: a trace pass with one
+// thread per ray slot, then a shading pass with one thread per pixel.
 //
 // Replaces the Pallas kernel _shade_fwd_kernel (nvdiffrecmc_tpu/ops/
 // pallas_shade.py:568, launched from env_shade_fused :895) together with
 // the pass that builds its per-block leaf visit lists (_build_lists :859).
 // The TPU kernel tests whole ray blocks against the union of their leaves
-// with Plücker matmuls; here every ray walks the two-level BVH on its own:
-// supernode box, leaf box, then the leaf's triangles, stopping at the first
-// hit (the walk is trace.cuh, shared with the standalone tracer trace.cu).
+// with Plücker matmuls; here every ray walks the BVH on its own: supernode
+// box, leaf box, sub-box, then the sub-box's triangles, stopping at the
+// first hit (the walk is trace.cuh, shared with the standalone tracer
+// trace.cu; the block's supernode and leaf boxes sit in shared memory).
 // The triangle test is the Plücker any-hit of ops/bvh.py in the same
 // arithmetic order as the plain version (ops/tracer.py), so both give the
 // same bits.
 //
-// Per pixel and stratum s = 0..n2-1 (the JAX accumulation order): trace the
-// light ray, then the BSDF ray, from ro; write their visibility to visw;
-// evaluate the demodulated BSDF for both directions; accumulate diffuse and
-// specular twice, with visibility and with everything visible.  Masked
-// pixels write zeros (and visibility 1) without tracing.
+// Trace pass (shade_trace_kernel): one thread per (stratum s, light or
+// BSDF, pixel) of the 2 n2 P ray slots writes the ray's visibility to visw;
+// masked pixels write 1 without tracing.  Shading pass (shade_kernel): per
+// pixel and stratum s = 0..n2-1 (the JAX accumulation order), read both
+// visibilities, evaluate the demodulated BSDF for both directions and
+// accumulate diffuse and specular twice, with visibility and with
+// everything visible; masked pixels write zeros.  One thread walking its
+// pixel's 2 n2 rays one after another (the kernel before the split) kept
+// the lanes of masked pixels idle for all of them and took 2.5x the trace
+// pass's time (bench_walk.py; PERF.md).
 //
-// What bounds it: the BVH walk.  Each ray tests ~26 supernode boxes, the
-// leaf boxes of the supernodes it enters and 128 triangles per leaf it
-// enters (22 floats each, from a 2.5 MB triangle table that stays in L2);
-// threads of a warp diverge across leaves.  It is bound by L1/L2 load
-// throughput and warp divergence, not by DRAM.
+// What bounds it: the BVH walk of the trace pass.  Each ray tests ~26
+// supernode boxes and the leaf boxes of the supernodes it enters (shared
+// memory), the sub-boxes of the leaves it enters and G triangles per
+// sub-box it enters (22 floats each, from a 2.5 MB triangle table that
+// stays in L2); threads of a warp diverge across boxes.  It is bound by
+// L1/L2 load throughput and warp divergence, not by DRAM.
 //
 // Layouts: samp [n2, 16, P] (sample.cu); gb [19, P] (ro3, pos3, nrm3,
-// view3, kd3, ks3, mask); tri [C*L, 24] (bvh.py); aabb_lo/hi [C, 3];
-// super_lo/hi [S, 3]; out [12, P] (diff3|spec3 visible, diff3|spec3 all
-// visible); visw [n2, 2P] (light rays, then BSDF rays).
+// view3, kd3, ks3, mask); the structure as trace.cuh's Walk; out [12, P]
+// (diff3|spec3 visible, diff3|spec3 all visible); visw [n2, 2P] (light
+// rays, then BSDF rays).
 
 #include "trace.cuh"
 
@@ -63,28 +71,39 @@ __device__ __forceinline__ void eval_demod(V3 kd, V3 ks, V3 nrm, V3 wo, V3 wi,
     }
 }
 
-__global__ void trace_shade_kernel(const float* __restrict__ samp,
-                                   const float* __restrict__ gb,
-                                   const float* __restrict__ tri,
-                                   const float* __restrict__ alo,
-                                   const float* __restrict__ ahi,
-                                   const float* __restrict__ slo,
-                                   const float* __restrict__ shi,
-                                   float* __restrict__ out,
+__global__ void shade_trace_kernel(const float* __restrict__ samp,
+                                   const float* __restrict__ gb, Walk w,
                                    float* __restrict__ visw, int n2, int P,
-                                   int C, int S, int L, int bsdf, float tmin) {
+                                   float tmin) {
+    extern __shared__ float4 top[];
+    load_top(top, w);
+    const size_t sP = (size_t)P;
+    size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+    if (i >= (size_t)n2 * 2 * sP) return;
+    int p = (int)(i % sP);
+    size_t sk = i / sP;  // 2 s + k: k = 0 the light ray, 1 the BSDF ray
+    if (!(gb[18 * sP + p] > 0.f)) {
+        visw[i] = 1.f;
+        return;
+    }
+    V3 ro = mk3(gb[p], gb[sP + p], gb[2 * sP + p]);
+    const float* dp = samp + ((sk / 2) * 16 + 3 * (sk % 2)) * sP + p;
+    V3 dir = mk3(dp[0], dp[sP], dp[2 * sP]);
+    visw[i] = any_hit(ro, dir, top, w, tmin) ? 0.f : 1.f;
+}
+
+__global__ void shade_kernel(const float* __restrict__ samp,
+                             const float* __restrict__ gb,
+                             const float* __restrict__ visw,
+                             float* __restrict__ out, int n2, int P,
+                             int bsdf) {
     int p = blockIdx.x * blockDim.x + threadIdx.x;
     if (p >= P) return;
     const size_t sP = (size_t)P;
     if (!(gb[18 * sP + p] > 0.f)) {
         for (int k = 0; k < 12; ++k) out[k * sP + p] = 0.f;
-        for (int s = 0; s < n2; ++s) {
-            visw[(size_t)s * 2 * sP + p] = 1.f;
-            visw[(size_t)s * 2 * sP + sP + p] = 1.f;
-        }
         return;
     }
-    V3 ro = mk3(gb[p], gb[sP + p], gb[2 * sP + p]);
     V3 pos = mk3(gb[3 * sP + p], gb[4 * sP + p], gb[5 * sP + p]);
     V3 nrm = mk3(gb[6 * sP + p], gb[7 * sP + p], gb[8 * sP + p]);
     V3 view = mk3(gb[9 * sP + p], gb[10 * sP + p], gb[11 * sP + p]);
@@ -103,13 +122,8 @@ __global__ void trace_shade_kernel(const float* __restrict__ samp,
         float b_mis = 1.f / fmaxf(sp[7 * sP], 1e-4f);
         float l_rad[3] = {sp[8 * sP], sp[9 * sP], sp[10 * sP]};
         float b_rad[3] = {sp[11 * sP], sp[12 * sP], sp[13 * sP]};
-
-        bool occ_l = any_hit(ro, l_dir, tri, alo, ahi, slo, shi, C, S, L, tmin);
-        bool occ_b = any_hit(ro, b_dir, tri, alo, ahi, slo, shi, C, S, L, tmin);
-        float vis_l = occ_l ? 0.f : 1.f;
-        float vis_b = occ_b ? 0.f : 1.f;
-        visw[(size_t)s * 2 * sP + p] = vis_l;
-        visw[(size_t)s * 2 * sP + sP + p] = vis_b;
+        float vis_l = visw[(size_t)s * 2 * sP + p];
+        float vis_b = visw[(size_t)s * 2 * sP + sP + p];
 
         float dl, db, sl[3], sb[3];
         eval_demod(kd, ks, nrm, wo, l_dir, bsdf, &dl, sl);
@@ -134,13 +148,23 @@ __global__ void trace_shade_kernel(const float* __restrict__ samp,
 extern "C" int nvk_trace_shade(const float* samp, const float* gb,
                                const float* tri, const float* aabb_lo,
                                const float* aabb_hi, const float* super_lo,
-                               const float* super_hi, float* out, float* visw,
-                               int n2, int P, int C, int S, int L, int bsdf,
-                               float tmin, cudaStream_t stream) {
-    dim3 block(128);
-    dim3 grid((P + 127) / 128);
-    trace_shade_kernel<<<grid, block, 0, stream>>>(
-        samp, gb, tri, aabb_lo, aabb_hi, super_lo, super_hi, out, visw, n2, P,
-        C, S, L, bsdf, tmin);
+                               const float* super_hi, const float* sub_lo,
+                               const float* sub_hi, float* out, float* visw,
+                               int n2, int P, int C, int S, int L, int G,
+                               int bsdf, float tmin, cudaStream_t stream) {
+    Walk w = {tri, aabb_lo, aabb_hi, super_lo, super_hi, sub_lo, sub_hi,
+              C, S, L, G};
+    size_t smem;
+    cudaError_t err = walk_smem((const void*)shade_trace_kernel, w, &smem);
+    if (err != cudaSuccess) return (int)err;
+    size_t rays = (size_t)n2 * 2 * (size_t)P;
+    if (rays > 0) {
+        shade_trace_kernel<<<(unsigned)((rays + 127) / 128), 128, smem,
+                             stream>>>(samp, gb, w, visw, n2, P, tmin);
+        err = cudaGetLastError();
+        if (err != cudaSuccess) return (int)err;
+    }
+    shade_kernel<<<(P + 127) / 128, 128, 0, stream>>>(samp, gb, visw, out, n2,
+                                                      P, bsdf);
     return (int)cudaGetLastError();
 }

@@ -8,6 +8,7 @@ import os
 import numpy as np
 import torch
 
+from ..device import resolve
 from ..ops import bvh as bvh_mod
 from ..ops import envshade
 from ..ops import vecmath
@@ -24,6 +25,7 @@ SPOT256_PROBE = os.path.join(SPOT256_DIR, 'probe.hdr')   # 512 x 1024
 
 def procedural_env(res_h=256, res_w=512, device=None):
     """Deterministic sky+sun probe [res_h, res_w, 3]."""
+    device = resolve(device)
     ys = (np.arange(res_h) + 0.5) / res_h
     sky = np.stack([
         0.25 + 0.45 * (1 - ys), 0.32 + 0.4 * (1 - ys), 0.5 + 0.35 * (1 - ys)
@@ -39,6 +41,7 @@ def procedural_env(res_h=256, res_w=512, device=None):
 
 
 def load_env_or_procedural(fn, scale=1.0, device=None):
+    device = resolve(device)
     if fn is not None and os.path.exists(fn):
         return light_mod.load_env(fn, scale=scale, device=device)
     print("WARNING: envlight '%s' not found; using procedural sky+sun probe"
@@ -59,6 +62,7 @@ def spot256_scene(device=None):
     maps that are not in the repo, so the material is built here: kd from
     texture_kd.png (sRGB to linear), ks a constant ORM texture (0, 0.5, 0)
     of the same size, no normal map."""
+    device = resolve(device)
     geo = obj_mod.read_obj(os.path.join(SPOT256_DIR, 'mesh.obj'))
     kd = texture_mod.srgb_to_rgb(texture_mod.load_texture2D(
         os.path.join(SPOT256_DIR, 'texture_kd.png'), device=device))

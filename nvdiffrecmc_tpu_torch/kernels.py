@@ -43,14 +43,14 @@ _SIGNATURES = {
     'nvk_resolve': [_VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _VP],
     'nvk_sample': [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I,
                    _VP],
-    'nvk_trace_shade': [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _I,
-                        _I, _I, _I, _I, _I, _F, _VP],
+    'nvk_trace_shade': [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP,
+                        _VP, _I, _I, _I, _I, _I, _I, _I, _F, _VP],
     'nvk_denoise': [_VP, _VP, _VP, _VP, _I, _I, _I, _F, _I, _VP],
     'nvk_shade_bwd': [_VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _VP],
     'nvk_light_scatter': [_VP, _VP, _I, _I, _I, _VP],
     'nvk_scatter_add': [_VP, _VP, _VP, _LL, _I, _LL, _VP],
-    'nvk_trace': [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _F,
-                  _VP],
+    'nvk_trace': [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _I, _I,
+                  _I, _I, _I, _F, _VP],
     'nvk_mask': [_VP, _VP, _VP, _VP, _I, _I, _I, _F, _F, _VP],
 }
 

@@ -1,7 +1,11 @@
-"""Two-level ray-acceleration structure rebuilt every step (counterpart of
+"""Ray-acceleration structure rebuilt every step (counterpart of
 nvdiffrecmc_tpu/ops/bvh.py): triangles are Morton-sorted by centroid and
 grouped into fixed-size leaves, with supernode AABBs over groups of SUPER
-consecutive leaves.
+consecutive leaves.  The port adds a third level of its own: sub-boxes
+over SUB consecutive triangles of each leaf (spatially compact, since the
+triangles are Morton-sorted), so a per-ray walk tests SUB triangles per box
+it enters instead of a whole leaf.  The fields the JAX package also has
+(tri, aabb_*, super_*) are computed exactly as there.
 
 Each triangle is stored as the Plücker columns of the JAX package's
 intersection matrix.  With ray features d, m = o x d, o:
@@ -17,10 +21,12 @@ so a degenerate or padded triangle (all zeros) never hits.  Row layout of
 two zeros."""
 
 import dataclasses
+import math
 
 import torch
 
 SUPER = 8          # leaves per supernode
+SUB = 8            # triangles per sub-box (at most; see build)
 TRI_STRIDE = 24    # floats per triangle row
 AABB_PAD = 1e-6    # relative AABB growth: culling stays conservative
 
@@ -32,7 +38,10 @@ class LeafBVH:
     aabb_hi: torch.Tensor   # [C, 3]
     super_lo: torch.Tensor  # [S, 3]
     super_hi: torch.Tensor  # [S, 3]
+    sub_lo: torch.Tensor    # [C*L/G, 3] boxes over G consecutive triangles
+    sub_hi: torch.Tensor    # [C*L/G, 3]
     leaf_size: int
+    sub_size: int           # G
 
     @property
     def n_leaves(self):
@@ -72,8 +81,13 @@ def tri_rows(v0, v1, v2, valid):
 
 def build(v_pos, tri, tri_mask=None, leaf_size=128):
     """Build the structure on v_pos's device.  C = ceil(T/L) leaves,
-    S = ceil(C/SUPER) supernodes; invalid and degenerate triangles sort to
-    the end and are zeroed; empty leaves get an empty (lo > hi) box."""
+    S = ceil(C/SUPER) supernodes, C*L/G sub-boxes of G = gcd(SUB, L)
+    triangles (SUB for the power-of-two leaves used, min(SUB, L) below it);
+    invalid and degenerate triangles sort to the end and are zeroed; empty
+    leaves and sub-boxes get an empty (lo > hi) box.  Every box grows by
+    the same AABB_PAD of the scene extent, so a sub-box lies inside its
+    leaf's box and a ray's float slab test never enters a sub-box without
+    entering its leaf."""
     v_pos = v_pos.detach()
     T = tri.shape[0]
     L = leaf_size
@@ -101,17 +115,25 @@ def build(v_pos, tri, tri_mask=None, leaf_size=128):
         v0, v1, v2 = (torch.cat([v, z]) for v in (v0, v1, v2))
         valid = torch.cat([valid, valid.new_zeros(pad)])
     C = (T + pad) // L
+    G = math.gcd(SUB, L)
     rows = tri_rows(v0, v1, v2, valid.float())
 
-    pts = torch.stack([v0, v1, v2], dim=1).reshape(C, L * 3, 3)
-    mk = valid.reshape(C, L).repeat_interleave(3, dim=1)[..., None]
-    lo = torch.where(mk, pts, big).amin(1)
-    hi = torch.where(mk, pts, -big).amax(1)
-    occupied = mk.any(1)
+    # sub-box extents first; a leaf's extent is the min/max of its
+    # sub-boxes', the same floats as over its points
+    pts = torch.stack([v0, v1, v2], dim=1).reshape(C * L // G, G * 3, 3)
+    mk = valid.reshape(-1, G).repeat_interleave(3, dim=1)[..., None]
+    sub_lo = torch.where(mk, pts, big).amin(1)
+    sub_hi = torch.where(mk, pts, -big).amax(1)
+    lo = sub_lo.reshape(C, L // G, 3).amin(1)
+    hi = sub_hi.reshape(C, L // G, 3).amax(1)
+    occupied = valid.reshape(C, L).any(1, keepdim=True)
     extent = torch.where(occupied, torch.maximum(lo.abs(), hi.abs()), 0.0)
     grow = AABB_PAD * extent.amax()
     lo = torch.where(occupied, lo - grow, lo)
     hi = torch.where(occupied, hi + grow, hi)
+    sub_occupied = mk.any(1)
+    sub_lo = torch.where(sub_occupied, sub_lo - grow, sub_lo)
+    sub_hi = torch.where(sub_occupied, sub_hi + grow, sub_hi)
 
     spad = (-C) % SUPER
     lo_p = torch.cat([lo, lo.new_full((spad, 3), big)]) if spad else lo
@@ -121,4 +143,5 @@ def build(v_pos, tri, tri_mask=None, leaf_size=128):
                    aabb_hi=hi.contiguous(),
                    super_lo=lo_p.reshape(S, SUPER, 3).amin(1).contiguous(),
                    super_hi=hi_p.reshape(S, SUPER, 3).amax(1).contiguous(),
-                   leaf_size=L)
+                   sub_lo=sub_lo.contiguous(), sub_hi=sub_hi.contiguous(),
+                   leaf_size=L, sub_size=G)

@@ -23,6 +23,7 @@ exact permutation) is a TPU tactic and is not carried over."""
 import numpy as np
 import torch
 
+from ..device import resolve
 from . import pallas_shade, tracer
 from .vecmath import dot, safe_normalize
 
@@ -185,6 +186,7 @@ def _env_shade_loop(mask, ro, gb_pos, gb_normal, gb_view_pos, gb_kd, gb_ks,
 
 def make_perms(n_samples_x, n_tables=32768, seed=0x5eed, device=None):
     """Host-side stratified-permutation tables [n_tables, n^2] int64."""
+    device = resolve(device)
     rng = np.random.RandomState(seed)
     n2 = n_samples_x * n_samples_x
     return torch.as_tensor(np.argsort(rng.rand(n_tables, n2), axis=-1),

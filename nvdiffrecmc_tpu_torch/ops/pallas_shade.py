@@ -8,9 +8,10 @@ Four kernels, each beside its plain PyTorch version:
   pixel), one light-importance sample by inverting the row CDF and then that
   row's column CDF, one BSDF sample (cosine or GGX-VNDF lobe), the MIS pdf
   sums, the nearest-texel radiance of both directions and their texel ids.
-- `trace_shade` (csrc/shade.cu; plain: `trace_shade_plain`): per pixel,
-  for every stratum in order, trace the light ray then the BSDF ray (any
-  hit, from `ro`), and accumulate the demodulated diffuse and specular
+- `trace_shade` (csrc/shade.cu; plain: `trace_shade_plain`): trace the
+  light ray and the BSDF ray of every stratum and pixel (any hit, from
+  `ro`; on the card a pass with one thread per ray), then per pixel, for
+  every stratum in order, accumulate the demodulated diffuse and specular
   radiance with visibility and with everything visible.  The visibility of
   every ray is returned as `visw` so the backward never re-traces.
 - `shade_bwd` (csrc/shade_bwd.cu; plain: `shade_bwd_plain`): the adjoint
@@ -38,7 +39,8 @@ import math
 import torch
 
 from .. import kernels
-from . import envshade, tracer
+from ..device import resolve
+from . import envshade, pallas_tracer, tracer
 from .vecmath import clip_split, maximum_split
 
 TWO_PI = 2.0 * math.pi
@@ -342,6 +344,7 @@ def perm_seeds(generator, P, n_samples_x, perms=None, device=None):
     """Per-pixel light and BSDF permutation seeds [P] each: rows of the
     permutation table perms when n2 is not a power of two, else Kensler
     seeds."""
+    device = resolve(device)
     n2 = n_samples_x * n_samples_x
     table = n2 & (n2 - 1) != 0 and perms is not None
     hi = perms.shape[0] if table else 2 ** 31 - 1
@@ -365,6 +368,7 @@ def stratum_cells(i, n_samples_x, light_perm, bsdf_perm, perms=None):
 def make_uniforms(generator, n2, P, n_samples_x, perms=None, device=None):
     """[n2, 8, P]: rows 0-4 uniforms, 5/6 stratified cell ids (Kensler
     permutation for power-of-two strata, else table-based), row 7 zero."""
+    device = resolve(device)
     u = torch.rand((n2, 5, P), generator=generator, device=device)
     seeds = perm_seeds(generator, P, n_samples_x, perms, device)
     idx = torch.arange(n2, device=device)[:, None]
@@ -493,23 +497,15 @@ def _trace_shade_cuda(samp, gb, bvh, BSDF, tmin):
     n2, _, P = samp.shape
     dev = samp.device
     f32 = torch.float32
-    L, C = bvh.leaf_size, bvh.n_leaves
-    S = bvh.super_lo.shape[0]
     kernels.require(samp, 'samp', f32, (n2, 16, P))
     kernels.require(gb, 'gb', f32, (GB_ROWS, P), dev)
-    kernels.require(bvh.tri, 'bvh.tri', f32, (C * L, 24), dev)
-    kernels.require(bvh.aabb_lo, 'bvh.aabb_lo', f32, (C, 3), dev)
-    kernels.require(bvh.aabb_hi, 'bvh.aabb_hi', f32, (C, 3), dev)
-    kernels.require(bvh.super_lo, 'bvh.super_lo', f32, (S, 3), dev)
-    kernels.require(bvh.super_hi, 'bvh.super_hi', f32, (S, 3), dev)
+    walk = pallas_tracer.walk_args(bvh, dev)
     out = torch.empty((12, P), dtype=f32, device=dev)
     visw = torch.empty((n2, 2 * P), dtype=f32, device=dev)
     with torch.cuda.device(dev):
         rc = kernels.lib().nvk_trace_shade(
-            samp.data_ptr(), gb.data_ptr(), bvh.tri.data_ptr(),
-            bvh.aabb_lo.data_ptr(), bvh.aabb_hi.data_ptr(),
-            bvh.super_lo.data_ptr(), bvh.super_hi.data_ptr(), out.data_ptr(),
-            visw.data_ptr(), n2, P, C, S, L, int(BSDF), float(tmin),
+            samp.data_ptr(), gb.data_ptr(), *walk[:7], out.data_ptr(),
+            visw.data_ptr(), n2, P, *walk[7:], int(BSDF), float(tmin),
             kernels.stream_ptr(samp))
     kernels.LAUNCHES['trace_shade'] += 1
     kernels.check(rc, 'nvk_trace_shade')

@@ -4,10 +4,11 @@
 Two kernels, each beside its plain PyTorch version:
 
 - `any_hit_pallas` / `trace_rayf` (csrc/trace.cu; plain: tracer.any_hit):
-  one thread per ray walks supernode -> leaf -> triangles and stops at the
-  first hit.  The walk is csrc/trace.cuh, shared with the trace + shade
-  kernel, and computes every quantity in the plain version's order, so
-  both give the same bits.
+  one thread per ray walks supernode -> leaf -> sub-box -> triangles and
+  stops at the first hit.  The walk is csrc/trace.cuh, shared with the
+  trace + shade kernel, and computes every quantity in the plain version's
+  order, so both give the same bits.  It holds the supernode and leaf
+  boxes in shared memory (`walk_smem_bytes`).
 - `visit_masks` (csrc/mask.cu; plain: `visit_masks_plain`): per block of
   ray_block rays and per leaf, whether any ray of the block enters the
   leaf's box in [tmin, tmax].  Its slab test follows the JAX package
@@ -30,6 +31,8 @@ BIG = 3e37
 TMAX_INF = 1e16
 _MASK_BUDGET = 1 << 24      # floats live per block group of the plain mask
 MASK_MAX_LEAVES = 12288     # the kernel's one int flag per leaf, in 48 KB
+WALK_BOX_BYTES = 32         # shared memory per supernode or leaf box
+SMEM_MAX = 232448           # the dynamic shared memory an H100 block can use
 
 
 def _check_tmax(tmax):
@@ -38,26 +41,51 @@ def _check_tmax(tmax):
                          '%r' % (TMAX_INF, tmax))
 
 
+def walk_smem_bytes(bvh: LeafBVH):
+    """Dynamic shared memory of a block of the BVH walk (trace.cuh): the
+    supernode and leaf boxes, 32 bytes each.  Raises past the 227 KB a
+    block of the card can use: the walk has no path through global memory
+    for them."""
+    S, C = bvh.super_lo.shape[0], bvh.n_leaves
+    n = WALK_BOX_BYTES * (S + C)
+    if n > SMEM_MAX:
+        raise ValueError('BVH walk: %d supernode and %d leaf boxes need %d '
+                         'bytes of shared memory, past the %d a block can '
+                         'use (build with a larger leaf_size)'
+                         % (S, C, n, SMEM_MAX))
+    return n
+
+
+def walk_args(bvh: LeafBVH, dev):
+    """Validate the structure for the walk on device dev and return the
+    C entry points' arguments for it: the 7 pointers of trace.cuh's Walk
+    (tri, aabb_lo/hi, super_lo/hi, sub_lo/hi), then C, S, L, G."""
+    f32 = torch.float32
+    L, C, G = bvh.leaf_size, bvh.n_leaves, bvh.sub_size
+    S = bvh.super_lo.shape[0]
+    if L % G:
+        raise ValueError('sub_size %d does not divide leaf_size %d' % (G, L))
+    walk_smem_bytes(bvh)
+    tensors = (('tri', (C * L, 24)), ('aabb_lo', (C, 3)), ('aabb_hi', (C, 3)),
+               ('super_lo', (S, 3)), ('super_hi', (S, 3)),
+               ('sub_lo', (C * L // G, 3)), ('sub_hi', (C * L // G, 3)))
+    ptrs = tuple(kernels.require(getattr(bvh, k), 'bvh.' + k, f32, shape,
+                                 dev).data_ptr() for k, shape in tensors)
+    return ptrs + (C, S, L, G)
+
+
 def _trace_cuda(ro, rd, bvh: LeafBVH, tmin):
     R = ro.shape[0]
     dev = ro.device
     f32 = torch.float32
-    L, C = bvh.leaf_size, bvh.n_leaves
-    S = bvh.super_lo.shape[0]
     kernels.require(ro, 'ro', f32, (R, 3))
     kernels.require(rd, 'rd', f32, (R, 3), dev)
-    kernels.require(bvh.tri, 'bvh.tri', f32, (C * L, 24), dev)
-    kernels.require(bvh.aabb_lo, 'bvh.aabb_lo', f32, (C, 3), dev)
-    kernels.require(bvh.aabb_hi, 'bvh.aabb_hi', f32, (C, 3), dev)
-    kernels.require(bvh.super_lo, 'bvh.super_lo', f32, (S, 3), dev)
-    kernels.require(bvh.super_hi, 'bvh.super_hi', f32, (S, 3), dev)
+    walk = walk_args(bvh, dev)
     occ = torch.empty((R,), dtype=torch.bool, device=dev)
     with torch.cuda.device(dev):
         rc = kernels.lib().nvk_trace(
-            ro.data_ptr(), rd.data_ptr(), bvh.tri.data_ptr(),
-            bvh.aabb_lo.data_ptr(), bvh.aabb_hi.data_ptr(),
-            bvh.super_lo.data_ptr(), bvh.super_hi.data_ptr(), occ.data_ptr(),
-            R, C, S, L, float(tmin), kernels.stream_ptr(ro))
+            ro.data_ptr(), rd.data_ptr(), *walk[:7], occ.data_ptr(), R,
+            *walk[7:], float(tmin), kernels.stream_ptr(ro))
     kernels.LAUNCHES['trace'] += 1
     kernels.check(rc, 'nvk_trace')
     return occ

@@ -2,10 +2,14 @@
 of nvdiffrecmc_tpu/ops/tracer.py).
 
 This is the tracer's plain version: rays are processed in chunks, each leaf
-box is slab-tested against the whole chunk, and every (ray, leaf) pair that
-enters tests the leaf's triangles.  The CUDA tracer inside
-csrc/shade.cu walks the same boxes per ray (supernode, leaf, triangles) and
-computes every quantity below in the same order, so both give the same bits.
+box and each sub-box is slab-tested against the whole chunk, and every
+(ray, sub-box) pair that enters both its leaf and the sub-box tests the
+sub-box's triangles.  The CUDA walk (csrc/trace.cuh, inside the trace +
+shade kernel and the standalone tracer) tests supernode, leaf and sub-box
+per ray, then the triangles, and computes every quantity below in the
+same order, so both give the same bits: a supernode box holds its leaves'
+boxes and the float slab test is monotone in the box, so a ray that enters
+a leaf enters its supernode, and the walk's extra test removes nothing.
 """
 
 import torch
@@ -52,21 +56,33 @@ def tri_hits(o, d, rows, tmin):
     return same & (num * den > 0.0)
 
 
-def any_hit(ro, rd, bvh: LeafBVH, tmin=0.0, ray_chunk=1 << 16):
+def entered(o, d, bvh: LeafBVH, tmin):
+    """[R, C*L/G] bool: the ray enters the sub-box and its leaf's box."""
+    inv = 1.0 / d
+    leaf = slab_hits(o, inv, bvh.aabb_lo, bvh.aabb_hi, tmin)
+    per_leaf = bvh.leaf_size // bvh.sub_size
+    return (slab_hits(o, inv, bvh.sub_lo, bvh.sub_hi, tmin)
+            & leaf.repeat_interleave(per_leaf, dim=1))
+
+
+def any_hit(ro, rd, bvh: LeafBVH, tmin=0.0, ray_chunk=None):
     """Boolean occlusion [R] of rays (ro, rd) [R, 3] for t > tmin.  Each
-    chunk of rays is slab-tested against every leaf box; the (ray, leaf)
-    pairs that enter test the leaf's triangles in batches of at most 2^24
-    gathered floats on the CPU, 2^27 on a card."""
+    chunk of rays is slab-tested against every leaf box and sub-box
+    (ray_chunk rays; by default as many as keep the [rays, sub-boxes]
+    temporaries at 2^24 entries on the CPU, 2^26 on a card); the (ray,
+    sub-box) pairs that enter test the sub-box's triangles in batches of
+    at most 2^24 gathered floats on the CPU, 2^27 on a card."""
     R = ro.shape[0]
-    L = bvh.leaf_size
-    rows = bvh.tri.reshape(bvh.n_leaves, L, -1)
+    G = bvh.sub_size
+    rows = bvh.tri.reshape(-1, G, bvh.tri.shape[-1])
+    if ray_chunk is None:
+        ray_chunk = max(1, (1 << (26 if ro.is_cuda else 24)) // rows.shape[0])
     pair_chunk = max(1, (1 << (27 if ro.is_cuda else 24))
-                     // (L * rows.shape[-1]))
+                     // (G * rows.shape[-1]))
     occ = torch.zeros(R, dtype=torch.bool, device=ro.device)
     for s in range(0, R, ray_chunk):
         o, d = ro[s:s + ray_chunk], rd[s:s + ray_chunk]
-        box = slab_hits(o, 1.0 / d, bvh.aabb_lo, bvh.aabb_hi, tmin)
-        pr, pc = torch.nonzero(box, as_tuple=True)
+        pr, pc = torch.nonzero(entered(o, d, bvh, tmin), as_tuple=True)
         hit = torch.zeros(o.shape[0], dtype=torch.bool, device=ro.device)
         for p in range(0, pr.numel(), pair_chunk):
             r_, c_ = pr[p:p + pair_chunk], pc[p:p + pair_chunk]

@@ -5,6 +5,8 @@ matrices."""
 import numpy as np
 import torch
 
+from ..device import resolve
+
 
 def dot(x, y):
     """Channelwise dot product over the last axis, keepdims."""
@@ -40,6 +42,7 @@ def abs_pos0(x):
 
 def pixel_grid(width, height, device=None):
     """[H, W, 2] grid of normalized pixel-center coordinates (x, y) in [0,1]."""
+    device = resolve(device)
     y = (torch.arange(height, dtype=torch.float32, device=device) + 0.5) / height
     x = (torch.arange(width, dtype=torch.float32, device=device) + 0.5) / width
     yy, xx = torch.meshgrid(y, x, indexing='ij')

@@ -9,11 +9,14 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..device import resolve
+
 
 def create_trainable_env_rnd(base_res, scale=0.5, bias=0.25, seed=0,
                              device=None):
     """A [base_res, base_res, 3] light: uniform noise * scale + bias, from
     numpy's RandomState(seed) as in the JAX package."""
+    device = resolve(device)
     rng = np.random.RandomState(seed)
     base = rng.rand(base_res, base_res, 3).astype(np.float32) * scale + bias
     return torch.as_tensor(base, device=device)
@@ -96,6 +99,7 @@ def _read_hdr(path):
 
 def load_env(fn, scale=1.0, device=None):
     """Load an .hdr probe as a float32 [H, W, 3] tensor."""
+    device = resolve(device)
     ext = os.path.splitext(fn)[1].lower()
     assert ext == '.hdr', 'Unknown envlight extension %s' % ext
     img = _read_hdr(fn) * scale

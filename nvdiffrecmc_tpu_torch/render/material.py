@@ -9,10 +9,12 @@ import re
 import numpy as np
 import torch
 
+from ..device import resolve
 from . import texture
 
 
 def load_mtl(fn, clear_ks=True, device=None):
+    device = resolve(device)
     mtl_path = os.path.dirname(fn)
     with open(fn, 'r') as f:
         lines = f.readlines()

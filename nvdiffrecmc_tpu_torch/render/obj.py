@@ -8,6 +8,7 @@ import os
 import numpy as np
 import torch
 
+from ..device import resolve
 from . import material as material_mod
 from . import mesh as mesh_mod
 from . import texture
@@ -58,6 +59,8 @@ def read_obj(filename):
 
 def mesh_from_lists(vertices, texcoords, normals, faces, tfaces, nfaces,
                     material=None, device=None):
+    device = resolve(device)
+
     def f32(x):
         return torch.as_tensor(np.array(x, np.float32), device=device)
 
@@ -74,6 +77,7 @@ def mesh_from_lists(vertices, texcoords, normals, faces, tfaces, nfaces,
 
 
 def load_obj(filename, clear_ks=True, device=None):
+    device = resolve(device)
     obj_path = os.path.dirname(filename)
     all_materials = [{
         'name': '_default_mat',

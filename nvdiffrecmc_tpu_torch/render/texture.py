@@ -14,6 +14,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from ..device import resolve
 from ..ops import texture as tex_ops
 from ..ops import vecmath
 
@@ -68,6 +69,7 @@ def create_trainable(init, res=None, min_max=None, device=None):
     """A Texture2D whose data is a fresh tensor, resized to res (bilinear
     magnification, area minification); its mips are built when sampled.
     init: an array [C], [H, W, C] or [1, H, W, C]."""
+    device = resolve(device)
     init = _to_nhwc(init, device)
     if res is not None:
         init = vecmath.scale_img_nhwc(init, res)
@@ -206,6 +208,7 @@ def _to_nhwc(init, device):
 
 
 def load_texture2D(fn, lambda_fn=None, channels=None, device=None):
+    device = resolve(device)
     img = load_image(fn)
     if channels is not None:
         img = img[..., 0:channels]

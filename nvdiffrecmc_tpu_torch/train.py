@@ -14,6 +14,7 @@ import os
 import numpy as np
 import torch
 
+from .device import resolve
 from .ops import envshade
 from .ops import loss as loss_ops
 from .ops import vecmath
@@ -78,6 +79,7 @@ def initial_guess_material(geometry, mlp, FLAGS, device=None):
     RandomState(0), a flat normal map."""
     if mlp:
         raise NotImplementedError('neural (kd_ks) materials are not ported')
+    device = resolve(device)
 
     def f32(k):
         return torch.tensor(FLAGS[k], dtype=torch.float32, device=device)

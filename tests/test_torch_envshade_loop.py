@@ -138,10 +138,10 @@ def test_loop_matches_fused_pipeline(shadow_scale):
     gbuf, (v, tri) = _loop_scene(side=8)
     n_samples_x = 17
     n2, P = n_samples_x * n_samples_x, gbuf[0].size
-    perms = t_es.make_perms(n_samples_x, n_tables=16)
+    perms = t_es.make_perms(n_samples_x, n_tables=16, device='cpu')
     gen = torch.Generator()
     gen.manual_seed(5)
-    u8 = t_ps.make_uniforms(gen, n2, P, n_samples_x, perms)
+    u8 = t_ps.make_uniforms(gen, n2, P, n_samples_x, perms, device='cpu')
     tbvh = t_bvh.build(t(v), t(tri), leaf_size=16)
     targs = _port_args(gbuf, smooth_light())
     got = t_es.env_shade(*targs, tbvh, perms, 0, shadow_scale,
@@ -158,13 +158,13 @@ def test_stratum_draws_match_make_uniforms(n_samples_x):
     """The loop's per-stratum cells are make_uniforms' rows, and the sample
     kernel's plain version on one stratum is that stratum of the whole."""
     n2, P = n_samples_x * n_samples_x, 64
-    perms = t_es.make_perms(n_samples_x, n_tables=16)
+    perms = t_es.make_perms(n_samples_x, n_tables=16, device='cpu')
     gen = torch.Generator()
     gen.manual_seed(3)
-    u8 = t_ps.make_uniforms(gen, n2, P, n_samples_x, perms)
+    u8 = t_ps.make_uniforms(gen, n2, P, n_samples_x, perms, device='cpu')
     gen.manual_seed(3)
     torch.rand((n2, 5, P), generator=gen)
-    seeds = t_ps.perm_seeds(gen, P, n_samples_x, perms)
+    seeds = t_ps.perm_seeds(gen, P, n_samples_x, perms, device='cpu')
     base, pdf, rows, cols = (t(a) for a in smooth_light())
     rng = np.random.RandomState(4)
     nrm = rng.randn(3, P)
@@ -203,7 +203,7 @@ def test_loop_raises_under_autograd():
     targs[2] = targs[2].requires_grad_()
     with pytest.raises(NotImplementedError):
         t_es.env_shade(*targs, tbvh, None, 0, 1.0, n_samples_x=32)
-    perms = t_es.make_perms(17, n_tables=8)
+    perms = t_es.make_perms(17, n_tables=8, device='cpu')
     with torch.no_grad():
         d, s = t_es.env_shade(*targs, tbvh, perms, 0, 1.0, n_samples_x=17)
     assert d.shape == (1, 4, 4, 3) and bool(torch.isfinite(s).all())

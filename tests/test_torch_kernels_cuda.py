@@ -6,7 +6,9 @@ light scatter with every ray on one texel; the standalone tracer and the
 visit mask on 2^18 rays made as bench.py makes them, the mask also on
 synthetic box sets of 5 and 300 leaves; the sample kernel on one stratum,
 as the stratum loop launches it; the launches of a validation render past
-256 strata).
+256 strata; the BVH walk of trace and trace + shade at the main path's full
+size, on rays that graze sub-box and leaf faces, and its refusal of a
+structure whose boxes do not fit in shared memory).
 Marked `gpu`; skipped where torch.cuda.is_available() is false.  On a machine with a GPU and no JAX:
 
     python -m pytest --noconftest -m gpu tests/test_torch_kernels_cuda.py
@@ -317,3 +319,99 @@ def test_validation_render_launches():
         {k: 0 for k in kernels.LAUNCHES}, sample=289, trace=289, resolve=1)
     assert all(bool(torch.isfinite(v).all()) for v in buf.values())
     assert float((buf['shaded'][..., 3] > 0).float().mean()) > 0.05
+
+
+def test_walk_full_size():
+    """Trace + shade on one 512x512 frame of the slice (n_samples 4) and
+    the standalone tracer on the 2^21 bench rays, each against its plain
+    version on the three-level structure of the spot mesh."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA device')
+    import chip_smoke
+    from nvdiffrecmc_tpu_torch import checks, kernels
+    from nvdiffrecmc_tpu_torch.dataset.dataset_mesh import (DatasetMesh,
+                                                            spot256_scene)
+    from nvdiffrecmc_tpu_torch.geometry import DLMesh
+    kernels.build()
+    dev = torch.device('cuda', 0)
+    mesh = spot256_scene(dev)
+    FLAGS = chip_smoke.flags(512, 4)
+    ds = DatasetMesh(mesh, 3.0, FLAGS, seed=0)
+    geometry = DLMesh(ds.ref_mesh, FLAGS)
+    with torch.no_grad(), checks.Recorder() as rec:
+        chip_smoke.render_frame(ds, geometry, mesh.material, FLAGS, 0, dev)
+        torch.cuda.synchronize()
+    samp, gb, bvh = rec.args['trace_shade'][:3]
+    assert bvh.n_leaves == 207 and bvh.sub_lo.shape == (207 * 128 //
+                                                        bvh.sub_size, 3)
+    with torch.no_grad():
+        r = checks.run('trace_shade', rec.args, reps=1)
+        assert r['ok'] and r['agree'] == 1.0, r
+        ro, rd, _ = chip_smoke.tracer_rays(mesh, 1 << 21, dev)
+        r = checks.check_trace(ro, rd, bvh, reps=1)
+    assert r['ok'] and r['agree'] == 1.0, r
+
+
+def test_trace_grazing_rays(spot_rays):
+    """Rays whose origin lies on a sub-box or leaf face with a zero (or
+    negative zero) direction along its normal, and rays aimed at box
+    corners and at points on leaf faces: the kernel equals the plain
+    tracer on every ray (the same slab arithmetic, NaN of 0 * inf
+    included)."""
+    from nvdiffrecmc_tpu_torch import checks
+    _, _, bvh = spot_rays
+    g = torch.Generator(device=bvh.tri.device)
+    g.manual_seed(3)
+    dev = bvh.tri.device
+    boxes = []
+    for lo, hi in ((bvh.sub_lo, bvh.sub_hi), (bvh.aabb_lo, bvh.aabb_hi)):
+        real = lo[:, 0] <= hi[:, 0]
+        boxes.append((lo[real], hi[real]))
+    ros, rds = [], []
+    for lo, hi in boxes:
+        n = lo.shape[0]
+        u = torch.rand((n, 3), generator=g, device=dev)
+        inner = lo + u * (hi - lo)
+        for ax in range(3):
+            for face in (lo, hi):
+                for sign in (1.0, -1.0):
+                    o = inner.clone()
+                    o[:, ax] = face[:, ax]
+                    o[:, (ax + 1) % 3] = lo[:, (ax + 1) % 3] - 0.5
+                    d = torch.zeros_like(o)
+                    d[:, (ax + 1) % 3] = 1.0
+                    d[:, ax] = 0.0 * sign             # +0 and -0
+                    ros.append(o)
+                    rds.append(d)
+        far = inner + torch.randn((n, 3), generator=g, device=dev)
+        for target in (lo, hi, inner):
+            ros.append(far)
+            rds.append(target - far)
+    ro = torch.cat(ros).contiguous()
+    rd = torch.cat(rds).contiguous()
+    r = checks.check_trace(ro, rd, bvh, reps=1)
+    assert r['ok'] and r['agree'] == 1.0, r
+    occ_share = float(r['compared_on'].split(', ')[1].split()[0])
+    assert 0.0 < occ_share < 1.0
+
+
+def test_walk_refuses_too_many_boxes():
+    """8,000 one-triangle leaves and 1,000 supernodes need 288,000 bytes of
+    shared memory, past the 227 KB of a block: both wrappers raise."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA device')
+    from nvdiffrecmc_tpu_torch.ops import bvh as bvh_mod
+    from nvdiffrecmc_tpu_torch.ops import pallas_shade, pallas_tracer
+    dev = torch.device('cuda', 0)
+    rng = np.random.RandomState(5)
+    v = torch.as_tensor(rng.randn(24000, 3).astype(np.float32), device=dev)
+    tri = torch.arange(24000, dtype=torch.int32, device=dev).reshape(-1, 3)
+    bvh = bvh_mod.build(v, tri, leaf_size=1)
+    ro = torch.zeros((64, 3), device=dev)
+    rd = torch.ones((64, 3), device=dev)
+    with pytest.raises(ValueError, match='shared memory'):
+        pallas_tracer.any_hit_pallas(ro, rd, bvh)
+    with pytest.raises(ValueError, match='shared memory'):
+        pallas_shade._trace_shade_cuda(torch.zeros((1, 16, 64), device=dev),
+                                       torch.zeros((19, 64), device=dev),
+                                       bvh, 0, 0.0)

@@ -41,7 +41,8 @@ def _case(name):
         return (j_vecmath.safe_normalize(jnp.asarray(x)),
                 t_vecmath.safe_normalize(torch.as_tensor(x)))
     if name == 'pixel_grid':
-        return j_vecmath.pixel_grid(7, 5), t_vecmath.pixel_grid(7, 5)
+        return (j_vecmath.pixel_grid(7, 5),
+                t_vecmath.pixel_grid(7, 5, device='cpu'))
     if name == 'camera':
         rs = [np.random.RandomState(3), np.random.RandomState(3)]
         j = (j_vecmath.perspective(0.8, 1.3, 0.1, 100.0)
@@ -125,7 +126,7 @@ def _case(name):
                     torch.as_tensor(p)))
     if name == 'make_perms':
         return ([j_envshade.make_perms(3, n_tables=64)],
-                [t_envshade.make_perms(3, n_tables=64)])
+                [t_envshade.make_perms(3, n_tables=64, device='cpu')])
     if name == 'lobe_weights':
         col = np.abs(x[0]) * 0.5
         wo, nrm = x[1] + 0.1, x[0][::-1].copy()

@@ -109,7 +109,7 @@ def test_trainable_textures_and_light_match_jax():
         bounds = (np.array([0.1, 0.2, 0.3], np.float32),
                   np.array([0.6, 0.7, 0.8], np.float32))
         jt = j_texture.create_trainable(init, res, True, bounds)
-        tt = t_texture.create_trainable(init, res, bounds)
+        tt = t_texture.create_trainable(init, res, bounds, device='cpu')
         # the projections the trainer applies after each step
         for got, want in ((tt, jt), (tt.clamp(), jt.clamp()),
                           (tt.normalize(), jt.normalize())):
@@ -119,7 +119,7 @@ def test_trainable_textures_and_light_match_jax():
                 np.testing.assert_allclose(g.numpy(), np.asarray(w),
                                            rtol=1e-6, atol=1e-6)
     np.testing.assert_array_equal(
-        t_light.create_trainable_env_rnd(16, 0.3, 0.2).numpy(),
+        t_light.create_trainable_env_rnd(16, 0.3, 0.2, device='cpu').numpy(),
         np.asarray(j_light.create_trainable_env_rnd(16, 0.3, 0.2)))
 
 
@@ -128,7 +128,7 @@ def test_initial_guess_material_matches_jax():
     jflags.update(texture_res=[16, 16])
     tflags = t_config.make_flags(texture_res=[16, 16])
     jp, js = j_train.initial_guess_material(None, False, jflags)
-    tp, ts = t_train.initial_guess_material(None, False, tflags)
+    tp, ts = t_train.initial_guess_material(None, False, tflags, device='cpu')
     for k in ('kd', 'ks', 'normal'):
         np.testing.assert_array_equal(tp[k].numpy(), np.asarray(jp[k]))
         for a, b in zip(ts['min_max'][k], js['min_max'][k]):

@@ -118,7 +118,7 @@ def test_antialias_grads_match_jax():
 
 def test_gbuffer_depth_has_no_gradient():
     m, rot, _, _, _ = _scene()
-    mesh = convert.mesh(m)
+    mesh = convert.mesh(m, device='cpu')
     mesh.v_pos = mesh.v_pos.clone().requires_grad_()
     v_clip = t_xfm.xfm_points(mesh.v_pos, torch.as_tensor(rot))
     rast, db = t_ras.rasterize(v_clip, mesh.t_pos_idx, (RES, RES))

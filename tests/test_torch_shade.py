@@ -180,7 +180,7 @@ def test_shade_forward_matches_jax(shadow_scale):
 def test_make_uniforms_shape_and_strata():
     g = torch.Generator()
     g.manual_seed(0)
-    u = t_ps.make_uniforms(g, 16, 100, 4)
+    u = t_ps.make_uniforms(g, 16, 100, 4, device='cpu')
     assert u.shape == (16, 8, 100)
     assert float(u[:, :5].min()) >= 0.0 and float(u[:, :5].max()) < 1.0
     # each pixel visits every stratum cell exactly once

@@ -65,7 +65,7 @@ def test_render_mesh_matches_jax(monkeypatch):
                                 jbvh, perms, jax.random.PRNGKey(0),
                                 background=jnp.asarray(white), **kw)
 
-    tmesh = convert.mesh(m)
+    tmesh = convert.mesh(m, device='cpu')
     tgeo = TDLMesh(tmesh, FLAGS)
     tm, tbvh = tgeo.getMesh(tgeo.parameters(), tmesh.material)
     n2, P = N_SAMPLES * N_SAMPLES, RES * RES
@@ -74,9 +74,12 @@ def test_render_mesh_matches_jax(monkeypatch):
     gen.manual_seed(0)
     with torch.no_grad():
         got = t_render.render_mesh(
-            FLAGS, tm, convert.tensor(mvp), convert.tensor(campos),
-            convert.light(lgt), (RES, RES), tbvh, convert.tensor(perms), gen,
-            background=torch.as_tensor(white), uniforms=[convert.tensor(u8)],
+            FLAGS, tm, convert.tensor(mvp, device='cpu'),
+            convert.tensor(campos, device='cpu'),
+            convert.light(lgt, device='cpu'), (RES, RES), tbvh,
+            convert.tensor(perms, device='cpu'), gen,
+            background=torch.as_tensor(white),
+            uniforms=[convert.tensor(u8, device='cpu')],
             **kw)
 
     assert set(got) == set(want)
@@ -117,7 +120,7 @@ def test_dataset_mesh_renders_ground_truth():
     FLAGS = {'n_samples': 2, 'layers': 1, 'spp': 1, 'train_res': [24, 24],
              'cam_near_far': [0.1, 1000.0], 'iter': 2, 'batch': 1,
              'envlight': None}
-    ds = DatasetMesh(convert.mesh(m), 3.0, FLAGS, seed=4)
+    ds = DatasetMesh(convert.mesh(m, device='cpu'), 3.0, FLAGS, seed=4)
     assert tuple(ds.envlight.shape) == (256, 512, 3)
     a, b = ds[0], ds[1]
     assert len(ds) == 2
@@ -126,5 +129,5 @@ def test_dataset_mesh_renders_ground_truth():
     assert float((a['img'][..., 3] > 0).float().mean()) > 0.2
     assert not np.allclose(a['mvp'], b['mvp'])
     # the same seed gives the same cameras
-    again = DatasetMesh(convert.mesh(m), 3.0, FLAGS, seed=4)
+    again = DatasetMesh(convert.mesh(m, device='cpu'), 3.0, FLAGS, seed=4)
     np.testing.assert_array_equal(again._random_scene()[1], a['mvp'])

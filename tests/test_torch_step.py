@@ -64,21 +64,22 @@ def _target(m, mvp, campos):
     kd = rng.uniform(0.1, 0.9, (1, 32, 32, 3)).astype(np.float32)
     ks = np.stack([np.zeros((32, 32)), rng.uniform(0.3, 0.7, (32, 32)),
                    rng.uniform(0.0, 1.0, (32, 32))], -1)[None]
-    mesh = convert.mesh(m)
+    mesh = convert.mesh(m, device='cpu')
     mesh.material = {'bsdf': 'pbr',
                      'kd': t_texture.Texture2D(data=torch.as_tensor(kd)),
                      'ks': t_texture.Texture2D(data=torch.as_tensor(
                          ks.astype(np.float32)))}
     geo = TDLMesh(mesh, {})
     tm, bvh = geo.getMesh(geo.parameters(), mesh.material)
-    base = convert.tensor(j_light.create_trainable_env_rnd(16, 0.5, 0.25))
+    base = convert.tensor(j_light.create_trainable_env_rnd(16, 0.5, 0.25),
+                          device='cpu')
     gen = torch.Generator()
     gen.manual_seed(1)
     turned = np.asarray(mvp) @ t_vecmath.rotate_y(0.15)[None]
     with torch.no_grad():
         img = t_render.render_mesh(
-            {'n_samples': N}, tm, convert.tensor(turned),
-            convert.tensor(campos),
+            {'n_samples': N}, tm, convert.tensor(turned, device='cpu'),
+            convert.tensor(campos, device='cpu'),
             make_light(base), (RES, RES), bvh, None, gen, msaa=True,
             denoiser_sigma=2.0, rnd_seed=9)['shaded'].numpy()
     bg = rng.rand(1, RES, RES, 3).astype(np.float32)
@@ -137,13 +138,13 @@ def _jax_apply(FLAGS, params, mat_static, grads, steps):
 
 def _port_setup(m, light=None, kd_noise=False):
     FLAGS = t_config.make_flags(**SETTINGS)
-    geo = TDLMesh(convert.mesh(m), FLAGS)
-    mat_params, mat_static = t_train.initial_guess_material(geo, False,
-                                                            FLAGS)
+    geo = TDLMesh(convert.mesh(m, device='cpu'), FLAGS)
+    mat_params, mat_static = t_train.initial_guess_material(
+        geo, False, FLAGS, device='cpu')
     if kd_noise:
         mat_params['kd'] = mat_params['kd'] - torch.as_tensor(KD_NOISE)
-    light = t_light.create_trainable_env_rnd(16, 0.0, 0.5) if light is None \
-        else light
+    if light is None:
+        light = t_light.create_trainable_env_rnd(16, 0.0, 0.5, device='cpu')
     params = t_train.make_params(geo, mat_params, light)
     return FLAGS, geo, params, mat_static
 
@@ -177,8 +178,9 @@ def test_train_step_matches_jax(monkeypatch):
                         lambda base: port_tables)
     il, rl = t_train.compute_grads(
         geo, params, mat_static, tgt, IT, FLAGS, t_train.createLoss(FLAGS),
-        convert.tensor(perms), None, uniforms=[convert.tensor(u8)],
-        offsets=[convert.tensor(offset)])
+        convert.tensor(perms, device='cpu'), None,
+        uniforms=[convert.tensor(u8, device='cpu')],
+        offsets=[convert.tensor(offset, device='cpu')])
     np.testing.assert_allclose(float(il), jil, rtol=1e-4)
     np.testing.assert_allclose(float(rl), jrl, rtol=1e-4)
 
@@ -194,7 +196,7 @@ def test_train_step_matches_jax(monkeypatch):
     want = _flat(_jax_apply(jflags, jparams, jstatic, jgrads, 2))
     FLAGS, geo, params, mat_static = _port_setup(m, kd_noise=True)
     opts = t_train.make_optimizers(params, FLAGS)
-    jg = convert.params(jgrads)
+    jg = convert.params(jgrads, device='cpu')
     for _ in range(2):
         grads = _flat(jg)
         for k, p in _flat(params).items():
@@ -216,7 +218,7 @@ def test_port_train_step_keeps_parameters_in_bounds():
     gen.manual_seed(0)
     il, rl = t_train.train_step(geo, params, opts, mat_static, target, 0,
                                 FLAGS, t_train.createLoss(FLAGS),
-                                convert.tensor(perms), gen)
+                                convert.tensor(perms, device='cpu'), gen)
     assert np.isfinite(float(il)) and np.isfinite(float(rl))
     after = _flat(params)
     for k, v in after.items():

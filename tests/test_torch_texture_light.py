@@ -59,7 +59,7 @@ def test_update_pdf_matches_jax():
 def test_load_env_matches_jax_exactly():
     fn = os.path.join(SPOT, 'probe.hdr')
     want = np.asarray(j_light.load_env(fn))
-    got = t_light.load_env(fn).numpy()
+    got = t_light.load_env(fn, device='cpu').numpy()
     assert got.shape == (512, 1024, 3)
     np.testing.assert_array_equal(got, want)
 
@@ -126,7 +126,7 @@ def test_obj_geometry_matches_jax_parser():
         with open(fn, 'w') as f:
             f.writelines(lines)
         want = j_obj.load_obj(fn)
-        got = t_obj.load_obj(fn)
+        got = t_obj.load_obj(fn, device='cpu')
     assert got.t_pos_idx.shape == (26474, 3)
     for k in ('v_pos', 't_pos_idx', 'v_tex', 't_tex_idx', 'v_nrm',
               't_nrm_idx'):

@@ -110,18 +110,20 @@ def test_render_eval_matches_jax_render_mesh():
         background=jnp.asarray(checker), denoiser_sigma=None,
         shadow_scale=1.0, rnd_seed=1000)
 
-    tmesh = convert.mesh(m)
+    tmesh = convert.mesh(m, device='cpu')
     tgeo = TDLMesh(tmesh, FLAGS)
     mat = tmesh.material
     mat_params = {'kd': mat['kd'].data, 'ks': mat['ks'].data}
     mat_static = {'kind': 'tex', 'bsdf': 'pbr', 'no_perturbed_nrm': False,
                   'min_max': {'kd': None, 'ks': None}}
-    target = {'mvp': convert.tensor(mvp), 'campos': convert.tensor(campos),
+    target = {'mvp': convert.tensor(mvp, device='cpu'),
+              'campos': convert.tensor(campos, device='cpu'),
               'background': torch.as_tensor(checker),
               'resolution': (RES, RES)}
     u8 = jax_loop_uniforms(1000, N_SAMPLES, RES * RES, perms)
     got = train.render_eval(tgeo, tgeo.parameters(), mat_params, mat_static,
-                            convert.tensor(lgt['base']), target, FLAGS,
+                            convert.tensor(lgt['base'], device='cpu'),
+                            target, FLAGS,
                             uniforms=[u8])
     assert set(got) == set(want)
     cover = float((np.asarray(want['shaded'])[..., 3] > 0).mean())
@@ -147,7 +149,7 @@ def test_rotate_scene_matches_jax():
     m, _, _, _ = _scene()
     FLAGS = _orbit_flags()
     jds = JDatasetMesh(m, 3.0, FLAGS, validate=True, num_validation_frames=9)
-    tds = DatasetMesh(convert.mesh(m), 3.0, FLAGS, validate=True,
+    tds = DatasetMesh(convert.mesh(m, device='cpu'), 3.0, FLAGS, validate=True,
                       num_validation_frames=9)
     assert len(tds) == len(jds) == 9
     for itr in (0, 4, 8):

@@ -33,7 +33,7 @@ def test_validate_writes_metrics_and_images(tmp_path):
     m, _, _, _ = _scene(sub=2)        # 128 triangles: one leaf
     FLAGS = config.make_flags(train_res=[24, 24], n_samples=2, iter=2,
                               envlight=None)
-    tmesh = convert.mesh(m)
+    tmesh = convert.mesh(m, device='cpu')
     ds = DatasetMesh(tmesh, 3.0, FLAGS, validate=True,
                      num_validation_frames=8)
     geometry = TDLMesh(ds.ref_mesh, FLAGS)
