@@ -6,7 +6,9 @@ Phases:
 2. build the CUDA kernels from csrc/ and print the build time;
 3. render one frame of the slice, recording each forward kernel's inputs,
    and hold every forward kernel against its plain PyTorch version on
-   those inputs (error, share of mismatches, time of both);
+   those inputs (error, share of mismatches, time of both; for the
+   resolve, the ids and depths that differ, on the frame and on its
+   second peel layer);
 4. reset the launch counters, render 4 frames of the slice (textured spot
    mesh, 26,474 triangles, 512x512, n_samples 4, one layer, spp 1,
    bilateral denoiser sigma 2.0, white background, cameras as
@@ -19,7 +21,8 @@ Phases:
    at 1024x1024 textures, create_trainable_env_rnd(256, 0.0, 0.5), targets
    from DatasetMesh (spot256 under probe.hdr) over random backgrounds,
    logl1, three Adam groups.  One recorded step holds each backward kernel
-   against its plain version; then 8 steps with a sync each (loss and the
+   and the resolve and denoiser of its forward against their plain
+   versions; then 8 steps with a sync each (loss and the
    gradients of all three groups finite and nonzero, every kernel launched
    as many times per step as the path needs), median ms per step and
    iterations per second; then one 64x64 step on the card against the same
@@ -45,11 +48,16 @@ Phases:
    at 512x512, n_samples 32 (1,024 strata in one call, the stratum loop),
    no denoiser, checker background, into chiprun_out/validate/; seconds,
    MSE and PSNR per view, launches per render_eval (sample and trace
-   1,024, resolve 1, trace_shade, denoise and mask 0); the first stratum's
-   inputs hold sample, trace and mask against their plain versions, and
+   1,024, resolve 1, trace_shade, denoise and mask 0); the first view's
+   resolve and the first stratum's inputs hold resolve, sample, trace and
+   mask against their plain versions, and
    give the triangle tests per covered ray as in phase 8;
 10. a 32x32 validation frame at n_samples 32 with the kernels on the card
-   and with the plain versions on the CPU from the same uniforms.
+   and with the plain versions on the CPU from the same uniforms;
+11. count the kernels (PyTorch's and ours) that one rasterize call of
+   phase 3's frame launches, under torch.profiler: at most
+   RESOLVE_MAX_LAUNCHES up to the resolve's output.  Last, so that no
+   timed phase runs after a profiler session in this process.
 
 Any failure raises and exits non-zero before the last line.  The last
 three lines are the kernels JSON (all ten kernels, each with its time, its
@@ -80,6 +88,7 @@ TEX_RES = 1024
 STEP_LAUNCHES = {'resolve': 1, 'sample': 2, 'trace_shade': 1, 'denoise': 1,
                  'denoise_grad': 1, 'shade_bwd': 1, 'light_scatter': 1}
 TRACER_RAYS = 2 ** 21   # bench.py's bench_tracer
+RESOLVE_MAX_LAUNCHES = 10   # kernels of one rasterize call up to the resolve
 VAL_FRAMES = 2
 VAL_N = 32              # the reference validation protocol's n_samples
 
@@ -318,8 +327,14 @@ def train_phase(device, results):
         r = checks.run(name, rec.args)
         results[name] = dict(r, args=rec.args[name])
         print_compare(r)
-    del rec
     bad = [n for n in checks.BACKWARD if not results[n]['ok']]
+    with torch.no_grad():
+        for name in ('resolve', 'denoise'):     # the step's forward kernels
+            r = checks.run(name, rec.args, reps=2)
+            print_compare(r, ' (step)')
+            if not r['ok']:
+                bad.append(name + ' (step)')
+    del rec
     if bad:
         raise RuntimeError('kernels disagree with their plain versions: %s'
                            % bad)
@@ -592,6 +607,8 @@ def validation_phase(st, device, results, profile_out=None):
     # covered pixels: the loop starts the rays of the others at BIG
     covered = ro[:u8.shape[2], 0] < 1e37
     with torch.no_grad():
+        rr = checks.check_resolve(*rec.args['resolve'], reps=2)
+        print_compare(rr, ' (validation view 0)')
         rs = checks.check_sample(*rec.args['sample'], mask=covered)
         print_compare(rs, ' (validation stratum 0)')
         r = checks.check_trace(ro, rd, bvh, tmin)
@@ -604,9 +621,9 @@ def validation_phase(st, device, results, profile_out=None):
                     'validation stratum 0, covered rays')
     results['trace'] = dict(r, args=(ro, rd, bvh, tmin))
     print_compare(rm, ' (validation stratum 0)')
-    if not (rs['ok'] and r['ok'] and rm['ok']):
-        raise RuntimeError('sample, trace or mask disagrees with its plain '
-                           'version on the validation stratum')
+    if not (rr['ok'] and rs['ok'] and r['ok'] and rm['ok']):
+        raise RuntimeError('resolve, sample, trace or mask disagrees with '
+                           'its plain version on validation view 0')
     return launches
 
 
@@ -669,13 +686,47 @@ def print_tests(work, rays, G, label):
 
 def print_compare(r, label=''):
     print('compare %-13s%s mismatch share %.2e max_abs_err %.3e ok %s'
-          '  kernel %.3f ms  plain %.3f ms%s%s'
+          '  kernel %.3f ms  plain %.3f ms%s%s%s'
           % (r['name'], label, 1.0 - r['agree'], r['max_abs_err'], r['ok'],
              r['ms'], r['plain_ms'],
              ('  err/bound %.3f' % r['err_over_bound'])
              if 'err_over_bound' in r else '',
+             ('  ids differ %d, depths differ %d'
+              % (r['ids_differ'], r['z_differ']))
+             if 'ids_differ' in r else '',
              ('  (compared on %s)' % r['compared_on'])
              if 'compared_on' in r else ''), flush=True)
+
+
+def rasterize_launches(v_clip, tri, res):
+    """Kernels (PyTorch's and ours, memsets included) that one rasterize
+    call launches on the card, up to the resolve's output (its unpack
+    kernel, in the order they ran) and in all, under a kernel-only
+    torch.profiler trace; fails past RESOLVE_MAX_LAUNCHES up to the
+    resolve's output."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from nvdiffrecmc_tpu_torch.ops import rasterizer
+    rasterizer.rasterize(v_clip, tri, res)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        rasterizer.rasterize(v_clip, tri, res)
+        torch.cuda.synchronize()
+    events = sorted((e for e in prof.events()
+                     if e.device_type == torch.autograd.DeviceType.CUDA),
+                    key=lambda e: e.time_range.start)
+    names = [e.name for e in events]
+    ends = [i for i, name in enumerate(names) if 'unpack_kernel' in name]
+    if len(ends) != 1:
+        raise RuntimeError('one rasterize call ran the resolve\'s unpack '
+                           'kernel %d times: %s' % (len(ends), names))
+    n = ends[0] + 1
+    print('rasterize launches: %d up to the resolve\'s output (%s); %d in '
+          'all' % (n, ', '.join(name[:40] for name in names[:n]),
+                   len(names)), flush=True)
+    if n > RESOLVE_MAX_LAUNCHES:
+        raise RuntimeError('rasterize launched %d kernels up to the '
+                           'resolve\'s output' % n)
 
 
 def main():
@@ -738,14 +789,12 @@ def main():
             print_compare(r)
         # the depth-peel rule: a second layer behind the first one
         from nvdiffrecmc_tpu_torch.ops import pallas_raster
-        coef, bbox, H, W, pz, pid = rec.args['resolve']
-        z1, tid1 = pallas_raster._resolve_cuda(coef, bbox, H, W, pz, pid)
+        v_clip, tri, H, W, pz, pid = rec.args['resolve']
+        z1, tid1 = pallas_raster._resolve_cuda(v_clip, tri, H, W, pz, pid)
         pz2 = torch.where(tid1 > 0, z1, torch.full_like(z1, 1e30))
-        r2 = checks.check_resolve(coef, bbox, H, W, pz2.contiguous(),
+        r2 = checks.check_resolve(v_clip, tri, H, W, pz2.contiguous(),
                                   tid1.contiguous(), reps=2)
-        print('compare resolve (peel layer 2) mismatch share %.2e '
-              'max_abs_err %.3e ok %s'
-              % (1.0 - r2['agree'], r2['max_abs_err'], r2['ok']), flush=True)
+        print_compare(r2, ' (peel layer 2)')
         if not r2['ok']:
             raise RuntimeError('resolve layer 2 disagrees with its plain '
                                'version')
@@ -821,6 +870,11 @@ def main():
     share, worst = small_validation_agreement(device)
     print('32x32 validation frame (n_samples 32) vs plain CPU render: %.4f '
           'of pixels within 1e-3 (max %.3e)' % (share, worst), flush=True)
+
+    # 11. the launches of one rasterize call
+    v_clip, tri, H, W = results['resolve']['args'][:4]
+    with torch.no_grad():
+        rasterize_launches(v_clip, tri, (H, W))
 
     rows = []
     for name in checks.FORWARD + checks.BACKWARD + checks.VALIDATE:

@@ -2,9 +2,10 @@
 inputs, and time both.  Used by chip_smoke.py and by the GPU tests.
 
 Tolerances, with their reasons:
-- resolve: triangle ids equal on >= 99.9% of pixels (the fields are computed
-  in the same order; only ties at shared edges may differ), depth |err|
-  <= 1e-6 where they agree.
+- resolve: triangle id and depth equal on every pixel (the setup computes
+  the plain version's fields term by term, the raster kernel evaluates them
+  in its order, and the (depth, id) key keeps the lowest id on equal
+  depths, as the plain version does).
 - sample, on covered pixels only (the shading multiplies masked pixels by
   zero, and their zero normals give arbitrary directions): >= 99.9% of the
   (stratum, pixel) entries agree, with the same texel ids and all 16
@@ -44,14 +45,27 @@ Tolerances, with their reasons:
   arithmetic; max/min are exact).
 
 `bound` gives each kernel's bound: the least time the card could take
-for the same work, the larger of the bytes the function
-must move (each input read once, each output written once) over 3.35 TB/s
-and the float operations these inputs need over 67 TFLOP/s, the H100 SXM's
-published float32 rates at 700 W."""
+for the same work, the largest of the bytes the function
+must move (each input read once, each output written once) over 3.35 TB/s,
+the float operations these inputs need over 67 TFLOP/s, the H100 SXM's
+published float32 rates at 700 W, and, where a kernel needs special
+functions, their count over the special-function units' rate (16 per SM
+per clock, 132 SMs at 1.98 GHz).  Two counts depend on the data:
+
+- resolve: SETUP_OPS per triangle for the setup, then RESOLVE_OPS for
+  each (pixel, triangle) pair that passes the inside test and the peel
+  rule (pallas_raster.covered_pairs on the plain version's fields) and
+  for one test per pixel; bytes: v_clip, tri, prev_z, prev_id, z and tid.
+- denoise, both modes: TAP_OPS float operations and an ex2 and a
+  reciprocal (the depth weight's exp and division) for each (pixel, tap)
+  pair inside the image and the dynamic radius; bytes: the three input
+  planes and the 7-channel output."""
+
+import math
 
 import torch
 
-from .ops import (bvh as bvh_mod, pallas_denoise, pallas_raster,
+from .ops import (bvh as bvh_mod, denoiser, pallas_denoise, pallas_raster,
                   pallas_scatter, pallas_shade, pallas_tracer, tracer)
 
 MIN_AGREE = 0.999
@@ -77,19 +91,18 @@ def _close(a, b, atol, rtol):
     return (a - b).abs() <= atol + rtol * b.abs()
 
 
-def check_resolve(coef, bbox, H, W, prev_z, prev_id, reps=20):
-    z, tid = pallas_raster._resolve_cuda(coef, bbox, H, W, prev_z, prev_id)
-    zp, tidp = pallas_raster.resolve_batch_plain(coef, H, W, prev_z, prev_id)
-    agree = tid == tidp
-    err = float((z - zp).abs()[agree].max()) if bool(agree.any()) else 0.0
-    share = float(agree.double().mean())
+def check_resolve(v_clip, tri, H, W, prev_z, prev_id, reps=20):
+    args = (v_clip, tri, H, W, prev_z, prev_id)
+    z, tid = pallas_raster._resolve_cuda(*args)
+    zp, tidp = pallas_raster.resolve_plain(*args)
+    ids_differ = int((tid != tidp).sum())
+    z_differ = int((z != zp).sum())
     return dict(
-        name='resolve', agree=share, max_abs_err=err,
-        ok=share >= MIN_AGREE and err <= 1e-6,
-        ms=time_ms(lambda: pallas_raster._resolve_cuda(
-            coef, bbox, H, W, prev_z, prev_id), reps),
-        plain_ms=time_ms(lambda: pallas_raster.resolve_batch_plain(
-            coef, H, W, prev_z, prev_id), 2))
+        name='resolve', agree=1.0 - ids_differ / tid.numel(),
+        max_abs_err=float((z - zp).abs().max()), ids_differ=ids_differ,
+        z_differ=z_differ, ok=ids_differ == 0 and z_differ == 0,
+        ms=time_ms(lambda: pallas_raster._resolve_cuda(*args), reps),
+        plain_ms=time_ms(lambda: pallas_raster.resolve_plain(*args), 2))
 
 
 def check_sample(u8, gb8, rows, cols, pdf_tex, base, n_samples_x, mask=None,
@@ -311,6 +324,7 @@ VALIDATE = ('trace', 'mask')
 
 BYTES_PER_S = 3.35e12     # H100 SXM HBM3
 F32_PER_S = 67e12         # H100 SXM float32 outside the tensor cores
+SFU_PER_S = 16 * 132 * 1.98e9   # special-function results per second
 # float operations per test, counted from the sources: a slab test is 2
 # subtractions, 2 products, 4 min/max per axis and a compare; the Plücker
 # triangle test 3 x 11 for the edges, 11 for num and den, 2 for tmin and
@@ -320,13 +334,17 @@ TRI_OPS = 54
 # per item, counted from the sources and rounded down: the BSDF and light
 # sampling of one (stratum, pixel) (two CDF inversions, a cosine and a GGX
 # sample, three pdfs); the shading of one ray; its adjoint; one (pixel, tap)
-# of the denoiser (weights of 3 factors and 7 accumulations); one (pixel,
-# triangle) inside test of the resolve
+# of the denoiser (weights of 3 factors and 7 accumulations) and its
+# special functions (an ex2 and a reciprocal); one (pixel, triangle) inside
+# test of the resolve; the resolve's setup of one triangle (adjugate,
+# determinant, the 15 fields, the screen rectangle)
 SAMPLE_OPS = 300
 SHADE_OPS = 100
 SHADE_BWD_OPS = 300
 TAP_OPS = 30
 RESOLVE_OPS = 20
+SETUP_OPS = 100
+TAP_SFU = 2
 
 
 def _nbytes(*ts):
@@ -410,22 +428,48 @@ def _walk_tensors(bvh):
             bvh.sub_lo, bvh.sub_hi)
 
 
-def _bound_of(nbytes, ops):
-    t_bytes, t_ops = nbytes / BYTES_PER_S, ops / F32_PER_S
+def _bound_of(nbytes, ops, sfu=0):
+    t_bytes = nbytes / BYTES_PER_S
+    t_ops = max(ops / F32_PER_S, sfu / SFU_PER_S)
     return dict(bound_ms=1e3 * max(t_bytes, t_ops),
                 bound_by='bytes' if t_bytes >= t_ops else 'operations',
-                bound_bytes=nbytes, bound_ops=ops)
+                bound_bytes=nbytes, bound_ops=ops, bound_sfu=sfu)
+
+
+def resolve_pairs(v_clip, tri, H, W, prev_z, prev_id):
+    """The (pixel, triangle) pairs of the resolve's atomics, summed over
+    the batch (pallas_raster.covered_pairs)."""
+    n = 0
+    for b in range(v_clip.shape[0]):
+        n += pallas_raster.covered_pairs(
+            pallas_raster._tri_coefs(v_clip[b], tri),
+            pallas_raster._tri_rects(v_clip[b], tri, H, W), H, W, prev_z[b],
+            prev_id[b])[0].numel()
+    return n
+
+
+def denoise_taps(N, H, W, sigma):
+    """(pixel, tap) pairs inside the image and the dynamic radius."""
+    r = min(denoiser._max_radius(), int(2 * math.ceil(sigma * 2.5) + 1))
+
+    def per_axis(n):
+        i = torch.arange(n)
+        return int((torch.clamp(i, max=r) + torch.clamp(n - 1 - i, max=r)
+                    + 1).sum())
+    return N * per_axis(H) * per_axis(W)
 
 
 def bound(name, args):
     """The bound of kernel `name` on the arguments a Recorder took (or the
     check was given); see the module docstring."""
     if name == 'resolve':
-        coef, bbox, H, W, pz, pid = args
+        v_clip, tri, H, W, pz, pid = args
         N = pz.shape[0]
-        # at least one inside test per pixel, outputs z and id
-        return _bound_of(_nbytes(coef, bbox, pz, pid) + N * H * W * 8,
-                         RESOLVE_OPS * N * H * W)
+        pairs = resolve_pairs(*args)
+        return dict(_bound_of(
+            _nbytes(v_clip, tri, pz, pid) + N * H * W * 8,
+            SETUP_OPS * N * tri.shape[0] + RESOLVE_OPS * (pairs + N * H * W)),
+            pairs=pairs)
     if name == 'sample':
         u8, gb8, rows, cols, pdf, base, n = args
         n2, _, P = u8.shape
@@ -449,9 +493,10 @@ def bound(name, args):
                               + (12 * P + 2 * n2 * P) * 4, ops), **work)
     if name in ('denoise', 'denoise_grad'):
         col6, nrm, zdz, sigma = args
-        pixels = col6.shape[0] * col6.shape[1] * col6.shape[2]
-        return _bound_of(_nbytes(col6, nrm, zdz) + pixels * 7 * 4,
-                         TAP_OPS * 23 * 23 * pixels)
+        N, H, W = col6.shape[:3]
+        taps = denoise_taps(N, H, W, sigma)
+        return dict(_bound_of(_nbytes(col6, nrm, zdz) + N * H * W * 7 * 4,
+                              TAP_OPS * taps, TAP_SFU * taps), taps=taps)
     if name == 'shade_bwd':
         samp, gb, vw, g6 = args[:4]
         n2, _, P = samp.shape

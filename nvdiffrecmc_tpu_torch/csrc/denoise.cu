@@ -1,17 +1,29 @@
 // Cross-bilateral denoiser for a pair of color buffers, forward and grad
-// mode: one thread per output pixel.
+// mode: one block per 32 x 8 output tile, its tap window staged in shared
+// memory.
 //
 // Replaces the Pallas kernel _denoise_kernel (nvdiffrecmc_tpu/ops/
 // pallas_denoise.py:47, both modes; entries bilateral_denoiser_pair :215
 // and the backward _premul_pair_bwd :193).
 // The TPU kernel DMAs a row window of all planes into VMEM and unrolls the
-// tap columns; here each thread walks the 23x23 taps (R = 11) in row-major
-// order, as ops/denoiser._taps does, reading its neighbours through L1.
+// tap columns; here a block of 32 x 8 threads copies the (32 + 22) x
+// (8 + 22) window of the planes its taps read into shared memory, NP
+// floats per pixel (z, the normal's three components, the six colours and
+// dz).  Each thread then walks the taps of its pixel in row-major order
+// (ky, then kx), as ops/denoiser._taps does.
 //
 // Weight of a tap: exp(-d^2 / (2 sigma^2)) (zero beyond the dynamic radius
-// 2*ceil(2.5 sigma)+1) * pow(clamp(n_tap . n_center, 1e-4, 1), 128) *
-// exp(-|z_tap - z_center| / max(dz_center * d, 1e-4)) * valid.  Taps
-// outside the image have valid = 0: they add exactly zero and are skipped.
+// 2*ceil(2.5 sigma)+1) * clamp(n_tap . n_center, 1e-4, 1)^128 *
+// exp(-|z_tap - z_center| / max(dz_center * d, 1e-4)) * valid.  The
+// spatial weight and d depend on the tap alone: the block tabulates them
+// once per (|fx|, |fy|) with the expf and sqrtf of the tap loop, and the
+// loop skips the taps beyond the dynamic radius, whose weight is zero.
+// x^128 is 7 squarings, as the TPU kernel takes it.  Window pixels outside
+// the image are staged as zeros: their normal weight (1e-4)^128 is exactly
+// 0, so every lane of a warp walks the same (2r+1)^2 taps and an
+// out-of-image tap adds exactly 0, as the plain version's skipped tap.
+// (Per-lane tap bounds over unwritten slots gave wrong, run-dependent
+// sums at a ragged right edge on the H100; the zeroed slots cure it.)
 // Output: 6 premultiplied channels and the weight sum; the division by
 // max(w, 1e-4) stays in PyTorch.
 //
@@ -20,10 +32,11 @@
 // weights those of the transposed filter (the reference's
 // denoising.cu:114-118); the weight sum is then meaningless.
 //
-// What bounds it: 529 taps x 11 floats read per pixel (~23 KB), nearly all
-// L1 hits since neighbouring threads share taps; ~30 flops and 2 exp + 1 pow
-// per tap, so it is bound by L1 load throughput and the special-function
-// units, not by DRAM (the planes are 12 MB at 512x512).
+// What bounds it: per (pixel, tap) ~10 shared-memory loads and ~40 float
+// instructions, of them an ex2 and a reciprocal in the special-function
+// units (the exp and the division of the depth weight); 529 taps per
+// pixel at sigma 2.  DRAM is not the limit: the planes are 12 MB at
+// 512x512 and each block reads its window once.
 //
 // Layouts: col6 [N, H, W, 6]; nrm [N, H, W, 3]; zdz [N, H, W, 2] (z, dz);
 // out [N, H, W, 7].
@@ -31,50 +44,95 @@
 #include "common.cuh"
 
 #define R 11
-#define KT (2 * R + 1)
+#define NTAB (R + 1)          // tabulated |fx|, |fy|: 0..R
+#define TW 32                 // tile width = blockDim.x
+#define TH 8                  // tile height = blockDim.y
+#define WW (TW + 2 * R)       // window width
+#define WH (TH + 2 * R)       // window height
 #define FLT_EPS_D 1e-4f
+
+// floats per window pixel in shared memory: z, the normal (3), the colours
+// (6) and dz (read in grad mode); 11 is odd, so the 32 lanes of a warp
+// reading 32 neighbouring pixels hit 32 banks
+#define NP 11
+#define Q_Z 0
+#define Q_N 1
+#define Q_C 4
+#define Q_DZ 10
+
+// the tap table and the window: 72,432 bytes, above the default 48 KB
+#define SMEM_BYTES \
+    (NTAB * NTAB * sizeof(float2) + WW * WH * NP * sizeof(float))
+static_assert(SMEM_BYTES <= 227 * 1024,
+              "the tap window must fit in a block's shared memory");
 
 __global__ void denoise_kernel(const float* __restrict__ col6,
                                const float* __restrict__ nrm,
                                const float* __restrict__ zdz,
                                float* __restrict__ out, int H, int W,
                                float sigma, int grad_mode) {
-    int x = blockIdx.x * blockDim.x + threadIdx.x;
-    int y = blockIdx.y * blockDim.y + threadIdx.y;
-    int n = blockIdx.z;
-    if (x >= W || y >= H) return;
-    size_t base = (size_t)n * H * W;
-    size_t pc = base + (size_t)y * W + x;
-    float cn0 = nrm[pc * 3], cn1 = nrm[pc * 3 + 1], cn2 = nrm[pc * 3 + 2];
-    float cz = zdz[pc * 2], cdz = zdz[pc * 2 + 1];
-    float variance = sigma * sigma;
-    float dyn_rad = 2.f * ceilf(sigma * 2.5f) + 1.f;
+    extern __shared__ float2 smem[];
+    float2* s_tab = smem;                         // (w_xy, d) [NTAB][NTAB]
+    float* s_win = (float*)(smem + NTAB * NTAB);  // [WH][WW][NP]
+    const int n_win = WW * WH;
+    const int n = blockIdx.z;
+    const int gx0 = blockIdx.x * TW - R, gy0 = blockIdx.y * TH - R;
+    const int tid = threadIdx.y * TW + threadIdx.x;
+    const int nthreads = TW * TH;
+    const size_t base = (size_t)n * H * W;
 
+    const float variance = sigma * sigma;
+    const float dyn_rad = 2.f * ceilf(sigma * 2.5f) + 1.f;
+    for (int i = tid; i < NTAB * NTAB; i += nthreads) {
+        int ay = i / NTAB, ax = i % NTAB;
+        float dist_sqr = (float)(ax * ax + ay * ay);
+        float w_xy = expf(-dist_sqr / (2.f * variance));
+        if ((float)ax > dyn_rad || (float)ay > dyn_rad) w_xy = 0.f;
+        s_tab[i] = make_float2(w_xy, sqrtf(dist_sqr));
+    }
+    for (int i = tid; i < n_win; i += nthreads) {
+        int gy = gy0 + i / WW, gx = gx0 + i % WW;
+        float* d = s_win + i * NP;
+        if (gx < 0 || gx >= W || gy < 0 || gy >= H) {
+            for (int q = 0; q < NP; ++q) d[q] = 0.f;      // weight 0
+            continue;
+        }
+        size_t p = base + (size_t)gy * W + gx;
+        d[Q_Z] = zdz[p * 2];
+        for (int c = 0; c < 3; ++c) d[Q_N + c] = nrm[p * 3 + c];
+        for (int c = 0; c < 6; ++c) d[Q_C + c] = col6[p * 6 + c];
+        d[Q_DZ] = zdz[p * 2 + 1];
+    }
+    __syncthreads();
+
+    // taps with |fx| or |fy| beyond the dynamic radius weigh exactly 0
+    const int r = dyn_rad < (float)R ? (int)dyn_rad : R;
+    const int x = blockIdx.x * TW + threadIdx.x;
+    const int y = blockIdx.y * TH + threadIdx.y;
+    if (x >= W || y >= H) return;
+    const size_t pc = base + (size_t)y * W + x;
+    const float cn0 = nrm[pc * 3], cn1 = nrm[pc * 3 + 1],
+                cn2 = nrm[pc * 3 + 2];
+    const float cz = zdz[pc * 2], cdz = zdz[pc * 2 + 1];
     float acc[6] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
     float accw = 0.f;
-    for (int ky = 0; ky < KT; ++ky) {
-        int fy = ky - R;
-        int yy = y + fy;
-        if (yy < 0 || yy >= H) continue;
-        for (int kx = 0; kx < KT; ++kx) {
-            int fx = kx - R;
-            int xx = x + fx;
-            if (xx < 0 || xx >= W) continue;
-            float dist_sqr = (float)(fx * fx + fy * fy);
-            float dist = sqrtf(dist_sqr);
-            float w_xy = expf(-dist_sqr / (2.f * variance));
-            if (fabsf((float)fx) > dyn_rad || fabsf((float)fy) > dyn_rad)
-                w_xy = 0.f;
-            size_t pt = base + (size_t)yy * W + xx;
-            float ndot = nrm[pt * 3] * cn0 + nrm[pt * 3 + 1] * cn1
-                         + nrm[pt * 3 + 2] * cn2;
-            float w_normal = powf(fminf(fmaxf(ndot, FLT_EPS_D), 1.f), 128.f);
-            float dz = grad_mode ? zdz[pt * 2 + 1] : cdz;
-            float denom = fmaxf(dz * dist, FLT_EPS_D);
-            float w_depth = expf(-fabsf(zdz[pt * 2] - cz) / denom);
-            float w = w_xy * w_normal * w_depth * 1.f;
-            const float* tc = col6 + pt * 6;
-            for (int c = 0; c < 6; ++c) acc[c] = acc[c] + tc[c] * w;
+    for (int fy = -r; fy <= r; ++fy) {
+        const float* row =
+            s_win + ((threadIdx.y + R + fy) * WW + threadIdx.x + R) * NP;
+        const float2* tab = s_tab + abs(fy) * NTAB;
+        for (int fx = -r; fx <= r; ++fx) {
+            const float* q = row + fx * NP;
+            const float2 t = tab[abs(fx)];       // (w_xy, dist)
+            float ndot = q[Q_N] * cn0 + q[Q_N + 1] * cn1
+                         + q[Q_N + 2] * cn2;
+            float w_normal = fminf(fmaxf(ndot, FLT_EPS_D), 1.f);
+            for (int i = 0; i < 7; ++i) w_normal = w_normal * w_normal;
+            float dz = grad_mode ? q[Q_DZ] : cdz;
+            float denom = fmaxf(dz * t.y, FLT_EPS_D);
+            float w_depth = expf(-fabsf(q[Q_Z] - cz) / denom);
+            float w = t.x * w_normal * w_depth;
+            for (int c = 0; c < 6; ++c)
+                acc[c] = acc[c] + q[Q_C + c] * w;
             accw = accw + w;
         }
     }
@@ -83,12 +141,20 @@ __global__ void denoise_kernel(const float* __restrict__ col6,
     o[6] = accw;
 }
 
+// Returns the error of a refused launch (or of the shared-memory attribute).
 extern "C" int nvk_denoise(const float* col6, const float* nrm,
                            const float* zdz, float* out, int N, int H, int W,
                            float sigma, int grad_mode, cudaStream_t stream) {
-    dim3 block(16, 16);
-    dim3 grid((W + 15) / 16, (H + 15) / 16, N);
-    denoise_kernel<<<grid, block, 0, stream>>>(col6, nrm, zdz, out, H, W,
-                                               sigma, grad_mode);
+    cudaError_t err = cudaFuncSetAttribute(
+        denoise_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)SMEM_BYTES);
+    if (err != cudaSuccess) {
+        cudaGetLastError();  // not sticky: clear it for the next launch
+        return (int)err;
+    }
+    dim3 block(TW, TH);
+    dim3 grid((W + TW - 1) / TW, (H + TH - 1) / TH, N);
+    denoise_kernel<<<grid, block, SMEM_BYTES, stream>>>(
+        col6, nrm, zdz, out, H, W, sigma, grad_mode);
     return (int)cudaGetLastError();
 }

@@ -40,7 +40,7 @@ _F = ctypes.c_float
 _LL = ctypes.c_longlong
 # argtypes of each C entry point (every pointer and the stream are void*)
 _SIGNATURES = {
-    'nvk_resolve': [_VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _VP],
+    'nvk_resolve': [_VP] * 11 + [_I, _I, _I, _I, _I, _VP],
     'nvk_sample': [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I,
                    _VP],
     'nvk_trace_shade': [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP,

@@ -22,6 +22,7 @@ def denoise_pair_plain(col6, nrm, zdz, sigma, grad_mode=False):
 
 
 def _launch(col6, nrm, zdz, sigma, grad_mode):
+    """csrc/denoise.cu; raises where the card refuses the launch."""
     N, H, W, _ = col6.shape
     dev = col6.device
     f32 = torch.float32
@@ -33,9 +34,8 @@ def _launch(col6, nrm, zdz, sigma, grad_mode):
         rc = kernels.lib().nvk_denoise(
             col6.data_ptr(), nrm.data_ptr(), zdz.data_ptr(), out.data_ptr(),
             N, H, W, float(sigma), int(grad_mode), kernels.stream_ptr(col6))
-    name = 'denoise_grad' if grad_mode else 'denoise'
-    kernels.LAUNCHES[name] += 1
     kernels.check(rc, 'nvk_denoise')
+    kernels.LAUNCHES['denoise_grad' if grad_mode else 'denoise'] += 1
     return out
 
 

@@ -1,18 +1,25 @@
 """Coverage resolve of the rasterizer: the nearest-z triangle per pixel with
 depth peeling (counterpart of nvdiffrecmc_tpu/ops/pallas_raster.py).
 
-`resolve_batch` launches the CUDA kernel csrc/resolve.cu on CUDA tensors and
-runs `resolve_batch_plain`, the same function in plain PyTorch, on CPU
-tensors.  Both read the per-chunk coefficients and screen bboxes that
-`_chunk_coefs` computes in PyTorch."""
+`resolve_batch` launches csrc/resolve.cu on CUDA tensors: a setup kernel
+per triangle (the fields of `_chunk_coefs` and the pixel rectangle of
+`_tri_rects`), a raster kernel with one warp per triangle whose lanes take
+a 64-bit atomicMin of (depth, id) keys over the rectangle's pixels, and an
+unpack kernel per pixel.  On CPU tensors it runs `resolve_plain`:
+`resolve_batch_plain`, the same function in plain PyTorch, over the
+per-chunk coefficients of `_chunk_coefs`.  `_tri_coefs` gives those fields
+per triangle, as the setup kernel lays them out, and `covered_pairs` lists
+the (pixel, triangle) pairs the raster kernel takes its atomics on, in
+plain PyTorch."""
+
+import functools
 
 import torch
 
 from .. import kernels
 
 BIG = 3e37
-TC = 128          # triangles per chunk
-TILE = 32         # pixel tile edge of the kernel's blocks
+TC = 128          # triangles per chunk of the plain version
 Z_EPS = 1e-7      # depth-peel strict-behind epsilon
 
 
@@ -61,7 +68,17 @@ def _chunk_coefs(v_clip, tri):
     return coef, bbox
 
 
+def _tri_coefs(v_clip, tri):
+    """The fields of `_chunk_coefs` per triangle, [T, 15] f32 (the setup
+    kernel's coef of one batch element).  v_clip [V, 4]; tri [T, 3]."""
+    coef = _chunk_coefs(v_clip, tri)[0]
+    return coef.permute(0, 2, 1).reshape(-1, 15)[:tri.shape[0]]
+
+
+@functools.lru_cache(maxsize=16)
 def _pixel_ndc_xy(H, W, device):
+    """Pixel centres in NDC, sx [W] and sy [H]; made once per resolution
+    and device (the callers only read them)."""
     sx = (2.0 * (torch.arange(W, dtype=torch.float32, device=device) + 0.5)
           / W) - 1.0
     sy = (2.0 * (torch.arange(H, dtype=torch.float32, device=device) + 0.5)
@@ -104,23 +121,100 @@ def resolve_batch_plain(coef, H, W, prev_z, prev_id):
             torch.where(hit, best_id, torch.zeros_like(best_id)))
 
 
-def _resolve_cuda(coef, bbox, H, W, prev_z, prev_id):
-    N, NC = coef.shape[:2]
-    dev = coef.device
-    kernels.require(coef, 'coef', torch.float32, (N, NC, 15, TC))
-    kernels.require(bbox, 'bbox', torch.float32, (N, NC, 4), dev)
+def resolve_plain(v_clip, tri, H, W, prev_z, prev_id):
+    """The resolve's whole function in plain PyTorch: the fields of
+    `_chunk_coefs`, then `resolve_batch_plain`.  v_clip [N, V, 4]; tri
+    [T, 3]; prev_z, prev_id [N, H, W]."""
+    coef = torch.stack([_chunk_coefs(v, tri)[0] for v in v_clip])
+    return resolve_batch_plain(coef, H, W, prev_z, prev_id)
+
+
+def _tri_rects(v_clip, tri, H, W):
+    """Pixel rectangle [T, 4] int32 (x0, y0, x1, y1, inclusive) of each
+    triangle's screen box grown by one pixel and clamped to the screen, as
+    the setup kernel computes it: the whole screen where a vertex has
+    w <= 1e-6 (as `_chunk_coefs` boxes those), empty (x1 < x0) for an
+    invalid triangle.  v_clip [V, 4]; tri [T, 3]."""
+    from .rasterizer import _tri_setup
+    valid = _tri_setup(v_clip, tri)[4]
+    p = v_clip[tri.long()]
+    w = p[..., 3]
+    front = torch.amin(w, -1) > 1e-6
+    w_safe = torch.clamp(torch.abs(w), min=1e-20)
+    spans = []
+    for v, size in ((p[..., 0] / w_safe, W), (p[..., 1] / w_safe, H)):
+        half = 0.5 * size
+        lo = torch.floor((torch.amin(v, -1) + 1.0) * half - 0.5) - 1.0
+        hi = torch.ceil((torch.amax(v, -1) + 1.0) * half - 0.5) + 1.0
+        spans.append((torch.clamp(lo, 0.0, float(size)),
+                      torch.clamp(hi, -1.0, float(size - 1))))
+    (x0, x1), (y0, y1) = spans
+    box = torch.stack([x0, y0, x1, y1], -1).to(torch.int32)
+    full = torch.tensor([0, 0, W - 1, H - 1], dtype=torch.int32,
+                        device=box.device)
+    empty = torch.tensor([0, 0, -1, -1], dtype=torch.int32,
+                         device=box.device)
+    return torch.where(valid[:, None],
+                       torch.where(front[:, None], box, full), empty)
+
+
+def covered_pairs(coef15, rect, H, W, prev_z, prev_id):
+    """The (pixel, triangle) pairs of one batch element on which the raster
+    kernel takes its atomicMin: the pixels of each triangle's rectangle
+    that pass the inside test and the peel rule.  coef15 [T, 15] (the
+    setup kernel's fields, `_tri_coefs`); rect [T, 4];
+    prev_z [H, W]; prev_id [H, W] int32.  Returns (tri [P] int64, pixel
+    [P] int64 (y * W + x), z [P] f32), the fields evaluated as
+    `resolve_batch_plain` evaluates them."""
+    dev = coef15.device
+    x0, y0, x1, y1 = rect.long().unbind(-1)
+    rw = torch.clamp(x1 - x0 + 1, min=0)
+    area = rw * torch.clamp(y1 - y0 + 1, min=0)
+    t = torch.repeat_interleave(torch.arange(rect.shape[0], device=dev), area)
+    i = torch.arange(t.numel(), device=dev) - (torch.cumsum(area, 0)
+                                                - area)[t]
+    x = x0[t] + i % rw[t]
+    y = y0[t] + i // rw[t]
+    px, py = _pixel_ndc_xy(H, W, dev)
+    sx, sy = px[x], py[y]
+    cf = coef15[t]
+
+    def field(f):
+        return cf[:, 3 * f] * sx + cf[:, 3 * f + 1] * sy + cf[:, 3 * f + 2]
+    e0, e1, e2, z, s = (field(f) for f in range(5))
+    pix = y * W + x
+    inside = ((e0 > 0.0) & (e1 > 0.0) & (e2 > 0.0) & (s > 0.0)
+              & (z >= -1.0) & (z <= 1.0)
+              & (z > prev_z.reshape(-1)[pix] + Z_EPS)
+              & (t + 1 != prev_id.reshape(-1)[pix]))
+    return t[inside], pix[inside], z[inside]
+
+
+def _resolve_cuda(v_clip, tri, H, W, prev_z, prev_id):
+    """csrc/resolve.cu on v_clip [N, V, 4] f32 and tri [T, 3] int32 (every
+    index in [0, V)); prev_z [N, H, W] f32, prev_id [N, H, W] int32.
+    Returns (z, tid)."""
+    N, V = v_clip.shape[:2]
+    T = tri.shape[0]
+    dev = v_clip.device
+    kernels.require(v_clip, 'v_clip', torch.float32, (N, V, 4))
+    kernels.require(tri, 'tri', torch.int32, (T, 3), dev)
     kernels.require(prev_z, 'prev_z', torch.float32, (N, H, W), dev)
     kernels.require(prev_id, 'prev_id', torch.int32, (N, H, W), dev)
+    px, py = _pixel_ndc_xy(H, W, dev)
+    coef = torch.empty((N, T, 15), dtype=torch.float32, device=dev)
+    rect = torch.empty((N, T, 4), dtype=torch.int32, device=dev)
+    key = torch.empty((N, H, W), dtype=torch.int64, device=dev)
     z = torch.empty((N, H, W), dtype=torch.float32, device=dev)
     tid = torch.empty((N, H, W), dtype=torch.int32, device=dev)
-    lib = kernels.lib()
     with torch.cuda.device(dev):
-        rc = lib.nvk_resolve(
-            coef.data_ptr(), bbox.data_ptr(), prev_z.data_ptr(),
-            prev_id.data_ptr(), z.data_ptr(), tid.data_ptr(), N, NC, H, W,
-            kernels.stream_ptr(coef))
-    kernels.LAUNCHES['resolve'] += 1
+        rc = kernels.lib().nvk_resolve(
+            v_clip.data_ptr(), tri.data_ptr(), px.data_ptr(), py.data_ptr(),
+            prev_z.data_ptr(), prev_id.data_ptr(), coef.data_ptr(),
+            rect.data_ptr(), key.data_ptr(), z.data_ptr(), tid.data_ptr(),
+            N, V, T, H, W, kernels.stream_ptr(v_clip))
     kernels.check(rc, 'nvk_resolve')
+    kernels.LAUNCHES['resolve'] += 1
     return z, tid
 
 
@@ -130,11 +224,9 @@ def resolve_batch(v_clip, tri, H, W, prev_z, prev_id):
     Returns (z [N,H,W], tid [N,H,W] int32).  Not differentiable."""
     N = v_clip.shape[0]
     v_clip = v_clip.detach()
-    cb = [_chunk_coefs(v_clip[b], tri) for b in range(N)]
-    coef = torch.stack([c for c, _ in cb]).contiguous()
-    bbox = torch.stack([b for _, b in cb]).contiguous()
     pz = prev_z.reshape(N, H, W).contiguous().float()
     pid = prev_id.reshape(N, H, W).contiguous().to(torch.int32)
-    if coef.is_cuda:
-        return _resolve_cuda(coef, bbox, H, W, pz, pid)
-    return resolve_batch_plain(coef, H, W, pz, pid)
+    if v_clip.is_cuda:
+        return _resolve_cuda(v_clip.contiguous().float(),
+                             tri.contiguous().to(torch.int32), H, W, pz, pid)
+    return resolve_plain(v_clip, tri, H, W, pz, pid)

@@ -71,11 +71,10 @@ def test_cuda_wrappers_refuse_cpu_tensors(wrapper):
     send CPU tensors to the plain versions instead)."""
     from nvdiffrecmc_tpu_torch.ops import (bvh, pallas_raster, pallas_scatter,
                                            pallas_shade)
-    x = torch.zeros(4, 15, 128)
     calls = {
         'resolve': lambda: pallas_raster._resolve_cuda(
-            x[None], torch.zeros(1, 4, 4), 8, 8, torch.zeros(1, 8, 8),
-            torch.zeros(1, 8, 8, dtype=torch.int32)),
+            torch.zeros(1, 3, 4), torch.zeros(1, 3, dtype=torch.int32), 8, 8,
+            torch.zeros(1, 8, 8), torch.zeros(1, 8, 8, dtype=torch.int32)),
         'sample': lambda: pallas_shade._sample_cuda(
             torch.zeros(4, 8, 16), torch.zeros(8, 16), torch.zeros(4),
             torch.zeros(4, 8), torch.zeros(4, 8), torch.zeros(4, 8, 3), 2),

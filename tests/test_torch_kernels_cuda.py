@@ -8,7 +8,11 @@ synthetic box sets of 5 and 300 leaves; the sample kernel on one stratum,
 as the stratum loop launches it; the launches of a validation render past
 256 strata; the BVH walk of trace and trace + shade at the main path's full
 size, on rays that graze sub-box and leaf faces, and its refusal of a
-structure whose boxes do not fit in shared memory).
+structure whose boxes do not fit in shared memory; the resolve at 500x333
+on every pixel, on a full-screen triangle, exact and signed-zero depth
+ties, the spot mesh and its second peel layer, and its setup kernel's
+fields bit for bit; the denoiser in both modes at 500x333 and sigma 2 and
+0.6, and a refused launch).
 Marked `gpu`; skipped where torch.cuda.is_available() is false.  On a machine with a GPU and no JAX:
 
     python -m pytest --noconftest -m gpu tests/test_torch_kernels_cuda.py
@@ -22,7 +26,7 @@ pytestmark = pytest.mark.gpu
 
 # (height, width, batch, n_samples, bsdf): the slice's settings at 256^2,
 # and a ragged frame (sizes not multiples of the 32-pixel tiles or the
-# 16-pixel denoiser blocks, two cameras, 9 strata, Lambert only)
+# 32x8 denoiser tiles, two cameras, 9 strata, Lambert only)
 CONFIGS = {'slice': (256, 256, 1, 4, 'pbr'),
            'ragged': (72, 100, 2, 3, 'diffuse')}
 
@@ -79,12 +83,186 @@ def test_kernel_matches_plain(recorded, name):
 def test_resolve_peel_layer_matches_plain(recorded):
     from nvdiffrecmc_tpu_torch import checks
     from nvdiffrecmc_tpu_torch.ops import pallas_raster
-    coef, bbox, H, W, pz, pid = recorded['resolve']
-    z1, tid1 = pallas_raster._resolve_cuda(coef, bbox, H, W, pz, pid)
+    v_clip, tri, H, W, pz, pid = recorded['resolve']
+    z1, tid1 = pallas_raster._resolve_cuda(v_clip, tri, H, W, pz, pid)
     pz2 = torch.where(tid1 > 0, z1, torch.full_like(z1, 1e30)).contiguous()
-    r = checks.check_resolve(coef, bbox, H, W, pz2, tid1, reps=1)
+    r = checks.check_resolve(v_clip, tri, H, W, pz2, tid1, reps=1)
     assert r['ok'], r
     assert float((tid1 > 0).float().mean()) > 0.05
+
+
+def _flat(xy, z, w=1.0):
+    v = np.zeros((len(xy), 4), np.float32)
+    v[:, 0:2] = xy
+    v[:, 2] = z
+    v[:, 3] = w
+    return v
+
+
+def _resolve_scene(name, dev):
+    """(v_clip [N, V, 4], tri [T, 3] int32) of a resolve test scene."""
+    from nvdiffrecmc_tpu_torch.ops import vecmath, xfm
+    if name == 'full_screen':
+        # one triangle over the whole screen; a plane that crosses w = 0
+        # (its triangles get full-screen rectangles); a small one in front
+        v = np.concatenate([
+            _flat([[-3.0, -3.0], [3.0, -3.0], [0.0, 4.0]], 0.7),
+            _flat([[-0.2, -0.2], [0.3, -0.1], [0.0, 0.3]], 0.1)])
+        proj = vecmath.perspective(0.9, 1.0, 0.1, 100.0)
+        pts = np.array([[-5.0, -0.5, -8.0], [5.0, -0.5, -8.0],
+                        [-5.0, -0.5, 5.0], [5.0, -0.5, 5.0]], np.float32)
+        v4 = np.concatenate([pts, np.ones((4, 1), np.float32)], -1)
+        v = np.concatenate([v, (v4 @ proj.T).astype(np.float32)])
+        tri = [[0, 1, 2], [3, 4, 5], [6, 7, 8], [8, 7, 9]]
+    elif name == 'ties':
+        # triangles 1 and 3 are one triangle twice (equal depth); 4 and 5
+        # one triangle with vertex depths +0.0 and -0.0
+        big = [[-0.9, -0.8], [0.8, -0.9], [0.0, 0.9]]
+        small = [[-0.95, -0.2], [-0.1, -0.3], [-0.5, 0.5]]
+        xy = [[-0.8, -0.7], [0.9, -0.6], [0.1, 0.85]]
+        v = np.concatenate([_flat(small, 0.1), _flat(big, 0.3),
+                            _flat(big, 0.6), _flat(xy, 0.0),
+                            _flat(xy, -0.0)])
+        tri = [[0, 1, 2], [3, 4, 5], [6, 7, 8], [3, 4, 5], [9, 10, 11],
+               [12, 13, 14]]
+    else:                                       # the spot mesh, two cameras
+        from nvdiffrecmc_tpu_torch.dataset.dataset_mesh import spot256_scene
+        mesh = spot256_scene(dev)
+        rng = np.random.RandomState(3)
+        mvp = np.stack([vecmath.perspective(np.deg2rad(45), 500 / 333, 0.1,
+                                            1000.0)
+                        @ vecmath.translate(0, 0, -3.0)
+                        @ vecmath.random_rotation_translation(0.25, rng)
+                        for _ in range(2)])
+        return (xfm.xfm_points(mesh.v_pos, torch.as_tensor(mvp, device=dev))
+                .contiguous(), mesh.t_pos_idx.contiguous())
+    return (torch.as_tensor(v, device=dev)[None].contiguous(),
+            torch.tensor(tri, dtype=torch.int32, device=dev))
+
+
+@pytest.mark.parametrize('name,layer', [('full_screen', 1), ('ties', 1),
+                                        ('spot', 1), ('spot', 2)])
+def test_resolve_matches_plain_on_every_pixel(name, layer):
+    """The resolve at 500x333 (W x H): z and tid equal to the plain
+    version's on every pixel, for a full-screen triangle and triangles
+    crossing w = 0, for exact depth ties and a -0.0 / +0.0 tie (the lower
+    id wins), and for the spot mesh under two cameras and its second peel
+    layer."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA device')
+    from nvdiffrecmc_tpu_torch import checks, kernels
+    from nvdiffrecmc_tpu_torch.ops import pallas_raster
+    kernels.build()
+    dev = torch.device('cuda', 0)
+    H, W = 333, 500
+    v_clip, tri = _resolve_scene(name, dev)
+    N = v_clip.shape[0]
+    pz = torch.full((N, H, W), -1e30, device=dev)
+    pid = torch.zeros((N, H, W), dtype=torch.int32, device=dev)
+    if layer == 2:
+        z1, tid1 = pallas_raster._resolve_cuda(v_clip, tri, H, W, pz, pid)
+        pz = torch.where(tid1 > 0, z1, torch.full_like(z1, 1e30))
+        pid = tid1
+    r = checks.check_resolve(v_clip, tri, H, W, pz, pid, reps=1)
+    assert r['ok'] and r['ids_differ'] == 0 and r['z_differ'] == 0, r
+    _, tid = pallas_raster._resolve_cuda(v_clip, tri, H, W, pz, pid)
+    assert float((tid > 0).float().mean()) > 0.05
+    if name == 'full_screen':
+        assert bool((tid > 0).all())
+    if name == 'ties':
+        assert not bool((tid == 4).any()) and bool((tid == 2).any())
+        assert not bool((tid == 6).any()) and bool((tid == 5).any())
+
+
+@pytest.mark.parametrize('name', ['full_screen', 'spot'])
+def test_resolve_setup_matches_chunk_coefs(name):
+    """The setup kernel's 15 fields equal _chunk_coefs' bit for bit, and
+    its rectangles _tri_rects'."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA device')
+    from nvdiffrecmc_tpu_torch import kernels
+    from nvdiffrecmc_tpu_torch.ops import pallas_raster
+    kernels.build()
+    dev = torch.device('cuda', 0)
+    H, W = 333, 500
+    v_clip, tri = _resolve_scene(name, dev)
+    N, T = v_clip.shape[0], tri.shape[0]
+    pz = torch.full((N, H, W), -1e30, device=dev)
+    pid = torch.zeros((N, H, W), dtype=torch.int32, device=dev)
+    px, py = pallas_raster._pixel_ndc_xy(H, W, dev)
+    coef = torch.empty((N, T, 15), dtype=torch.float32, device=dev)
+    rect = torch.empty((N, T, 4), dtype=torch.int32, device=dev)
+    out = [torch.empty((N, H, W), dtype=d, device=dev)
+           for d in (torch.int64, torch.float32, torch.int32)]
+    # the C entry itself, so that the setup's scratch buffers are ours
+    rc = kernels.lib().nvk_resolve(
+        *(t.data_ptr() for t in (v_clip, tri, px, py, pz, pid, coef, rect,
+                                 *out)),
+        N, v_clip.shape[1], T, H, W, kernels.stream_ptr(v_clip))
+    kernels.check(rc, 'nvk_resolve')
+    for b in range(N):
+        want = pallas_raster._tri_coefs(v_clip[b], tri)
+        same = (coef[b].view(torch.int32) == want.view(torch.int32))
+        assert bool(same.all()), int((~same).sum())
+        assert torch.equal(rect[b],
+                           pallas_raster._tri_rects(v_clip[b], tri, H, W))
+
+
+def _denoise_inputs(H, W, N=1, seed=0):
+    """Smooth normals and depth with noise, depth gradients, random
+    colours: weights of every size, as a rendered frame gives them."""
+    rng = np.random.RandomState(seed)
+    yy, xx = np.meshgrid(np.linspace(0, 3, H), np.linspace(0, 4, W),
+                         indexing='ij')
+    n = np.stack([np.sin(xx), np.cos(yy), np.ones_like(xx)], -1)[None]
+    n = n + 0.05 * rng.randn(N, H, W, 3)
+    n /= np.linalg.norm(n, axis=-1, keepdims=True)
+    z = (0.5 + 0.1 * np.sin(xx + yy))[None] + 0.002 * rng.randn(N, H, W)
+    dz = 0.01 + 0.01 * rng.rand(N, H, W)
+    col6 = rng.rand(N, H, W, 6)
+    g6 = rng.randn(N, H, W, 6)
+    dev = torch.device('cuda', 0)
+    return [torch.as_tensor(a.astype(np.float32), device=dev).contiguous()
+            for a in (col6, n, np.stack([z, dz], -1), g6)]
+
+
+@pytest.mark.parametrize('sigma', [2.0, 0.6])
+def test_denoise_both_modes_ragged(sigma):
+    """The denoiser at 500x333 (tiles and borders ragged in both axes), at
+    sigma 2 (every tap of the 23x23 window) and 0.6 (the dynamic radius,
+    5, cuts it to 11x11): both modes within the checks' tolerances, and
+    two launches equal on every entry."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA device')
+    from nvdiffrecmc_tpu_torch import checks, kernels
+    from nvdiffrecmc_tpu_torch.ops import pallas_denoise
+    kernels.build()
+    col6, nrm, zdz, g6 = _denoise_inputs(333, 500, N=2)
+    r = checks.check_denoise(col6, nrm, zdz, sigma, reps=1)
+    assert r['ok'], r
+    r = checks.check_denoise_grad(g6, nrm, zdz, sigma, reps=1)
+    assert r['ok'], r
+    for grad_mode, c in ((False, col6), (True, g6)):
+        one = pallas_denoise._launch(c, nrm, zdz, sigma, grad_mode)
+        assert torch.equal(
+            pallas_denoise._launch(c, nrm, zdz, sigma, grad_mode), one)
+
+
+def test_denoise_refused_launch_raises():
+    """A launch the card refuses (65,536 images, past the 65,535 blocks of
+    a grid's z dimension) raises and counts no launch."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA device')
+    from nvdiffrecmc_tpu_torch import kernels
+    from nvdiffrecmc_tpu_torch.ops import pallas_denoise
+    kernels.build()
+    dev = torch.device('cuda', 0)
+    col6, nrm, zdz = (torch.zeros((65536, 1, 1, c), device=dev)
+                      for c in (6, 3, 2))
+    kernels.reset_launches()
+    with pytest.raises(RuntimeError, match='nvk_denoise'):
+        pallas_denoise._launch(col6, nrm, zdz, 2.0, False)
+    assert kernels.LAUNCHES['denoise'] == 0
 
 
 def test_wrapper_rejects_bad_input(recorded):
