@@ -1,9 +1,13 @@
 #!/usr/bin/env python3
 """Drive the PyTorch + CUDA port (nvdiffrecmc_tpu_torch) on one GPU.
 
-Phases:
+Phases, in the order they run (7 runs last, so that no timed phase comes
+after a torch.profiler session: a process's launches run slower after
+one):
 1. require CUDA; print the card's name and power limit; TF32 off;
-2. build the CUDA kernels from csrc/ and print the build time;
+2. build the CUDA kernels from csrc/ and print the build time, and the
+   registers, spill bytes and blocks per SM of the sample kernel (for the
+   probe's and the trainable light's sizes) and of shade_bwd;
 3. render one frame of the slice, recording each forward kernel's inputs,
    and hold every forward kernel against its plain PyTorch version on
    those inputs (error, share of mismatches, time of both; for the
@@ -21,19 +25,12 @@ Phases:
    at 1024x1024 textures, create_trainable_env_rnd(256, 0.0, 0.5), targets
    from DatasetMesh (spot256 under probe.hdr) over random backgrounds,
    logl1, three Adam groups.  One recorded step holds each backward kernel
-   and the resolve and denoiser of its forward against their plain
-   versions; then 8 steps with a sync each (loss and the
+   and the resolve, guide, sample and denoiser kernels of its forward
+   against their plain versions; then 8 steps with a sync each (loss and the
    gradients of all three groups finite and nonzero, every kernel launched
    as many times per step as the path needs), median ms per step and
    iterations per second; then one 64x64 step on the card against the same
    step on the CPU with the plain versions;
-7. with --profile only: torch.profiler over 4 more frames and over 4 more
-   training steps; prints device time by kernel, launches and host gaps,
-   and writes the full tables to chiprun_out/profile_port.txt and
-   chiprun_out/profile_train.txt; then a kernel-only trace of 4 more of
-   each gives the device's idle share within one run (and, in phase 9, a
-   kernel-only trace of one validation view, chiprun_out/
-   profile_validate.txt);
 8. the standalone tracer on 2^21 rays as bench.py's bench_tracer makes
    them (seed 1, unit directions, origins on a sphere at 0.6 of the spot
    mesh's bounding radius around its centre; that protocol's mesh was unit
@@ -48,21 +45,30 @@ Phases:
    at 512x512, n_samples 32 (1,024 strata in one call, the stratum loop),
    no denoiser, checker background, into chiprun_out/validate/; seconds,
    MSE and PSNR per view, launches per render_eval (sample and trace
-   1,024, resolve 1, trace_shade, denoise and mask 0); the first view's
+   1,024, resolve and the sampler's guide tables 1, trace_shade, denoise
+   and mask 0); the first view's
    resolve and the first stratum's inputs hold resolve, sample, trace and
-   mask against their plain versions, and
-   give the triangle tests per covered ray as in phase 8;
+   mask against their plain versions (the sample line gives the kernel's
+   time at one stratum, as the stratum loop launches it), and give the
+   triangle tests per covered ray as in phase 8;
 10. a 32x32 validation frame at n_samples 32 with the kernels on the card
    and with the plain versions on the CPU from the same uniforms;
 11. count the kernels (PyTorch's and ours) that one rasterize call of
    phase 3's frame launches, under torch.profiler: at most
-   RESOLVE_MAX_LAUNCHES up to the resolve's output.  Last, so that no
-   timed phase runs after a profiler session in this process.
+   RESOLVE_MAX_LAUNCHES up to the resolve's output;
+7. with --profile only: torch.profiler over 4 more frames and over 4 more
+   training steps; prints device time by kernel, launches and host gaps,
+   and writes the full tables to chiprun_out/profile_port.txt and
+   chiprun_out/profile_train.txt; then a kernel-only trace of 4 more of
+   each gives the device's idle share within one run; then a kernel-only
+   trace of one more validation view (chiprun_out/profile_validate.txt).
 
 Any failure raises and exits non-zero before the last line.  The last
-three lines are the kernels JSON (all ten kernels, each with its time, its
-plain version's, its bound and, for the two scatters, index_add_'s), the
-card line, and {"ok": true, "device": {...}}.
+three lines are the kernels JSON (all eleven entries: the ten kernels that
+replace the TPU kernels, the denoiser's two modes apart, and the sampler's
+guide kernel; each with its time, its plain version's, its bound and, for
+the two scatters, index_add_'s), the card line, and {"ok": true,
+"device": {...}}.
 
 Usage: python3 chip_smoke.py [--profile]
 """
@@ -82,11 +88,13 @@ SIGMA = 2.0
 CAM_RADIUS = 3.0
 TRAIN_STEPS = 8
 TEX_RES = 1024
-# launches of each kernel per training step: the forward, the sampling
-# replayed in the backward, one launch of each backward kernel, and one
-# row scatter per rows_gather (at least one)
-STEP_LAUNCHES = {'resolve': 1, 'sample': 2, 'trace_shade': 1, 'denoise': 1,
-                 'denoise_grad': 1, 'shade_bwd': 1, 'light_scatter': 1}
+# launches of each kernel per training step: the forward (one guide build
+# for the step's light), the sampling replayed in the backward, one launch
+# of each backward kernel, and one row scatter per rows_gather (at least
+# one)
+STEP_LAUNCHES = {'resolve': 1, 'sample_guide': 1, 'sample': 2,
+                 'trace_shade': 1, 'denoise': 1, 'denoise_grad': 1,
+                 'shade_bwd': 1, 'light_scatter': 1}
 TRACER_RAYS = 2 ** 21   # bench.py's bench_tracer
 RESOLVE_MAX_LAUNCHES = 10   # kernels of one rasterize call up to the resolve
 VAL_FRAMES = 2
@@ -329,7 +337,8 @@ def train_phase(device, results):
         print_compare(r)
     bad = [n for n in checks.BACKWARD if not results[n]['ok']]
     with torch.no_grad():
-        for name in ('resolve', 'denoise'):     # the step's forward kernels
+        for name in ('resolve', 'sample_guide', 'sample',
+                     'denoise'):        # the step's forward kernels
             r = checks.run(name, rec.args, reps=2)
             print_compare(r, ' (step)')
             if not r['ok']:
@@ -529,12 +538,11 @@ def profile_view(st, ds, device, out_path):
               % (sec, count, name[:80]), flush=True)
 
 
-def validation_phase(st, device, results, profile_out=None):
+def validation_phase(st, device, results):
     """Phase 9: train.validate over 2 views at 512x512, n_samples 32, with
     the trained scene; per-view seconds, MSE, PSNR and launches; sample,
-    trace and mask on the first stratum's inputs; with profile_out, a
-    kernel-only trace of one more view.  Returns the launch counts of the
-    run."""
+    trace and mask on the first stratum's inputs.  Returns the launch
+    counts of the run."""
     import torch
     from nvdiffrecmc_tpu_torch import checks, kernels, train
     from nvdiffrecmc_tpu_torch.dataset.dataset_mesh import (DatasetMesh,
@@ -581,7 +589,8 @@ def validation_phase(st, device, results, profile_out=None):
         print('validation view %d: %.3f s, %s; launches %s'
               % (i, sec, lines[1 + i], counts), flush=True)
         want = {n: 0 for n in counts}
-        want.update(sample=VAL_N * VAL_N, trace=VAL_N * VAL_N, resolve=1)
+        want.update(sample=VAL_N * VAL_N, trace=VAL_N * VAL_N, resolve=1,
+                    sample_guide=1)
         if counts != want:
             raise RuntimeError('validation view %d launched %s, expected %s'
                                % (i, counts, want))
@@ -596,8 +605,6 @@ def validation_phase(st, device, results, profile_out=None):
         raise RuntimeError('validation wrote %s' % pngs)
     print('validation: wrote metrics.txt and %d PNGs to %s'
           % (len(pngs), out_dir), flush=True)
-    if profile_out is not None:
-        profile_view(st, ds, device, profile_out)
     print('median s per validation view: %.3f (512x512, n_samples 32, '
           'spot 26474 tris; %s)' % (statistics.median(f[0] for f in frames),
                                     smi_line()), flush=True)
@@ -610,7 +617,8 @@ def validation_phase(st, device, results, profile_out=None):
         rr = checks.check_resolve(*rec.args['resolve'], reps=2)
         print_compare(rr, ' (validation view 0)')
         rs = checks.check_sample(*rec.args['sample'], mask=covered)
-        print_compare(rs, ' (validation stratum 0)')
+        print_compare(rs, ' (validation stratum 0, one stratum per launch: '
+                      '%.4f ms)' % rs['ms'])
         r = checks.check_trace(ro, rd, bvh, tmin)
         print_compare(r, ' (validation stratum 0)')
         rm = checks.check_mask(bvh_mod.ray_features(ro, rd), bvh.aabb_lo,
@@ -729,6 +737,19 @@ def rasterize_launches(v_clip, tri, res):
                            'resolve\'s output' % n)
 
 
+def print_occupancy():
+    """Registers and spill bytes per thread, blocks per SM and shared bytes
+    per block of the sample kernel (for the probe's and the trainable
+    light's sizes) and of shade_bwd."""
+    from nvdiffrecmc_tpu_torch import kernels
+    for Hl, Wl in ((512, 1024), (256, 256)):
+        print('occupancy sample (%dx%d light): %s'
+              % (Hl, Wl, kernels.occupancy('nvk_sample_info', Hl)),
+              flush=True)
+    print('occupancy shade_bwd: %s'
+          % kernels.occupancy('nvk_shade_bwd_info'), flush=True)
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument('--profile', action='store_true',
@@ -762,6 +783,7 @@ def main():
     kernels.lib()
     print('build: %.1f s (nvcc %.1f s)' % (time.perf_counter() - t0, built),
           flush=True)
+    print_occupancy()
 
     # 3. scene, one recorded frame, kernel vs plain
     t0 = time.perf_counter()
@@ -840,7 +862,54 @@ def main():
              {k: v for k, v in report.items() if 'loss' not in k}),
           flush=True)
 
-    # 7. optional profile
+    # 8. the standalone tracer on the bench rays
+    tracer_phase(mesh, device, results)
+
+    # 9. validation at the reference protocol
+    val_launches = validation_phase(st, device, results)
+
+    # 10. a small validation frame against the plain versions on the CPU
+    share, worst = small_validation_agreement(device)
+    print('32x32 validation frame (n_samples 32) vs plain CPU render: %.4f '
+          'of pixels within 1e-3 (max %.3e)' % (share, worst), flush=True)
+
+    # the kernels' rows (library_ms is timed here, before any profiler)
+    rows = []
+    for name in checks.FORWARD + checks.BACKWARD + checks.VALIDATE:
+        r = results[name]
+        kargs = r['args']
+        src, rep = checks.SOURCES[name]
+        path = (launches if name in checks.FORWARD else step_launches
+                if name in checks.BACKWARD else val_launches)
+        b = checks.bound(name, kargs)
+        row = dict(name=name, route='cuda', source=src, replaces=rep,
+                   launches=path[name], max_abs_err=r['max_abs_err'],
+                   ms=r['ms'], plain_ms=r['plain_ms'],
+                   bound_ms=b['bound_ms'], bound_by=b['bound_by'],
+                   library_ms=checks.library_ms(name, kargs),
+                   agree=r['agree'], bound_bytes=b['bound_bytes'],
+                   bound_ops=b['bound_ops'])
+        if name in checks.FORWARD:
+            row['launches_in_%d_train_steps' % TRAIN_STEPS] = \
+                step_launches[name]
+        if 'compared_on' in r:
+            row['compared_on'] = r['compared_on']
+        print('bound %-13s %.4f ms by %s (%.3e bytes, %.3e ops); kernel '
+              '%.4f ms%s' % (name, b['bound_ms'], b['bound_by'],
+                             b['bound_bytes'], b['bound_ops'], r['ms'],
+                             '' if row['library_ms'] is None else
+                             '; index_add_ %.4f ms' % row['library_ms']),
+              flush=True)
+        if 'rays' in b:
+            print_tests(b, b['rays'], kargs[2].sub_size, name + ' bound')
+        rows.append(row)
+
+    # 11. the launches of one rasterize call
+    v_clip, tri, H, W = results['resolve']['args'][:4]
+    with torch.no_grad():
+        rasterize_launches(v_clip, tri, (H, W))
+
+    # 7. optional profile: every profiler session after every timed phase
     if args.profile:
         def frame(it):
             with torch.no_grad():
@@ -856,55 +925,10 @@ def main():
                     os.path.join(out_dir, 'profile_port.txt'))
         profile_run(train_step, 'train step', device,
                     os.path.join(out_dir, 'profile_train.txt'))
+        profile_view(st, DatasetMesh(spot256_scene(device), CAM_RADIUS,
+                                     st['FLAGS'], validate=True), device,
+                     os.path.join(out_dir, 'profile_validate.txt'))
 
-    # 8. the standalone tracer on the bench rays
-    tracer_phase(mesh, device, results)
-
-    # 9. validation at the reference protocol
-    val_launches = validation_phase(
-        st, device, results,
-        os.path.join(here, 'chiprun_out', 'profile_validate.txt')
-        if args.profile else None)
-
-    # 10. a small validation frame against the plain versions on the CPU
-    share, worst = small_validation_agreement(device)
-    print('32x32 validation frame (n_samples 32) vs plain CPU render: %.4f '
-          'of pixels within 1e-3 (max %.3e)' % (share, worst), flush=True)
-
-    # 11. the launches of one rasterize call
-    v_clip, tri, H, W = results['resolve']['args'][:4]
-    with torch.no_grad():
-        rasterize_launches(v_clip, tri, (H, W))
-
-    rows = []
-    for name in checks.FORWARD + checks.BACKWARD + checks.VALIDATE:
-        r = results[name]
-        args = r['args']
-        src, rep = checks.SOURCES[name]
-        path = (launches if name in checks.FORWARD else step_launches
-                if name in checks.BACKWARD else val_launches)
-        b = checks.bound(name, args)
-        row = dict(name=name, route='cuda', source=src, replaces=rep,
-                   launches=path[name], max_abs_err=r['max_abs_err'],
-                   ms=r['ms'], plain_ms=r['plain_ms'],
-                   bound_ms=b['bound_ms'], bound_by=b['bound_by'],
-                   library_ms=checks.library_ms(name, args),
-                   agree=r['agree'], bound_bytes=b['bound_bytes'],
-                   bound_ops=b['bound_ops'])
-        if name in checks.FORWARD:
-            row['launches_in_%d_train_steps' % TRAIN_STEPS] = \
-                step_launches[name]
-        if 'compared_on' in r:
-            row['compared_on'] = r['compared_on']
-        print('bound %-13s %.4f ms by %s (%.3e bytes, %.3e ops); kernel '
-              '%.4f ms%s' % (name, b['bound_ms'], b['bound_by'],
-                             b['bound_bytes'], b['bound_ops'], r['ms'],
-                             '' if row['library_ms'] is None else
-                             '; index_add_ %.4f ms' % row['library_ms']),
-              flush=True)
-        if 'rays' in b:
-            print_tests(b, b['rays'], args[2].sub_size, name + ' bound')
-        rows.append(row)
     print(json.dumps({'kernels': rows}))
     print(smi_line())
     print(json.dumps({'ok': True, 'device': {

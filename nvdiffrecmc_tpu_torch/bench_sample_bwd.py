@@ -1,0 +1,171 @@
+#!/usr/bin/env python3
+"""Time the sample kernel (with its guide tables), the shade backward and
+the row scatter's launches on one GPU, on inputs recorded from the main
+path.
+
+    python3 nvdiffrecmc_tpu_torch/bench_sample_bwd.py [--root DIR] \
+        --inputs FILE --out FILE
+    python3 nvdiffrecmc_tpu_torch/bench_sample_bwd.py --compare FILE FILE
+
+--root DIR imports nvdiffrecmc_tpu_torch and chip_smoke from the checkout
+at DIR (default: the one holding this script), which must have the same
+wrappers; its kernels build into DIR/build.  The inputs are recorded once,
+into --inputs: the arguments of the guide and sample kernels' wrappers
+from one 512x512 frame of chip_smoke.py's slice (16 strata), from one
+pass-2 training step (its forward and the backward's replay) and from the
+first stratum of a 512x512 validation view (n_samples 32, one stratum per
+launch); and from the same step the arguments of shade_bwd and of every
+row scatter.  By CUDA events (means of 20 calls after one warm-up, through
+the wrappers, so a short launch's time includes the host's):
+
+- the sample kernel on each recording, and the guide kernel on the
+  frame's and the step's lights;
+- shade_bwd on the step, launched twice more to count the entries in which
+  two launches differ;
+- every row scatter of the step, with its size and bound (checks.bound);
+- the sample kernel's and shade_bwd's registers, spill bytes and blocks
+  per SM (kernels.occupancy); the build prints ptxas's lines (-Xptxas -v);
+- last, under a CUDA-only torch.profiler trace (a profiler session slows
+  the process's later launches): the device time and launches per call of
+  the sample kernel on the frame and the validation stratum, of the guide
+  kernel on the frame's light, of shade_bwd and of each row scatter.
+
+The results (every sample output, shade_bwd's dgb and drad) go to --out;
+--compare counts the entries in which two such files differ and the
+non-finite entries of each."""
+
+import os
+import sys
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+if ROOT not in sys.path:
+    sys.path.insert(0, ROOT)
+from nvdiffrecmc_tpu_torch.bench_common import (device_ms,  # noqa: E402
+                                                events_ms, main, recording,
+                                                to_device)
+
+SAMPLE_KEYS = ('sample_frame', 'sample_step_forward', 'sample_step_replay',
+               'sample_validation_stratum0')
+
+
+def record(dev, path):
+    """Record the wrappers' arguments (see the module docstring) and write
+    them to path."""
+    import torch
+    import chip_smoke
+    from nvdiffrecmc_tpu_torch import train
+    from nvdiffrecmc_tpu_torch.dataset.dataset_mesh import (DatasetMesh,
+                                                            spot256_scene)
+    from nvdiffrecmc_tpu_torch.geometry import DLMesh
+    from nvdiffrecmc_tpu_torch.ops import pallas_scatter, pallas_shade
+    targets = ((pallas_shade, '_sample_guide_cuda', 'guide'),
+               (pallas_shade, '_sample_cuda', 'sample'),
+               (pallas_shade, '_shade_bwd_cuda', 'shade_bwd'),
+               (pallas_scatter, '_scatter_cuda', 'scatter'))
+    room = {}
+    rec = {}
+    with recording(targets, room) as calls:
+        mesh = spot256_scene(dev)
+        FLAGS = chip_smoke.flags(512, 4)
+        ds = DatasetMesh(mesh, chip_smoke.CAM_RADIUS, FLAGS, seed=0)
+        geometry = DLMesh(ds.ref_mesh, FLAGS)
+        room.update(guide=1, sample=1)
+        with torch.no_grad():
+            chip_smoke.render_frame(ds, geometry, mesh.material, FLAGS, 0,
+                                    dev)
+        room.clear()
+        rec['guide_frame'] = calls['guide'].pop()
+        rec['sample_frame'] = calls['sample'].pop()
+        st = chip_smoke.train_setup(dev, 512, 4, 1024)
+        target = chip_smoke.make_targets(st, 1, 17)[0]
+        room.update(guide=1, sample=2, shade_bwd=1, scatter=100)
+        train.train_step(st['geometry'], st['params'], st['opts'],
+                         st['static'], target, 0, st['FLAGS'], st['loss_fn'],
+                         st['ds'].perms, None)
+        torch.cuda.synchronize()
+        room.clear()
+        rec['guide_step'] = calls['guide'].pop()
+        rec['sample_step_forward'], rec['sample_step_replay'] = \
+            calls['sample']
+        rec['shade_bwd'] = calls['shade_bwd'][0]
+        rec['scatter'] = calls['scatter']
+        calls['sample'].clear()
+        vds = DatasetMesh(spot256_scene(dev), chip_smoke.CAM_RADIUS,
+                          st['FLAGS'], validate=True)
+        batch = vds.collate([vds[0]])
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(7)
+        tgt = train.prepare_batch(batch, tuple(batch['img'].shape[1:3]),
+                                  st['FLAGS']['background'], gen,
+                                  st['FLAGS'])
+        p = st['params']
+        room.update(sample=1)
+        train.render_eval(st['geometry'], p['geo'], p['mat'], st['static'],
+                          p['light'], tgt, st['FLAGS'])
+        torch.cuda.synchronize()
+        rec['sample_validation_stratum0'], = calls['sample']
+    torch.save(rec, path)
+
+
+def run(dev, args):
+    import torch
+    from nvdiffrecmc_tpu_torch import checks, kernels
+    from nvdiffrecmc_tpu_torch.ops import pallas_scatter, pallas_shade
+    rec = torch.load(args.inputs)
+    t, res = {}, {}
+    for key in SAMPLE_KEYS:
+        a = to_device(rec[key], dev)
+        res[key] = pallas_shade._sample_cuda(*a)
+        t[key + '_ms'] = events_ms(lambda: pallas_shade._sample_cuda(*a), 20)
+        t[key + '_strata'] = a[0].shape[0]
+    for key in ('guide_frame', 'guide_step'):
+        a = to_device(rec[key], dev)
+        res[key] = pallas_shade._sample_guide_cuda(*a)
+        t[key + '_ms'] = events_ms(
+            lambda: pallas_shade._sample_guide_cuda(*a), 20)
+        t[key + '_light'] = list(a[1].shape)
+    a = to_device(rec['shade_bwd'], dev)
+    res['dgb'], res['drad'] = pallas_shade._shade_bwd_cuda(*a)
+    again = [pallas_shade._shade_bwd_cuda(*a) for _ in range(2)]
+    t['shade_bwd_repeat_differ'] = [
+        int((x != y).sum()) for x, y in zip(*again)]
+    t['shade_bwd_ms'] = events_ms(
+        lambda: pallas_shade._shade_bwd_cuda(*a), 20)
+    scatters = []
+    for call in rec['scatter']:
+        idx, vals, out_rows = to_device(call, dev)
+        b = checks.bound('scatter', (idx, vals, out_rows))
+        scatters.append(dict(
+            rows=vals.shape[0], channels=vals.shape[1], out_rows=out_rows,
+            ms=events_ms(lambda: pallas_scatter._scatter_cuda(
+                idx, vals, out_rows), 20),
+            bound_ms=b['bound_ms'], bound_by=b['bound_by']))
+    t['scatter'] = scatters
+    t['scatter_sum_ms'] = sum(s['ms'] for s in scatters)
+    t['scatter_sum_bound_ms'] = sum(s['bound_ms'] for s in scatters)
+    t['occupancy'] = {
+        'sample_%dx%d' % tuple(rec[key][3].shape): kernels.occupancy(
+            'nvk_sample_info', rec[key][3].shape[0])
+        for key in ('sample_frame', 'sample_step_forward')}
+    t['occupancy']['shade_bwd'] = kernels.occupancy('nvk_shade_bwd_info')
+    # profiler sessions last: later launches of the process run slower
+    for key in ('sample_frame', 'sample_validation_stratum0'):
+        a = to_device(rec[key], dev)
+        t[key + '_device_ms'], t[key + '_launches'] = device_ms(
+            lambda: pallas_shade._sample_cuda(*a), 20)
+    a = to_device(rec['guide_frame'], dev)
+    t['guide_frame_device_ms'], t['guide_frame_launches'] = device_ms(
+        lambda: pallas_shade._sample_guide_cuda(*a), 20)
+    a = to_device(rec['shade_bwd'], dev)
+    t['shade_bwd_device_ms'] = device_ms(
+        lambda: pallas_shade._shade_bwd_cuda(*a), 20)[0]
+    for call, row in zip(rec['scatter'], scatters):
+        idx, vals, out_rows = to_device(call, dev)
+        row['device_ms'] = device_ms(lambda: pallas_scatter._scatter_cuda(
+            idx, vals, out_rows), 20)[0]
+    t['scatter_sum_device_ms'] = sum(s['device_ms'] for s in scatters)
+    return t, res
+
+
+if __name__ == '__main__':
+    main(__doc__, run, record)

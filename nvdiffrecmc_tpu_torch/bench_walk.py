@@ -25,80 +25,29 @@ The frame is recorded once and kept in --inputs, so that every run (and
 checkout) traces the same rays.
 
 The results (bits of both traces, trace + shade's out and visw) go to
---out; --compare counts the entries in which two such files differ.  --sweep (a checkout with bvh.SUB) repeats
-the timings for sub-boxes of 4, 8, 16, 32 and 128 triangles (128: one per
-leaf, the two-level walk of the earlier kernels; results held equal
-to the default's on every ray but the few that graze a box, which are
-counted against brute force) with the tests per ray (checks.trace_work; on the
-stratum's covered rays and the first 2^16 bench rays), and times two options
-of the walk's callers: the rays sorted by direction octant then origin
-Morton code (the sort timed apart), and the standalone trace kernel over
-all 2 n2 P ray slots of the frame (the work of trace + shade's trace
-pass)."""
+--out; --compare counts the entries in which two such files differ.
+--sweep repeats the timings for sub-boxes of 4, 8, 16, 32 and 128
+triangles (128: one per leaf, the two-level walk of the earlier kernels;
+results held equal to the default's on every ray but the few that graze a
+box, which are counted against brute force) with the tests per ray
+(checks.trace_work; on the stratum's covered rays and the first 2^16 bench
+rays), and times two options of the walk's callers: the rays sorted by
+direction octant then origin Morton code (the sort timed apart), and the
+standalone trace kernel over all 2 n2 P ray slots of the frame (the work
+of trace + shade's trace pass).  The build's device time, under
+torch.profiler, comes last."""
 
-import argparse
 import json
 import os
-import statistics
-import subprocess
 import sys
-import time
 
-HERE = os.path.dirname(os.path.abspath(__file__))
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+if ROOT not in sys.path:
+    sys.path.insert(0, ROOT)
+from nvdiffrecmc_tpu_torch.bench_common import (device_ms,  # noqa: E402
+                                                events_ms, main)
+
 BIG = 3e37
-
-
-def smi_line():
-    return subprocess.run(
-        ['nvidia-smi', '--query-gpu=name,power.limit',
-         '--format=csv,noheader'], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
-
-
-def events_ms(fn, reps, warmup=1, median=False):
-    """Mean (or median) device milliseconds of fn over reps calls."""
-    import torch
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    if not median:
-        start.record()
-        for _ in range(reps):
-            fn()
-        end.record()
-        torch.cuda.synchronize()
-        return start.elapsed_time(end) / reps
-    for _ in range(reps):
-        start.record()
-        fn()
-        end.record()
-        torch.cuda.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
-
-
-def device_ms(fn, reps):
-    """(device milliseconds, kernel launches) per call of fn: the sum of
-    its kernels' times under a CUDA-only torch.profiler trace of reps
-    calls, after one warm-up call."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    events = [e for e in prof.key_averages()
-              if e.device_type == torch.autograd.DeviceType.CUDA]
-    key = 'self_device_time_total'
-    if events and not hasattr(events[0], key):
-        key = 'self_cuda_time_total'
-    return (sum(getattr(e, key) for e in events) / 1e3 / reps,
-            sum(e.count for e in events) / reps)
 
 
 def setup(dev, inputs):
@@ -290,56 +239,22 @@ def sweep(st, base):
     return out
 
 
-def main():
-    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument('--root', default=os.path.dirname(HERE))
-    parser.add_argument('--out')
-    parser.add_argument('--inputs',
-                        help='the frame\'s recorded trace + shade inputs '
-                             '(read if present, else written)')
-    parser.add_argument('--sweep', action='store_true')
-    parser.add_argument('--compare', nargs=2)
-    args = parser.parse_args()
-    import torch
-    if args.compare:
-        a, b = (torch.load(f) for f in args.compare)
-        keys = sorted(k for k in a if torch.is_tensor(a[k]))
-        print('compare %s %s: entries that differ %s' % (
-            args.compare[0], args.compare[1],
-            {k: '%d of %d' % (int((a[k] != b[k]).sum()), a[k].numel())
-             for k in keys}))
-        return
-    if not torch.cuda.is_available():
-        raise SystemExit('bench_walk: torch.cuda.is_available() is false')
-    if not (args.out and args.inputs):
-        parser.error('--out and --inputs are required')
-    sys.path[:] = [os.path.abspath(args.root)] + [
-        p for p in sys.path if os.path.abspath(p or '.') != HERE]
-    from nvdiffrecmc_tpu_torch import kernels
+def run(dev, args):
     from nvdiffrecmc_tpu_torch.ops import bvh as bvh_mod
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    dev = torch.device('cuda', 0)
-    t0 = time.perf_counter()
-    kernels.build()
-    kernels.lib()
-    print('root %s; build %.1f s; %s'
-          % (args.root, time.perf_counter() - t0, smi_line()), flush=True)
     st = setup(dev, args.inputs)
     times, res = time_walk(st, st['bvh'])
     times['build_ms'] = events_ms(lambda: bvh_mod.build(
         st['v_pos'], st['tri'], leaf_size=128), 20, warmup=3)
-    times['build_device_ms'], times['build_launches'] = device_ms(
-        lambda: bvh_mod.build(st['v_pos'], st['tri'], leaf_size=128), 20)
     print('walk: %s' % json.dumps(times), flush=True)
-    res['times'] = times
+    res['times'] = dict(times)
     if args.sweep:
         res['sweep'] = sweep(st, res)
-    os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
-    torch.save({k: (v.cpu() if torch.is_tensor(v) else v)
-                for k, v in res.items()}, args.out)
-    print(json.dumps(dict(root=args.root, card=smi_line(), **times)))
+    # the profiler session last
+    times['build_device_ms'], times['build_launches'] = device_ms(
+        lambda: bvh_mod.build(st['v_pos'], st['tri'], leaf_size=128), 20)
+    return times, res
 
 
 if __name__ == '__main__':
-    main()
+    main(__doc__, run, add_args=lambda p: p.add_argument(
+        '--sweep', action='store_true'))

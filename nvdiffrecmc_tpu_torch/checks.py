@@ -6,6 +6,8 @@ Tolerances, with their reasons:
   the plain version's fields term by term, the raster kernel evaluates them
   in its order, and the (depth, id) key keeps the lowest id on equal
   depths, as the plain version does).
+- sample_guide: every entry equal (integer counts of float32 buckets,
+  floor(v K) computed alike).
 - sample, on covered pixels only (the shading multiplies masked pixels by
   zero, and their zero normals give arbitrary directions): >= 99.9% of the
   (stratum, pixel) entries agree, with the same texel ids and all 16
@@ -105,12 +107,25 @@ def check_resolve(v_clip, tri, H, W, prev_z, prev_id, reps=20):
         plain_ms=time_ms(lambda: pallas_raster.resolve_plain(*args), 2))
 
 
-def check_sample(u8, gb8, rows, cols, pdf_tex, base, n_samples_x, mask=None,
-                 reps=20):
+def check_sample_guide(rows, cols, reps=20):
+    args = (rows, cols)
+    got = pallas_shade._sample_guide_cuda(*args)
+    want = pallas_shade.sample_guide_plain(*args)
+    differ = int((got != want).sum())
+    return dict(
+        name='sample_guide', agree=1.0 - differ / want.numel(),
+        max_abs_err=float((got - want).abs().max()), ok=differ == 0,
+        ms=time_ms(lambda: pallas_shade._sample_guide_cuda(*args), reps),
+        plain_ms=time_ms(lambda: pallas_shade.sample_guide_plain(*args), 3))
+
+
+def check_sample(u8, gb8, rows, cols, guide, pdf_tex, base, n_samples_x,
+                 mask=None, reps=20):
     """mask: bool [P] of covered pixels (None: all)."""
-    args = (u8, gb8, rows, cols, pdf_tex, base, n_samples_x)
+    args = (u8, gb8, rows, cols, guide, pdf_tex, base, n_samples_x)
     got = pallas_shade._sample_cuda(*args)
-    want = pallas_shade.sample_all_plain(*args)
+    want = pallas_shade.sample_all_plain(u8, gb8, rows, cols, pdf_tex, base,
+                                         n_samples_x)
     if mask is not None:
         got, want = got[:, :, mask], want[:, :, mask]
     tex = pallas_shade.S_LTEX
@@ -127,7 +142,8 @@ def check_sample(u8, gb8, rows, cols, pdf_tex, base, n_samples_x, mask=None,
         compared_on='%d of %d pixels (covered)' % (got.shape[2],
                                                    u8.shape[2]),
         ms=time_ms(lambda: pallas_shade._sample_cuda(*args), reps),
-        plain_ms=time_ms(lambda: pallas_shade.sample_all_plain(*args), 3))
+        plain_ms=time_ms(lambda: pallas_shade.sample_all_plain(
+            u8, gb8, rows, cols, pdf_tex, base, n_samples_x), 3))
 
 
 def check_trace_shade(samp, gb, bvh, BSDF=0, tmin=0.0, reps=5):
@@ -308,12 +324,13 @@ def check_mask(rayf, aabb_lo, aabb_hi, ray_block, tmin, tmax, reps=10):
         plain_ms=time_ms(lambda: pallas_tracer.visit_masks_plain(*args), 2))
 
 
-CHECKS = {'resolve': check_resolve, 'sample': check_sample,
+CHECKS = {'resolve': check_resolve, 'sample_guide': check_sample_guide,
+          'sample': check_sample,
           'trace_shade': check_trace_shade, 'denoise': check_denoise,
           'denoise_grad': check_denoise_grad, 'shade_bwd': check_shade_bwd,
           'light_scatter': check_light_scatter, 'scatter': check_scatter,
           'trace': check_trace, 'mask': check_mask}
-FORWARD = ('resolve', 'sample', 'trace_shade', 'denoise')
+FORWARD = ('resolve', 'sample_guide', 'sample', 'trace_shade', 'denoise')
 BACKWARD = ('denoise_grad', 'shade_bwd', 'light_scatter', 'scatter')
 VALIDATE = ('trace', 'mask')
 
@@ -333,12 +350,14 @@ SLAB_OPS = 25
 TRI_OPS = 54
 # per item, counted from the sources and rounded down: the BSDF and light
 # sampling of one (stratum, pixel) (two CDF inversions, a cosine and a GGX
-# sample, three pdfs); the shading of one ray; its adjoint; one (pixel, tap)
+# sample, three pdfs); the guide tables' bucket and count of one CDF entry;
+# the shading of one ray; its adjoint; one (pixel, tap)
 # of the denoiser (weights of 3 factors and 7 accumulations) and its
 # special functions (an ex2 and a reciprocal); one (pixel, triangle) inside
 # test of the resolve; the resolve's setup of one triangle (adjugate,
 # determinant, the 15 fields, the screen rectangle)
 SAMPLE_OPS = 300
+GUIDE_OPS = 4
 SHADE_OPS = 100
 SHADE_BWD_OPS = 300
 TAP_OPS = 30
@@ -470,10 +489,15 @@ def bound(name, args):
             _nbytes(v_clip, tri, pz, pid) + N * H * W * 8,
             SETUP_OPS * N * tri.shape[0] + RESOLVE_OPS * (pairs + N * H * W)),
             pairs=pairs)
+    if name == 'sample_guide':
+        rows, cols = args
+        entries = cols.numel() + rows.numel()
+        return _bound_of(_nbytes(rows, cols) + (entries + rows.numel() + 1)
+                         * 4, GUIDE_OPS * entries)
     if name == 'sample':
-        u8, gb8, rows, cols, pdf, base, n = args
+        u8, gb8, rows, cols, guide, pdf, base, n = args
         n2, _, P = u8.shape
-        return _bound_of(_nbytes(u8, gb8, rows, cols, pdf, base)
+        return _bound_of(_nbytes(u8, gb8, rows, cols, guide, pdf, base)
                          + n2 * 16 * P * 4, SAMPLE_OPS * n2 * P)
     if name == 'trace_shade':
         samp, gb, bvh = args[:3]
@@ -557,6 +581,8 @@ def run(name, recorded, **kw):
 SOURCES = {
     'resolve': ('nvdiffrecmc_tpu_torch/csrc/resolve.cu',
                 'nvdiffrecmc_tpu/ops/pallas_raster.py:148'),
+    'sample_guide': ('nvdiffrecmc_tpu_torch/csrc/sample.cu',
+                     'nvdiffrecmc_tpu/ops/pallas_shade.py:354'),
     'sample': ('nvdiffrecmc_tpu_torch/csrc/sample.cu',
                'nvdiffrecmc_tpu/ops/pallas_shade.py:354'),
     'trace_shade': ('nvdiffrecmc_tpu_torch/csrc/shade.cu',
@@ -585,6 +611,7 @@ class Recorder:
     the launch with the most updates (the texture pyramid's adjoint)."""
 
     _TARGETS = ((pallas_raster, '_resolve_cuda', 'resolve'),
+                (pallas_shade, '_sample_guide_cuda', 'sample_guide'),
                 (pallas_shade, '_sample_cuda', 'sample'),
                 (pallas_shade, '_trace_shade_cuda', 'trace_shade'),
                 (pallas_denoise, '_denoise_cuda', 'denoise'),

@@ -1,6 +1,6 @@
 """Training defaults of the port (the pass-2 and validation settings of
 nvdiffrecmc_tpu/config.py, as a plain dict; the command line is not
-ported yet)."""
+ported yet).  Every key is one the port reads; make_flags refuses others."""
 
 import copy
 
@@ -19,9 +19,13 @@ DEFAULTS = dict(
     bsdf='pbr',
     denoiser='bilateral',
     denoiser_demodulate=True,
+    envlight=None,
+    data_root='.',
     env_scale=1.0,
     probe_res=256,
     learn_lighting=True,
+    lock_light=False,
+    lock_pos=False,
     laplace='relative',
     laplace_scale=3000.0,
     no_perturbed_nrm=False,
@@ -50,7 +54,10 @@ REFERENCE_LR_DECAY = 0.0002     # lr = 10^(-rate * it)
 def make_flags(**overrides):
     """DEFAULTS updated with overrides; display_res defaults to train_res;
     lr_decay_rate scaled with 5000 / iter, as the JAX package scales its
-    schedules."""
+    schedules.  Raises on a key that is not in DEFAULTS."""
+    unknown = sorted(set(overrides) - set(DEFAULTS))
+    if unknown:
+        raise KeyError('keys the port does not read: %s' % unknown)
     FLAGS = copy.deepcopy(DEFAULTS)
     FLAGS.update(overrides)
     if FLAGS['display_res'] is None:

@@ -1,5 +1,5 @@
-// Shade backward: the adjoint of the per-stratum demodulated shading, one
-// thread per pixel, no tracing.
+// Shade backward: the adjoint of the per-stratum demodulated shading, no
+// tracing; one block per 32 pixels, its warps splitting the strata.
 //
 // Replaces the Pallas kernel _shade_bwd_kernel (nvdiffrecmc_tpu/ops/
 // pallas_shade.py:723, launched from env_shade_fused's bwd :1101).  The TPU
@@ -19,10 +19,21 @@
 // rays with their texel ids, for the light scatter (light_scatter.cu).
 // Masked pixels write zeros.
 //
-// What bounds it: arithmetic.  Per pixel and stratum two BSDF evaluations
-// and their adjoints (~600 flops, 3 sqrt, 4 rsqrt, 2 pow) against 28
-// floats read and 8 written, coalesced along pixels; at 512^2 and 16
-// strata that is ~2.5 GFLOP against ~270 MB.
+// What bounds it: per pixel and stratum two BSDF evaluations and their
+// adjoints (~600 flops, 3 sqrt, 4 rsqrt, 2 pow) against 28 floats read and
+// 8 written, coalesced along pixels; at 512^2 and 16 strata that is ~2.5
+// GFLOP against ~270 MB, so the bytes bound it.  One thread per pixel
+// running all strata in series left the work in the ~28% of threads whose
+// pixel is covered, each a serial chain of 2 n2 adjoints: parallelism and
+// latency set its time.  Here a block of W warps covers 32 consecutive
+// pixels (the lanes, so loads and stores along pixels stay coalesced) and
+// warp w takes strata s = w, w + W, ... (any n2); each warp writes drad
+// for its own strata, and the W partial sums of the 15 dgb rows meet in
+// shared memory, added in warp order: no atomics, the same result in every
+// run.  The stratum sum's order differs from the plain version's.  The
+// adjoint needs ~130 registers a thread, so a cap of 128 allows 16 warps
+// per SM: W = 4 (4 strata a thread at n2 = 16, 4 independent blocks per
+// SM) measured faster than 8 or 16.
 //
 // Layouts: samp [n2, 16, P]; gb [19, P] (ro3, pos3, nrm3, view3, kd3, ks3,
 // mask); vw [n2, 2P] (light rays, then BSDF rays); g [6, P]; dgb [15, P]
@@ -30,6 +41,9 @@
 // tex_l, tex_b).
 
 #include "common.cuh"
+
+#define DGB_ROWS 15
+#define WARPS 4  // W above: warps per block
 
 // d max(x, lo) / dx, with half the gradient at a tie (jnp.maximum).
 __device__ __forceinline__ float dmax(float x, float lo) {
@@ -189,70 +203,110 @@ __device__ void demod_bwd(V3 kd, V3 ks, V3 pos, V3 nrm, V3 view, V3 wi,
     acc->pos = add3(acc->pos, scale3(g_a, -1.f));
 }
 
-__global__ void shade_bwd_kernel(const float* __restrict__ samp,
-                                 const float* __restrict__ gb,
-                                 const float* __restrict__ vw,
-                                 const float* __restrict__ g,
-                                 float* __restrict__ dgb,
-                                 float* __restrict__ drad, int n2, int P,
-                                 int bsdf) {
-    int p = blockIdx.x * blockDim.x + threadIdx.x;
-    if (p >= P) return;
+// 16 / WARPS blocks of WARPS warps per SM: at most 128 registers a thread
+__global__ void __launch_bounds__(32 * WARPS, 16 / WARPS)
+shade_bwd_kernel(const float* __restrict__ samp, const float* __restrict__ gb,
+                 const float* __restrict__ vw, const float* __restrict__ g,
+                 float* __restrict__ dgb, float* __restrict__ drad, int n2,
+                 int P, int bsdf) {
+    __shared__ float s_red[WARPS * DGB_ROWS * 32];
+    const int lane = threadIdx.x & 31;
+    const int w = threadIdx.x >> 5;
+    const int p = blockIdx.x * 32 + lane;
     const size_t sP = (size_t)P;
-    bool covered = gb[18 * sP + p] > 0.f;
     Grads acc;
     acc.pos = acc.nrm = acc.view = acc.kd = acc.ks = mk3(0.f, 0.f, 0.f);
-    V3 pos = mk3(gb[3 * sP + p], gb[4 * sP + p], gb[5 * sP + p]);
-    V3 nrm = mk3(gb[6 * sP + p], gb[7 * sP + p], gb[8 * sP + p]);
-    V3 view = mk3(gb[9 * sP + p], gb[10 * sP + p], gb[11 * sP + p]);
-    V3 kd = mk3(gb[12 * sP + p], gb[13 * sP + p], gb[14 * sP + p]);
-    V3 ks = mk3(gb[15 * sP + p], gb[16 * sP + p], gb[17 * sP + p]);
-    float gd[3] = {g[p], g[sP + p], g[2 * sP + p]};
-    float gsp[3] = {g[3 * sP + p], g[4 * sP + p], g[5 * sP + p]};
-    float sample_frac = 1.f / (float)n2;
-
-    for (int s = 0; s < n2; ++s) {
-        const float* sp = samp + (size_t)s * 16 * sP + p;
-        float* dr = drad + (size_t)s * 8 * sP + p;
-        dr[6 * sP] = sp[14 * sP];
-        dr[7 * sP] = sp[15 * sP];
-        if (!covered) {
-            for (int k = 0; k < 6; ++k) dr[k * sP] = 0.f;
-            continue;
+    if (p < P) {
+        const bool covered = gb[18 * sP + p] > 0.f;
+        V3 pos = mk3(0.f, 0.f, 0.f), nrm = pos, view = pos, kd = pos,
+           ks = pos;
+        float gd[3] = {0.f, 0.f, 0.f}, gsp[3] = {0.f, 0.f, 0.f};
+        if (covered) {
+            pos = mk3(gb[3 * sP + p], gb[4 * sP + p], gb[5 * sP + p]);
+            nrm = mk3(gb[6 * sP + p], gb[7 * sP + p], gb[8 * sP + p]);
+            view = mk3(gb[9 * sP + p], gb[10 * sP + p], gb[11 * sP + p]);
+            kd = mk3(gb[12 * sP + p], gb[13 * sP + p], gb[14 * sP + p]);
+            ks = mk3(gb[15 * sP + p], gb[16 * sP + p], gb[17 * sP + p]);
+            for (int k = 0; k < 3; ++k) {
+                gd[k] = g[k * sP + p];
+                gsp[k] = g[(3 + k) * sP + p];
+            }
         }
-        V3 l_dir = mk3(sp[0], sp[sP], sp[2 * sP]);
-        V3 b_dir = mk3(sp[3 * sP], sp[4 * sP], sp[5 * sP]);
-        float l_mis = 1.f / fmaxf(sp[6 * sP], 1e-4f);
-        float b_mis = 1.f / fmaxf(sp[7 * sP], 1e-4f);
-        float l_rad[3] = {sp[8 * sP], sp[9 * sP], sp[10 * sP]};
-        float b_rad[3] = {sp[11 * sP], sp[12 * sP], sp[13 * sP]};
-        float wl = vw[(size_t)s * 2 * sP + p] * l_mis * sample_frac;
-        float wb = vw[(size_t)s * 2 * sP + sP + p] * b_mis * sample_frac;
-        float drl[3], drb[3];
-        demod_bwd(kd, ks, pos, nrm, view, l_dir, bsdf, gd, gsp, l_rad, wl,
-                  drl, &acc);
-        demod_bwd(kd, ks, pos, nrm, view, b_dir, bsdf, gd, gsp, b_rad, wb,
-                  drb, &acc);
-        for (int k = 0; k < 3; ++k) {
-            dr[k * sP] = drl[k];
-            dr[(3 + k) * sP] = drb[k];
+        const float sample_frac = 1.f / (float)n2;
+        for (int s = w; s < n2; s += WARPS) {
+            const float* sp = samp + (size_t)s * 16 * sP + p;
+            float* dr = drad + (size_t)s * 8 * sP + p;
+            dr[6 * sP] = sp[14 * sP];
+            dr[7 * sP] = sp[15 * sP];
+            if (!covered) {
+                for (int k = 0; k < 6; ++k) dr[k * sP] = 0.f;
+                continue;
+            }
+            V3 l_dir = mk3(sp[0], sp[sP], sp[2 * sP]);
+            V3 b_dir = mk3(sp[3 * sP], sp[4 * sP], sp[5 * sP]);
+            float l_mis = 1.f / fmaxf(sp[6 * sP], 1e-4f);
+            float b_mis = 1.f / fmaxf(sp[7 * sP], 1e-4f);
+            float l_rad[3] = {sp[8 * sP], sp[9 * sP], sp[10 * sP]};
+            float b_rad[3] = {sp[11 * sP], sp[12 * sP], sp[13 * sP]};
+            float wl = vw[(size_t)s * 2 * sP + p] * l_mis * sample_frac;
+            float wb = vw[(size_t)s * 2 * sP + sP + p] * b_mis * sample_frac;
+            float drl[3], drb[3];
+            demod_bwd(kd, ks, pos, nrm, view, l_dir, bsdf, gd, gsp, l_rad, wl,
+                      drl, &acc);
+            demod_bwd(kd, ks, pos, nrm, view, b_dir, bsdf, gd, gsp, b_rad, wb,
+                      drb, &acc);
+            for (int k = 0; k < 3; ++k) {
+                dr[k * sP] = drl[k];
+                dr[(3 + k) * sP] = drb[k];
+            }
         }
     }
-    V3 rows[5] = {acc.pos, acc.nrm, acc.view, acc.kd, acc.ks};
+    // the partial sums of each pixel's 15 dgb rows, added in warp order
+    const V3 rows[5] = {acc.pos, acc.nrm, acc.view, acc.kd, acc.ks};
+    float* red = s_red + w * DGB_ROWS * 32 + lane;
     for (int r = 0; r < 5; ++r) {
-        dgb[(3 * r) * sP + p] = rows[r].x;
-        dgb[(3 * r + 1) * sP + p] = rows[r].y;
-        dgb[(3 * r + 2) * sP + p] = rows[r].z;
+        red[(3 * r) * 32] = rows[r].x;
+        red[(3 * r + 1) * 32] = rows[r].y;
+        red[(3 * r + 2) * 32] = rows[r].z;
+    }
+    __syncthreads();
+    for (int o = threadIdx.x; o < DGB_ROWS * 32; o += 32 * WARPS) {
+        const int q = blockIdx.x * 32 + (o & 31);
+        if (q >= P) continue;
+        float sum = s_red[o];
+        for (int k = 1; k < WARPS; ++k)
+            sum = sum + s_red[k * DGB_ROWS * 32 + o];
+        dgb[(size_t)(o >> 5) * sP + q] = sum;
     }
 }
 
+// Returns the error of a refused launch.
 extern "C" int nvk_shade_bwd(const float* samp, const float* gb,
                              const float* vw, const float* g, float* dgb,
                              float* drad, int n2, int P, int bsdf,
                              cudaStream_t stream) {
-    dim3 block(128);
-    dim3 grid((P + 127) / 128);
-    shade_bwd_kernel<<<grid, block, 0, stream>>>(samp, gb, vw, g, dgb, drad,
-                                                 n2, P, bsdf);
+    if (P == 0) return 0;
+    shade_bwd_kernel<<<(P + 31) / 32, 32 * WARPS, 0, stream>>>(
+        samp, gb, vw, g, dgb, drad, n2, P, bsdf);
     return (int)cudaGetLastError();
+}
+
+// info: registers per thread, local (spill) bytes per thread, blocks per
+// SM and shared bytes per block of shade_bwd_kernel.
+extern "C" int nvk_shade_bwd_info(int* info) {
+    cudaFuncAttributes a;
+    int per_sm = 0;
+    cudaError_t err = cudaFuncGetAttributes(&a, shade_bwd_kernel);
+    if (err == cudaSuccess)
+        err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            &per_sm, shade_bwd_kernel, 32 * WARPS, 0);
+    if (err != cudaSuccess) {
+        cudaGetLastError();
+        return (int)err;
+    }
+    info[0] = a.numRegs;
+    info[1] = (int)a.localSizeBytes;
+    info[2] = per_sm;
+    info[3] = (int)a.sharedSizeBytes;
+    return 0;
 }

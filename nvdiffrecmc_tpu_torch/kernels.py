@@ -30,9 +30,9 @@ NVCC_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
 
 # Launches per kernel.  Each wrapper adds one where it launches its kernel
 # and nowhere else; reset_launches() zeroes them.
-LAUNCHES = {'resolve': 0, 'sample': 0, 'trace_shade': 0, 'denoise': 0,
-            'denoise_grad': 0, 'shade_bwd': 0, 'light_scatter': 0,
-            'scatter': 0, 'trace': 0, 'mask': 0}
+LAUNCHES = {'resolve': 0, 'sample_guide': 0, 'sample': 0, 'trace_shade': 0,
+            'denoise': 0, 'denoise_grad': 0, 'shade_bwd': 0,
+            'light_scatter': 0, 'scatter': 0, 'trace': 0, 'mask': 0}
 
 _VP = ctypes.c_void_p
 _I = ctypes.c_int
@@ -41,12 +41,14 @@ _LL = ctypes.c_longlong
 # argtypes of each C entry point (every pointer and the stream are void*)
 _SIGNATURES = {
     'nvk_resolve': [_VP] * 11 + [_I, _I, _I, _I, _I, _VP],
-    'nvk_sample': [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I,
-                   _VP],
+    'nvk_sample_guide': [_VP, _VP, _VP, _I, _I, _VP],
+    'nvk_sample': [_VP] * 8 + [_I] * 6 + [_VP],
+    'nvk_sample_info': [_I, _VP],
     'nvk_trace_shade': [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP,
                         _VP, _I, _I, _I, _I, _I, _I, _I, _F, _VP],
     'nvk_denoise': [_VP, _VP, _VP, _VP, _I, _I, _I, _F, _I, _VP],
-    'nvk_shade_bwd': [_VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _VP],
+    'nvk_shade_bwd': [_VP] * 6 + [_I] * 3 + [_VP],
+    'nvk_shade_bwd_info': [_VP],
     'nvk_light_scatter': [_VP, _VP, _I, _I, _I, _VP],
     'nvk_scatter_add': [_VP, _VP, _VP, _LL, _I, _LL, _VP],
     'nvk_trace': [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _I, _I,
@@ -146,6 +148,16 @@ def check(rc, name):
     if rc != 0:
         msg = lib().nvk_error_string(rc).decode(errors='replace')
         raise RuntimeError('%s: CUDA error %d (%s)' % (name, rc, msg))
+
+
+def occupancy(entry, *args):
+    """Registers and local (spill) bytes per thread, blocks per SM and
+    shared bytes per block of a kernel, from its C entry `entry` (an
+    nvk_*_info taking args and an int[4])."""
+    info = (ctypes.c_int * 4)()
+    check(getattr(lib(), entry)(*args, info), entry)
+    return dict(regs=info[0], local_bytes=info[1], blocks_per_sm=info[2],
+                smem_bytes=info[3])
 
 
 def stream_ptr(t):

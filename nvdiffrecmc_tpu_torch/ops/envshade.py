@@ -142,8 +142,9 @@ def _env_shade_loop(mask, ro, gb_pos, gb_normal, gb_view_pos, gb_kd, gb_ks,
     gb8 = pallas_shade.lobe_rows(pos, nrm, view, kd, ks)
     g = dict(pos=pos.unbind(-1), nrm=nrm.unbind(-1), view=view.unbind(-1),
              kd=kd.unbind(-1), ks=ks.unbind(-1))
-    tables = tuple(t.contiguous() for t in (rows, cols, light_pdf_tex,
-                                            light_base))
+    rows, cols = rows.contiguous(), cols.contiguous()
+    tables = (rows, cols, pallas_shade.sample_guide(rows, cols),
+              light_pdf_tex.contiguous(), light_base.contiguous())
     origins = torch.where(m[:, None], ro.reshape(P, 3), BIG)
     all_o = torch.cat([origins, origins])
     m2 = torch.cat([m, m])[:, None]

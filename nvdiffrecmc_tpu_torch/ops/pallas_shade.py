@@ -2,12 +2,14 @@
 demodulated shading, and their backward (counterpart of
 nvdiffrecmc_tpu/ops/pallas_shade.py).
 
-Four kernels, each beside its plain PyTorch version:
+The kernels, each beside its plain PyTorch version:
 
 - `sample_all` (csrc/sample.cu; plain: `sample_all_plain`): per (stratum,
   pixel), one light-importance sample by inverting the row CDF and then that
   row's column CDF, one BSDF sample (cosine or GGX-VNDF lobe), the MIS pdf
   sums, the nearest-texel radiance of both directions and their texel ids.
+  Its CDF searches start from guide tables that `sample_guide` (the same
+  source; plain: `sample_guide_plain`) builds once per light.
 - `trace_shade` (csrc/shade.cu; plain: `trace_shade_plain`): trace the
   light ray and the BSDF ray of every stratum and pixel (any hit, from
   `ro`; on the card a pass with one thread per ray), then per pixel, for
@@ -309,7 +311,60 @@ def sample_all_plain(u8, gb8, rows, cols, pdf_tex, base, n_samples_x):
     return torch.stack(rows16, dim=1)
 
 
-def _sample_cuda(u8, gb8, rows, cols, pdf_tex, base, n_samples_x):
+def _cdf_guides(cdf):
+    """[R, K] CDFs -> [R, K + 1] int32 guide tables: g[b] = the number of
+    entries whose bucket floor(v K) (clamped to [0, K - 1]) is below b."""
+    R, K = cdf.shape
+    b = torch.clamp(torch.floor(cdf * float(K)), 0, K - 1).long()
+    hist = torch.zeros((R, K), dtype=torch.int64, device=cdf.device)
+    hist.scatter_add_(1, b, torch.ones_like(b))
+    return torch.cat([hist.new_zeros((R, 1)), torch.cumsum(hist, 1)],
+                     1).int()
+
+
+def sample_guide_plain(rows, cols):
+    """Plain PyTorch version of the guide kernel: int32 [Hl (Wl + 1) + Hl +
+    1], the guide table of each row's column CDF, then the row CDF's."""
+    return torch.cat([_cdf_guides(cols).reshape(-1),
+                      _cdf_guides(rows[None]).reshape(-1)])
+
+
+# 4-byte words of shared memory a block has without opting in (48 KB): the
+# guide kernel takes max(Hl, Wl) of them, the sample kernel 2 Hl + 1
+SAMPLE_SMEM_WORDS = 12288
+
+
+def _sample_guide_cuda(rows, cols):
+    Hl, Wl = cols.shape
+    if max(2 * Hl + 1, Wl) > SAMPLE_SMEM_WORDS:
+        raise ValueError('the sample kernel takes lights of at most %d rows '
+                         'and %d columns, got %dx%d'
+                         % ((SAMPLE_SMEM_WORDS - 1) // 2, SAMPLE_SMEM_WORDS,
+                            Hl, Wl))
+    dev = cols.device
+    kernels.require(rows, 'rows', torch.float32, (Hl,))
+    kernels.require(cols, 'cols', torch.float32, (Hl, Wl), dev)
+    guide = torch.empty((Hl * (Wl + 1) + Hl + 1,), dtype=torch.int32,
+                        device=dev)
+    with torch.cuda.device(dev):
+        rc = kernels.lib().nvk_sample_guide(
+            rows.data_ptr(), cols.data_ptr(), guide.data_ptr(), Hl, Wl,
+            kernels.stream_ptr(cols))
+    kernels.LAUNCHES['sample_guide'] += 1
+    kernels.check(rc, 'nvk_sample_guide')
+    return guide
+
+
+def sample_guide(rows, cols):
+    """The sample kernel's guide tables of a light (rows [Hl], cols [Hl,
+    Wl], as light.update_pdf makes them), built once per light and passed
+    to every sample_all call that reads it."""
+    if cols.is_cuda:
+        return _sample_guide_cuda(rows, cols)
+    return sample_guide_plain(rows, cols)
+
+
+def _sample_cuda(u8, gb8, rows, cols, guide, pdf_tex, base, n_samples_x):
     n2, _, P = u8.shape
     Hl, Wl = cols.shape
     dev = u8.device
@@ -318,25 +373,31 @@ def _sample_cuda(u8, gb8, rows, cols, pdf_tex, base, n_samples_x):
     kernels.require(gb8, 'gb8', f32, (8, P), dev)
     kernels.require(rows, 'rows', f32, (Hl,), dev)
     kernels.require(cols, 'cols', f32, (Hl, Wl), dev)
+    kernels.require(guide, 'guide', torch.int32, (Hl * (Wl + 1) + Hl + 1,),
+                    dev)
     kernels.require(pdf_tex, 'pdf_tex', f32, (Hl, Wl), dev)
     kernels.require(base, 'base', f32, (Hl, Wl, 3), dev)
     out = torch.empty((n2, 16, P), dtype=f32, device=dev)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     with torch.cuda.device(dev):
         rc = kernels.lib().nvk_sample(
             u8.data_ptr(), gb8.data_ptr(), rows.data_ptr(), cols.data_ptr(),
-            pdf_tex.data_ptr(), base.data_ptr(), out.data_ptr(), n_samples_x,
-            n2, P, Hl, Wl, kernels.stream_ptr(u8))
+            guide.data_ptr(), pdf_tex.data_ptr(), base.data_ptr(),
+            out.data_ptr(), n_samples_x, n2, P, Hl, Wl, sms,
+            kernels.stream_ptr(u8))
     kernels.LAUNCHES['sample'] += 1
     kernels.check(rc, 'nvk_sample')
     return out
 
 
-def sample_all(u8, gb8, rows, cols, pdf_tex, base, n_samples_x):
+def sample_all(u8, gb8, rows, cols, guide, pdf_tex, base, n_samples_x):
     """Stage A: u8 [S, 8, P] (all n2 strata, or any S of them: the cell
-    ids come in u8); gb8 [8, P]; rows [Hl]; cols/pdf_tex [Hl, Wl]; base
-    [Hl, Wl, 3].  Returns samp [S, 16, P]."""
+    ids come in u8); gb8 [8, P]; rows [Hl]; cols/pdf_tex [Hl, Wl]; guide:
+    sample_guide(rows, cols) (the plain version needs none); base [Hl, Wl,
+    3].  Returns samp [S, 16, P]."""
     if u8.is_cuda:
-        return _sample_cuda(u8, gb8, rows, cols, pdf_tex, base, n_samples_x)
+        return _sample_cuda(u8, gb8, rows, cols, guide, pdf_tex, base,
+                            n_samples_x)
     return sample_all_plain(u8, gb8, rows, cols, pdf_tex, base, n_samples_x)
 
 
@@ -653,13 +714,14 @@ class _EnvShadeFused(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, base, pos, nrm, view, kd, ks, u8, gb8, ro, m_row, rows,
-                cols, pdf, bvh, ss, BSDF, n_samples_x, tmin):
-        samp = sample_all(u8, gb8, rows, cols, pdf, base, n_samples_x)
+                cols, guide, pdf, bvh, ss, BSDF, n_samples_x, tmin):
+        samp = sample_all(u8, gb8, rows, cols, guide, pdf, base, n_samples_x)
         gb = torch.cat([ro.T, pos.T, nrm.T, view.T, kd.T, ks.T,
                         m_row]).contiguous()
         out, visw = trace_shade(samp, gb, bvh, BSDF, tmin)
         # the samples are replayed in backward, not kept (n2 * 16 * P)
-        ctx.save_for_backward(base, visw, gb, u8, gb8, rows, cols, pdf)
+        ctx.save_for_backward(base, visw, gb, u8, gb8, rows, cols, guide,
+                              pdf)
         ctx.meta = (ss, BSDF, n_samples_x)
         diff = (ss * out[0:3] + (1.0 - ss) * out[6:9]) * m_row
         spec = (ss * out[3:6] + (1.0 - ss) * out[9:12]) * m_row
@@ -667,16 +729,16 @@ class _EnvShadeFused(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g_diff, g_spec):
-        base, visw, gb, u8, gb8, rows, cols, pdf = ctx.saved_tensors
+        base, visw, gb, u8, gb8, rows, cols, guide, pdf = ctx.saved_tensors
         ss, BSDF, n_samples_x = ctx.meta
-        samp = sample_all(u8, gb8, rows, cols, pdf, base, n_samples_x)
+        samp = sample_all(u8, gb8, rows, cols, guide, pdf, base, n_samples_x)
         vw = visw * ss + (1.0 - ss)
         m_row = gb[GB_MASK:GB_MASK + 1]
         g6 =torch.cat([g_diff.T * m_row, g_spec.T * m_row]).contiguous()
         dgb, drad = shade_bwd(samp, gb, vw.contiguous(), g6, BSDF)
         d_base = light_scatter(drad, base.shape[0], base.shape[1])
         d = [dgb[3 * k:3 * k + 3].T for k in range(5)]
-        return (d_base,) + tuple(d) + (None,) * 12
+        return (d_base,) + tuple(d) + (None,) * 13
 
 
 def env_shade_fused(mask, ro, gb_pos, gb_normal, gb_view_pos, gb_kd, gb_ks,
@@ -702,9 +764,11 @@ def env_shade_fused(mask, ro, gb_pos, gb_normal, gb_view_pos, gb_kd, gb_ks,
         gen = torch.Generator(device=dev)
         gen.manual_seed(int(rnd_seed))
         uniforms = make_uniforms(gen, n2, P, n_samples_x, perms, device=dev)
+    rows = rows.detach().contiguous()
+    cols = cols.detach().contiguous()
     diff, spec = _EnvShadeFused.apply(
         light_base.contiguous(), pos, nrm, view, kd, ks,
-        uniforms.contiguous(), gb8, ro_f, m_row, rows.detach().contiguous(),
-        cols.detach().contiguous(), light_pdf_tex.detach().contiguous(), bvh,
+        uniforms.contiguous(), gb8, ro_f, m_row, rows, cols,
+        sample_guide(rows, cols), light_pdf_tex.detach().contiguous(), bvh,
         float(shadow_scale), BSDF, n_samples_x, tmin)
     return diff.reshape(B, H, W, 3), spec.reshape(B, H, W, 3)

@@ -202,9 +202,13 @@ def compute_grads(geometry, params, mat_static, target, it, FLAGS, loss_fn,
 @torch.no_grad()
 def apply_grads(params, optimizers, mat_static, FLAGS):
     """The JAX package's apply_grads on the .grad of params: the light
-    gradient times 64, the global-norm clip of geometry and material when
-    clip_max_norm > 0, one Adam step per group, the projections."""
-    if FLAGS['learn_lighting']:
+    gradient times 64 when the light is optimized, the global-norm clip of
+    geometry and material when clip_max_norm > 0, one Adam step per
+    optimized group (lock_pos and lock_light each hold a group: its
+    parameters, Adam state and schedule stay as they are), the
+    projections (the light's applies locked or not, as in JAX)."""
+    locked = {'geo': FLAGS['lock_pos'], 'light': FLAGS['lock_light']}
+    if FLAGS['learn_lighting'] and not locked['light']:
         params['light'].grad.mul_(64.0)
     if FLAGS['clip_max_norm'] > 0.0:
         grads = [p.grad for p in _group(params['geo']) + _group(params['mat'])
@@ -214,9 +218,10 @@ def apply_grads(params, optimizers, mat_static, FLAGS):
                             / torch.clamp(norm, min=1e-12), max=1.0)
         for g in grads:
             g.mul_(scale)
-    for opt, sched in optimizers.values():
-        opt.step()
-        sched.step()
+    for name, (opt, sched) in optimizers.items():
+        if not locked.get(name, False):
+            opt.step()
+            sched.step()
     clamp_material(params['mat'], mat_static)
     params['light'].clamp_(min=0.01)
 

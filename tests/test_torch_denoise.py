@@ -62,9 +62,9 @@ def test_denoiser_pair_grad_matches_jax(sigma):
     assert n.grad is None and z.grad is None
 
 
-@pytest.mark.parametrize('wrapper', ['resolve', 'sample', 'trace_shade',
-                                     'denoise', 'denoise_grad', 'shade_bwd',
-                                     'light_scatter', 'scatter'])
+@pytest.mark.parametrize('wrapper', ['resolve', 'sample_guide', 'sample',
+                                     'trace_shade', 'denoise', 'denoise_grad',
+                                     'shade_bwd', 'light_scatter', 'scatter'])
 def test_cuda_wrappers_refuse_cpu_tensors(wrapper):
     """A kernel wrapper takes CUDA tensors only: handed CPU tensors it
     raises before building or launching anything (the public entry points
@@ -75,9 +75,12 @@ def test_cuda_wrappers_refuse_cpu_tensors(wrapper):
         'resolve': lambda: pallas_raster._resolve_cuda(
             torch.zeros(1, 3, 4), torch.zeros(1, 3, dtype=torch.int32), 8, 8,
             torch.zeros(1, 8, 8), torch.zeros(1, 8, 8, dtype=torch.int32)),
+        'sample_guide': lambda: pallas_shade._sample_guide_cuda(
+            torch.zeros(4), torch.zeros(4, 8)),
         'sample': lambda: pallas_shade._sample_cuda(
             torch.zeros(4, 8, 16), torch.zeros(8, 16), torch.zeros(4),
-            torch.zeros(4, 8), torch.zeros(4, 8), torch.zeros(4, 8, 3), 2),
+            torch.zeros(4, 8), torch.zeros(41, dtype=torch.int32),
+            torch.zeros(4, 8), torch.zeros(4, 8, 3), 2),
         'trace_shade': lambda: pallas_shade._trace_shade_cuda(
             torch.zeros(4, 16, 16), torch.zeros(19, 16),
             bvh.build(torch.rand(3, 3), torch.tensor([[0, 1, 2]]),

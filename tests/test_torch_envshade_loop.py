@@ -173,12 +173,14 @@ def test_stratum_draws_match_make_uniforms(n_samples_x):
                             wo / np.linalg.norm(wo, axis=0),
                             rng.uniform(0.01, 0.6, (1, P)),
                             rng.uniform(0, 1, (1, P))]).astype(np.float32))
-    whole = t_ps.sample_all(u8, gb8, rows, cols, pdf, base, n_samples_x)
+    guide = t_ps.sample_guide(rows, cols)
+    whole = t_ps.sample_all(u8, gb8, rows, cols, guide, pdf, base,
+                            n_samples_x)
     for i in (0, n2 // 2, n2 - 1):
         cells = t_ps.stratum_cells(i, n_samples_x, *seeds, perms)
         assert torch.equal(cells, u8[i, 5:7])
-        one = t_ps.sample_all(u8[i:i + 1], gb8, rows, cols, pdf, base,
-                              n_samples_x)
+        one = t_ps.sample_all(u8[i:i + 1], gb8, rows, cols, guide, pdf,
+                              base, n_samples_x)
         assert torch.equal(one[0], whole[i])
 
 

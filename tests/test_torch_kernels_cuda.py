@@ -12,7 +12,10 @@ structure whose boxes do not fit in shared memory; the resolve at 500x333
 on every pixel, on a full-screen triangle, exact and signed-zero depth
 ties, the spot mesh and its second peel layer, and its setup kernel's
 fields bit for bit; the denoiser in both modes at 500x333 and sigma 2 and
-0.6, and a refused launch).
+0.6, a refused launch, and 20 launches equal to the first at 1x1, 33x9
+and 511x257; the guide and sample kernels at odd light sizes, 37x75 and
+1024x2048, the sampler at 1 and 16 strata; shade_bwd at 1, 16 and 256
+strata on a pixel count that is not a multiple of 32).
 Marked `gpu`; skipped where torch.cuda.is_available() is false.  On a machine with a GPU and no JAX:
 
     python -m pytest --noconftest -m gpu tests/test_torch_kernels_cuda.py
@@ -71,8 +74,8 @@ def recorded(request):
     return rec.args
 
 
-@pytest.mark.parametrize('name', ['resolve', 'sample', 'trace_shade',
-                                  'denoise'])
+@pytest.mark.parametrize('name', ['resolve', 'sample_guide', 'sample',
+                                  'trace_shade', 'denoise'])
 def test_kernel_matches_plain(recorded, name):
     from nvdiffrecmc_tpu_torch import checks
     with torch.no_grad():
@@ -462,8 +465,8 @@ def test_mask_matches_plain(spot_rays, ray_block, n_leaves):
 
 def test_validation_render_launches():
     """render_eval past 256 strata runs the stratum loop: one sample and
-    one trace launch per stratum, one resolve, nothing else (64x64,
-    n_samples 17)."""
+    one trace launch per stratum, one resolve and one guide build, nothing
+    else (64x64, n_samples 17)."""
     if not torch.cuda.is_available():
         pytest.skip('needs a CUDA device')
     from nvdiffrecmc_tpu_torch import config, kernels, train
@@ -494,7 +497,8 @@ def test_validation_render_launches():
         n_samples=17)
     torch.cuda.synchronize()
     assert dict(kernels.LAUNCHES) == dict(
-        {k: 0 for k in kernels.LAUNCHES}, sample=289, trace=289, resolve=1)
+        {k: 0 for k in kernels.LAUNCHES}, sample=289, trace=289, resolve=1,
+        sample_guide=1)
     assert all(bool(torch.isfinite(v).all()) for v in buf.values())
     assert float((buf['shaded'][..., 3] > 0).float().mean()) > 0.05
 
@@ -593,3 +597,110 @@ def test_walk_refuses_too_many_boxes():
         pallas_shade._trace_shade_cuda(torch.zeros((1, 16, 64), device=dev),
                                        torch.zeros((19, 64), device=dev),
                                        bvh, 0, 0.0)
+
+
+def _sample_inputs(Hl, Wl, S, P, seed):
+    """Seeded sample-kernel inputs: S strata of uniforms and cell ids at
+    n_samples 4, G-buffer lobes (unit normals, view directions in their
+    hemisphere, alpha in [0.0064, 1], p_diffuse in [0, 1]) and the tables
+    of a random Hl x Wl light, 20% of its texels black."""
+    from nvdiffrecmc_tpu_torch.ops import pallas_shade
+    from nvdiffrecmc_tpu_torch.render import light as light_mod
+    dev = torch.device('cuda', 0)
+    rng = np.random.RandomState(seed)
+    gen = torch.Generator()
+    gen.manual_seed(seed)
+    u8 = pallas_shade.make_uniforms(gen, 16, P, 4, device='cpu')[:S]
+    n = rng.randn(P, 3)
+    n /= np.linalg.norm(n, axis=-1, keepdims=True)
+    wo = rng.randn(P, 3)
+    wo /= np.linalg.norm(wo, axis=-1, keepdims=True)
+    wo *= np.sign((wo * n).sum(-1, keepdims=True))
+    gb8 = np.concatenate([n.T, wo.T, rng.uniform(0.0064, 1.0, (1, P)),
+                          rng.uniform(0.0, 1.0, (1, P))])
+    base = rng.rand(Hl, Wl, 3).astype(np.float32)
+    base[rng.rand(Hl, Wl) < 0.2] = 0.0
+    base = torch.as_tensor(base, device=dev)
+    t = light_mod.update_pdf(base)
+    rows, cols = t.rows.contiguous(), t.cols.contiguous()
+    return (u8.to(dev).contiguous(),
+            torch.as_tensor(gb8.astype(np.float32), device=dev).contiguous(),
+            rows, cols, pallas_shade.sample_guide(rows, cols),
+            t.pdf.contiguous(), base, 4)
+
+
+@pytest.mark.parametrize('Hl,Wl', [(37, 75), (1024, 2048)])
+@pytest.mark.parametrize('S', [1, 16])
+def test_sample_odd_lights(Hl, Wl, S):
+    """The guide and sample kernels against their plain versions at odd
+    light sizes: 37 x 75 (guide tables of odd lengths, rows not 16-byte
+    aligned) and 1024 x 2048 (the 2k probe's size: 8 KB histograms), the
+    sampler at 1 and 16 strata, on 4,133 pixels (a ragged last tile); two
+    launches equal on every entry."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA device')
+    from nvdiffrecmc_tpu_torch import checks, kernels
+    from nvdiffrecmc_tpu_torch.ops import pallas_shade
+    kernels.build()
+    args = _sample_inputs(Hl, Wl, S, 4133, seed=Hl + S)
+    with torch.no_grad():
+        r = checks.check_sample_guide(args[2], args[3], reps=1)
+        assert r['ok'], r
+        r = checks.check_sample(*args, reps=1)
+        assert r['ok'], r
+        one = pallas_shade._sample_cuda(*args)
+        assert torch.equal(pallas_shade._sample_cuda(*args), one)
+
+
+def _ragged_step_inputs(recorded_step, n2):
+    """shade_bwd's recorded step inputs cut to P - 5 pixels (not a multiple
+    of 32) and to n2 strata: the first stratum, or the recorded strata
+    repeated up to n2."""
+    samp, gb, vw, g6, bsdf = recorded_step['shade_bwd']
+    m, _, P = samp.shape
+    Q = P - 5
+    reps = -(-n2 // m)
+    samp = samp.repeat(reps, 1, 1)[:n2, :, :Q]
+    vw = vw.repeat(reps, 1)[:n2]
+    vw = torch.cat([vw[:, :Q], vw[:, P:P + Q]], 1)
+    return (samp.contiguous(), gb[:, :Q].contiguous(), vw.contiguous(),
+            g6[:, :Q].contiguous(), bsdf)
+
+
+@pytest.mark.parametrize('n2', [1, 16, 256])
+def test_shade_bwd_strata_over_warps(recorded_step, n2):
+    """shade_bwd at 1 stratum (one busy warp of the block's 4), 16 (4 for
+    each warp) and 256 (64 each), on P - 5 pixels: within the checks'
+    tolerances of the plain version on covered pixels, and two launches
+    equal on every entry (the warps' partial sums meet in a fixed
+    order)."""
+    from nvdiffrecmc_tpu_torch import checks
+    from nvdiffrecmc_tpu_torch.ops import pallas_shade
+    args = _ragged_step_inputs(recorded_step, n2)
+    assert args[0].shape[2] % 32 != 0
+    r = checks.check_shade_bwd(*args, reps=1)
+    assert r['ok'], r
+    dgb, drad = pallas_shade._shade_bwd_cuda(*args)
+    dgb2, drad2 = pallas_shade._shade_bwd_cuda(*args)
+    assert torch.equal(dgb, dgb2) and torch.equal(drad, drad2)
+    covered = args[1][pallas_shade.GB_MASK] > 0
+    assert float(dgb[:, ~covered].abs().max()) == 0.0
+    assert float(drad[:, 0:6][:, :, ~covered].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize('H,W', [(1, 1), (33, 9), (511, 257)])
+def test_denoise_repeats_exactly(H, W):
+    """20 launches of the denoiser in each mode equal the first on every
+    entry (run-dependent sums were seen in development variants)."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA device')
+    from nvdiffrecmc_tpu_torch import kernels
+    from nvdiffrecmc_tpu_torch.ops import pallas_denoise
+    kernels.build()
+    col6, nrm, zdz, g6 = _denoise_inputs(H, W, N=1, seed=H)
+    for grad_mode, c in ((False, col6), (True, g6)):
+        first = pallas_denoise._launch(c, nrm, zdz, 2.0, grad_mode)
+        assert bool(torch.isfinite(first).all())
+        for _ in range(19):
+            assert torch.equal(
+                pallas_denoise._launch(c, nrm, zdz, 2.0, grad_mode), first)

@@ -62,8 +62,9 @@ def test_sample_all_matches_jax(n_samples_x):
     u8 = j_ps.make_uniforms(jax.random.PRNGKey(2), n2, P, n_samples_x, perms)
     base, pdf, rows, cols = bf16_tables(0)
     want = j_ps.sample_all_jnp(u8, gb8, rows, cols, pdf, base, n_samples_x)
-    got = t_ps.sample_all(t(u8), t(gb8), t(rows), t(cols), t(pdf), t(base),
-                          n_samples_x).numpy()
+    got = t_ps.sample_all(t(u8), t(gb8), t(rows), t(cols),
+                          t_ps.sample_guide(t(rows), t(cols)), t(pdf),
+                          t(base), n_samples_x).numpy()
     want = np.asarray(want)
     # Directions, radiance and texel ids: atol 1e-5 on >= 99.9% of the
     # entries and 1e-3 on all.  At small alpha the GGX sample amplifies

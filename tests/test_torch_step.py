@@ -17,14 +17,17 @@ sides.  The update rule is held to the JAX package's apply_grads (optax
 Adam, the light gradient times 64, the projections) on the same
 gradients, over two steps, within 1e-5: Adam's first step is
 lr * g / (|g| + eps), which turns a sign flip of a near-zero gradient
-into 2 lr, so the update is compared on common gradients.  Finally one
-port train_step from fresh parameters keeps every parameter finite and
-inside its bounds."""
+into 2 lr, so the update is compared on common gradients.  The same rule
+with lock_pos or lock_light, as JAX's main() passes them
+(optimize_geometry = not lock_pos, optimize_light = not lock_light), on
+seeded gradients.  Finally one port train_step from fresh parameters
+keeps every parameter finite and inside its bounds."""
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import optax
+import pytest
 import torch
 
 import __graft_entry__ as ge
@@ -115,21 +118,29 @@ def _jax_step(m, perms, target, tables):
     return FLAGS, params, mat_static, grads, float(il), float(rl)
 
 
-def _jax_apply(FLAGS, params, mat_static, grads, steps):
-    """The JAX package's apply_grads (train.py optimize_mesh), warm-up 0."""
+def _jax_apply(FLAGS, params, mat_static, grads, steps,
+               optimize_geometry=True, optimize_light=True):
+    """The JAX package's apply_grads (train.py optimize_mesh), warm-up 0:
+    a group that is not optimized keeps its parameters and its optimizer
+    state, and the light's gradient is scaled by 64 only when it is."""
     rate = FLAGS['lr_decay_rate']
 
     def adam(lr):
         return optax.adam(lambda c: lr * jnp.power(10.0, -c * rate),
                           b1=0.9, b2=0.999, eps=1e-8)
     opts = {'geo': adam(0.01), 'mat': adam(0.01), 'light': adam(0.03)}
+    optimized = {'geo': optimize_geometry, 'mat': True,
+                 'light': optimize_light}
     state = {k: opts[k].init(params[k]) for k in opts}
     for _ in range(steps):
-        g = dict(grads, light=grads['light'] * 64.0)
-        new = {}
+        g = dict(grads)
+        if FLAGS['learn_lighting'] and optimize_light:
+            g['light'] = grads['light'] * 64.0
+        new = dict(params)
         for k in opts:
-            upd, state[k] = opts[k].update(g[k], state[k])
-            new[k] = optax.apply_updates(params[k], upd)
+            if optimized[k]:
+                upd, state[k] = opts[k].update(g[k], state[k])
+                new[k] = optax.apply_updates(params[k], upd)
         new['mat'] = j_train.clamp_material(new['mat'], mat_static)
         new['light'] = jnp.clip(new['light'], min=0.01)
         params = new
@@ -205,6 +216,67 @@ def test_train_step_matches_jax(monkeypatch):
     for k, p in _flat(params).items():
         np.testing.assert_allclose(p.detach().numpy(), np.asarray(want[k]),
                                    rtol=0, atol=1e-5, err_msg=k)
+
+
+@pytest.mark.parametrize('lock', ['lock_pos', 'lock_light'])
+def test_apply_grads_lock_matches_jax(lock):
+    """Two steps of apply_grads with one group locked, on seeded
+    gradients: every parameter within 1e-5 of the JAX rule; the locked
+    group bit for bit as it was (the light through its clamp at 0.01,
+    which JAX applies locked or not: the light starts with entries below
+    it), its Adam state empty, its schedule at 0, and its gradient as
+    computed (a locked light's is not scaled by 64)."""
+    m = ge._make_scene(res=RES, n_samples=N)[0]
+    jflags = j_train.parse_flags([])
+    jflags.update(SETTINGS)
+    apply_schedule_scaling(jflags)
+    jgeo = JDLMesh(m, jflags)
+    jmat, jstatic = j_train.initial_guess_material(jgeo, False, jflags)
+    jparams = {'geo': jgeo.parameters(), 'mat': jmat,
+               'light': j_light.create_trainable_env_rnd(16, 0.5, 0.0)}
+    rng = np.random.RandomState(21)
+    jgrads = jax.tree.map(lambda x: jnp.asarray(
+        0.1 * rng.randn(*x.shape).astype(np.float32)), jparams)
+    want = _flat(_jax_apply(jflags, jparams, jstatic, jgrads, 2,
+                            optimize_geometry=lock != 'lock_pos',
+                            optimize_light=lock != 'lock_light'))
+
+    FLAGS = t_config.make_flags(**SETTINGS, **{lock: True})
+    _, _, _, mat_static = _port_setup(m)
+    tp = convert.params(jparams, device='cpu')
+    params = {'geo': {k: v.requires_grad_() for k, v in tp['geo'].items()},
+              'mat': {k: v.requires_grad_() for k, v in tp['mat'].items()},
+              'light': tp['light'].requires_grad_()}
+    opts = t_train.make_optimizers(params, FLAGS)
+    group = 'geo' if lock == 'lock_pos' else 'light'
+    before = [p.detach().clone() for p in t_train._group(params[group])]
+    tg = convert.params(jgrads, device='cpu')
+    for _ in range(2):
+        grads = _flat(tg)
+        for k, p in _flat(params).items():
+            p.grad = grads[k].clone()
+        t_train.apply_grads(params, opts, mat_static, FLAGS)
+    for k, p in _flat(params).items():
+        np.testing.assert_allclose(p.detach().numpy(), np.asarray(want[k]),
+                                   rtol=0, atol=1e-5, err_msg=k)
+    for p, b in zip(t_train._group(params[group]), before):
+        held = b.clamp(min=0.01) if group == 'light' else b
+        assert torch.equal(p.detach(), held)
+    assert bool((before[0] < 0.01).any()) or group == 'geo'
+    opt, sched = opts[group]
+    assert not opt.state and sched.last_epoch == 0
+    assert torch.equal(_flat(params)['light'].grad,
+                       tg['light'] * (1.0 if lock == 'lock_light' else 64.0))
+
+
+def test_make_flags_refuses_unknown_keys():
+    """make_flags takes the keys the port reads (lock_pos and lock_light
+    among them) and raises on any other."""
+    FLAGS = t_config.make_flags(lock_pos=True, lock_light=True)
+    assert FLAGS['lock_pos'] and FLAGS['lock_light']
+    assert not t_config.make_flags()['lock_pos']
+    with pytest.raises(KeyError, match='lock_geometry'):
+        t_config.make_flags(lock_geometry=True)
 
 
 def test_port_train_step_keeps_parameters_in_bounds():
