@@ -7,7 +7,8 @@ one):
 1. require CUDA; print the card's name and power limit; TF32 off;
 2. build the CUDA kernels from csrc/ and print the build time, and the
    registers, spill bytes and blocks per SM of the sample kernel (for the
-   probe's and the trainable light's sizes) and of shade_bwd;
+   probe's and the trainable light's sizes), of shade_bwd and of the mask
+   kernel;
 3. render one frame of the slice, recording each forward kernel's inputs,
    and hold every forward kernel against its plain PyTorch version on
    those inputs (error, share of mismatches, time of both; for the
@@ -26,7 +27,9 @@ one):
    from DatasetMesh (spot256 under probe.hdr) over random backgrounds,
    logl1, three Adam groups.  One recorded step holds each backward kernel
    and the resolve, guide, sample and denoiser kernels of its forward
-   against their plain versions; then 8 steps with a sync each (loss and the
+   against their plain versions, and every row scatter launch of the step
+   (one line each, with its shape) and the scatter's generic instance
+   against theirs; then 8 steps with a sync each (loss and the
    gradients of all three groups finite and nonzero, every kernel launched
    as many times per step as the path needs), median ms per step and
    iterations per second; then one 64x64 step on the card against the same
@@ -67,8 +70,10 @@ Any failure raises and exits non-zero before the last line.  The last
 three lines are the kernels JSON (all eleven entries: the ten kernels that
 replace the TPU kernels, the denoiser's two modes apart, and the sampler's
 guide kernel; each with its time, its plain version's, its bound and, for
-the two scatters, index_add_'s), the card line, and {"ok": true,
-"device": {...}}.
+the two scatters, index_add_'s, for the guide torch.searchsorted's; the
+row scatter's entry is its largest launch, with every launch of the step
+and their summed time and bound beside it), the card line, and {"ok":
+true, "device": {...}}.
 
 Usage: python3 chip_smoke.py [--profile]
 """
@@ -336,6 +341,8 @@ def train_phase(device, results):
         results[name] = dict(r, args=rec.args[name])
         print_compare(r)
     bad = [n for n in checks.BACKWARD if not results[n]['ok']]
+    results['scatter']['each_launch'] = scatter_launches(
+        rec.args['scatter_all'], bad)
     with torch.no_grad():
         for name in ('resolve', 'sample_guide', 'sample',
                      'denoise'):        # the step's forward kernels
@@ -373,6 +380,28 @@ def train_phase(device, results):
           '1024^2 textures, spot 26474 tris)' % (med, 1e3 / med),
           flush=True)
     return launches, st, targets
+
+
+def scatter_launches(calls, bad):
+    """Hold every row scatter launch of the recorded step against its plain
+    version (one compare line each), and the generic instance of the
+    kernel on the largest launch's first 5 channels (the step's channel
+    counts 3, 4, 6, 9 and 13 have instances of their own).  Returns each
+    launch's arguments and check; appends failures to bad."""
+    from nvdiffrecmc_tpu_torch import checks
+    out = []
+    for i, a in enumerate(calls):
+        r = checks.check_scatter(*a)
+        print_compare(r, ' (launch %d of %d)' % (i + 1, len(calls)))
+        if not r['ok']:
+            bad.append('scatter launch %d' % (i + 1))
+        out.append(dict(r, args=a))
+    idx, vals, rows = max(calls, key=lambda a: a[1].numel())
+    r = checks.check_scatter(idx, vals[:, :5].contiguous(), rows, reps=2)
+    print_compare(r, ' (generic instance)')
+    if not r['ok']:
+        bad.append('scatter, generic instance')
+    return out
 
 
 def _cos_close(g, w):
@@ -740,7 +769,7 @@ def rasterize_launches(v_clip, tri, res):
 def print_occupancy():
     """Registers and spill bytes per thread, blocks per SM and shared bytes
     per block of the sample kernel (for the probe's and the trainable
-    light's sizes) and of shade_bwd."""
+    light's sizes), of shade_bwd and of the mask kernel."""
     from nvdiffrecmc_tpu_torch import kernels
     for Hl, Wl in ((512, 1024), (256, 256)):
         print('occupancy sample (%dx%d light): %s'
@@ -748,6 +777,8 @@ def print_occupancy():
               flush=True)
     print('occupancy shade_bwd: %s'
           % kernels.occupancy('nvk_shade_bwd_info'), flush=True)
+    print('occupancy mask: %s' % kernels.occupancy('nvk_mask_info'),
+          flush=True)
 
 
 def main():
@@ -894,14 +925,29 @@ def main():
                 step_launches[name]
         if 'compared_on' in r:
             row['compared_on'] = r['compared_on']
+        if name == 'scatter':   # row 7: the largest launch, and all of them
+            row['all_launches'] = [
+                dict(compared_on=x['compared_on'], ms=x['ms'],
+                     plain_ms=x['plain_ms'], max_abs_err=x['max_abs_err'],
+                     bound_ms=checks.bound(name, x['args'])['bound_ms'])
+                for x in r['each_launch']]
+            row['all_launches_ms'] = sum(x['ms'] for x in row['all_launches'])
+            row['all_launches_bound_ms'] = sum(
+                x['bound_ms'] for x in row['all_launches'])
+            print('bound scatter, all %d launches: %.4f ms; kernel %.4f ms'
+                  % (len(row['all_launches']), row['all_launches_bound_ms'],
+                     row['all_launches_ms']), flush=True)
         print('bound %-13s %.4f ms by %s (%.3e bytes, %.3e ops); kernel '
               '%.4f ms%s' % (name, b['bound_ms'], b['bound_by'],
                              b['bound_bytes'], b['bound_ops'], r['ms'],
                              '' if row['library_ms'] is None else
-                             '; index_add_ %.4f ms' % row['library_ms']),
+                             '; library call %.4f ms' % row['library_ms']),
               flush=True)
         if 'rays' in b:
             print_tests(b, b['rays'], kargs[2].sub_size, name + ' bound')
+        if 'rays_needed' in b:
+            print('bound %s reads %d of the %d rays' % (
+                name, b['rays_needed'], kargs[0].shape[0]), flush=True)
         rows.append(row)
 
     # 11. the launches of one rasterize call

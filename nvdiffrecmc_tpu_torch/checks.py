@@ -52,7 +52,7 @@ must move (each input read once, each output written once) over 3.35 TB/s,
 the float operations these inputs need over 67 TFLOP/s, the H100 SXM's
 published float32 rates at 700 W, and, where a kernel needs special
 functions, their count over the special-function units' rate (16 per SM
-per clock, 132 SMs at 1.98 GHz).  Two counts depend on the data:
+per clock, 132 SMs at 1.98 GHz).  Three counts depend on the data:
 
 - resolve: SETUP_OPS per triangle for the setup, then RESOLVE_OPS for
   each (pixel, triangle) pair that passes the inside test and the peel
@@ -61,7 +61,12 @@ per clock, 132 SMs at 1.98 GHz).  Two counts depend on the data:
 - denoise, both modes: TAP_OPS float operations and an ex2 and a
   reciprocal (the depth weight's exp and division) for each (pixel, tap)
   pair inside the image and the dynamic radius; bytes: the three input
-  planes and the 7-channel output."""
+  planes and the 7-channel output.
+- mask: SLAB_OPS for each test the answer needs, every ray of a block for
+  a leaf it does not enter and one for a leaf it does; bytes: the boxes,
+  the output and the 64-byte feature rows of the rays a block must read,
+  all of them where some leaf is not entered, else those up to the last
+  of its leaves' first entering rays (pallas_tracer.visit_first_hits)."""
 
 import math
 
@@ -544,18 +549,26 @@ def bound(name, args):
                     rays=ro.shape[0], **work)
     if name == 'mask':
         rayf, aabb_lo, aabb_hi, ray_block = args[:4]
-        m = pallas_tracer.visit_masks_plain(*args)
+        first = pallas_tracer.visit_first_hits(*args)
+        unset = first == ray_block
         # a block's unset leaf needs every ray tested, a set one at least one
-        tests = int((m == 0).sum()) * ray_block + int(m.sum())
-        return _bound_of(_nbytes(rayf, aabb_lo, aabb_hi) + m.numel() * 4,
-                         SLAB_OPS * tests)
+        tests = int(unset.sum()) * ray_block + int((~unset).sum())
+        rays = int(torch.where(unset.any(1), ray_block,
+                               first.amax(1) + 1).sum())
+        return dict(_bound_of(rays * rayf.shape[1] * rayf.element_size()
+                              + _nbytes(aabb_lo, aabb_hi) + first.numel() * 4,
+                              SLAB_OPS * tests), rays_needed=rays)
     raise KeyError(name)
 
 
 def library_ms(name, args, reps=20):
     """Time of the one PyTorch call that computes kernel `name`'s function
-    (index_add_ for the two scatters), or None where there is none.  Used
-    as a yardstick only; the port never calls it on the card."""
+    (index_add_ for the two scatters; for the guide tables, searchsorted of
+    the bucket edges arange(K + 1) into each CDF scaled by K, one call for
+    the column CDFs and one for the row CDF, which equals the guide where
+    the CDF is non-decreasing, as the sampler assumes, but for each table's
+    last entry where v K reaches K), or None where there is none.  Used as
+    a yardstick only; the port never calls it on the card."""
     if name == 'scatter':
         idx, vals, out_rows = args
         out = torch.zeros((out_rows, vals.shape[1]), device=vals.device)
@@ -567,7 +580,24 @@ def library_ms(name, args, reps=20):
         gr = gr.reshape(-1, 3).contiguous()
         out = torch.zeros((Hl * Wl, 3), device=drad.device)
         return time_ms(lambda: out.index_add_(0, tex, gr), reps)
+    if name == 'sample_guide':
+        pairs = guide_search_args(*args)
+        return time_ms(lambda: [torch.searchsorted(c, e, out_int32=True)
+                                for c, e in pairs], reps)
     return None
+
+
+def guide_search_args(rows, cols):
+    """(CDFs scaled by K, bucket edges arange(K + 1)) for the column CDFs
+    and the row CDF of a light: the arguments of the guide's searchsorted
+    yardstick."""
+    Hl, Wl = cols.shape
+    dev = cols.device
+    return (((cols * float(Wl)).contiguous(),
+             torch.arange(Wl + 1, dtype=torch.float32, device=dev)
+             .expand(Hl, Wl + 1).contiguous()),
+            ((rows[None] * float(Hl)).contiguous(),
+             torch.arange(Hl + 1, dtype=torch.float32, device=dev)[None]))
 
 
 def run(name, recorded, **kw):
@@ -608,7 +638,8 @@ class Recorder:
     """Context manager that records the arguments of the first launch of
     each kernel wrapper while the main path runs (the launch itself goes
     through unchanged); for the row scatter, which runs once per gather,
-    the launch with the most updates (the texture pyramid's adjoint)."""
+    the launch with the most updates (the texture pyramid's adjoint) under
+    'scatter', and every launch, in order, under 'scatter_all'."""
 
     _TARGETS = ((pallas_raster, '_resolve_cuda', 'resolve'),
                 (pallas_shade, '_sample_guide_cuda', 'sample_guide'),
@@ -623,7 +654,7 @@ class Recorder:
                 (pallas_tracer, '_mask_cuda', 'mask'))
 
     def __init__(self):
-        self.args = {}
+        self.args = {'scatter_all': []}
         self._saved = []
 
     def __enter__(self):
@@ -636,6 +667,8 @@ class Recorder:
                 if old is None or (_name == 'scatter'
                                    and a[1].numel() > old[1].numel()):
                     self.args[_name] = a
+                if _name == 'scatter':
+                    self.args['scatter_all'].append(a)
                 return _orig(*a)
             setattr(mod, attr, wrapped)
         return self
@@ -644,4 +677,3 @@ class Recorder:
         for mod, attr, orig in self._saved:
             setattr(mod, attr, orig)
         return False
-

@@ -54,6 +54,7 @@ _SIGNATURES = {
     'nvk_trace': [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _I, _I,
                   _I, _I, _I, _F, _VP],
     'nvk_mask': [_VP, _VP, _VP, _VP, _I, _I, _I, _F, _F, _VP],
+    'nvk_mask_info': [_VP],
 }
 
 _lib = None

@@ -1,14 +1,17 @@
 """Row scatter-add and the row gather whose adjoint it is (counterpart of
 nvdiffrecmc_tpu/ops/pallas_scatter.py).
 
-`scatter_add` launches csrc/scatter.cu (float atomics) on CUDA tensors and
-runs `scatter_add_plain` (index_add_) on CPU tensors.  `rows_gather` is
-`table[idx]` with that scatter as its backward: the adjoint of every
-vertex-attribute, triangle and texel gather of the training step goes
-through it, as it does in the JAX package.  Rows whose id lies outside
-[0, V) are dropped.  The JAX package's work lists and value layout [C, M]
-serve the TPU's one-hot matmul and are not carried over: here values are
-[M, C] rows."""
+`scatter_add` launches csrc/scatter.cu on CUDA tensors and runs
+`scatter_add_plain` (index_add_) on CPU tensors.  The kernel gives a warp
+32 update rows, sums the rows of a warp that share an output row, and adds
+each such sum with Hopper's vector float atomics; it has an instance for
+each channel count of the training step (3, 4, 6, 9, 13) and a generic
+one.  `rows_gather` is `table[idx]` with that scatter as its backward: the
+adjoint of every vertex-attribute, triangle and texel gather of the
+training step goes through it, as it does in the JAX package.  Rows whose
+id lies outside [0, V) are dropped.  The JAX package's work lists and
+value layout [C, M] serve the TPU's one-hot matmul and are not carried
+over: here values are [M, C] rows."""
 
 import torch
 

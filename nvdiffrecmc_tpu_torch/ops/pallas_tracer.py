@@ -11,10 +11,13 @@ Two kernels, each beside its plain PyTorch version:
   boxes in shared memory (`walk_smem_bytes`).
 - `visit_masks` (csrc/mask.cu; plain: `visit_masks_plain`): per block of
   ray_block rays and per leaf, whether any ray of the block enters the
-  leaf's box in [tmin, tmax].  Its slab test follows the JAX package
-  exactly: inv = 1/d where |d| > 1e-12, else 2e12; tmax is applied.  The
-  tracer's cull keeps its own convention instead (IEEE 1/d, fmin/fmax,
-  tracer.slab_hits).
+  leaf's box in [tmin, tmax], for any number of leaves and any ray_block.
+  The kernel gives a warp to each leaf and a lane to each ray of a 32-ray
+  step, stops a leaf at its first entering ray, and tests a run of equal
+  rays (the disabled rays of masked pixels) once.  Its slab test follows
+  the JAX package exactly: inv = 1/d where |d| > 1e-12, else 2e12; tmax is
+  applied.  The tracer's cull keeps its own convention instead (IEEE 1/d,
+  fmin/fmax, tracer.slab_hits).
 
 The JAX package's block tactics (ray_block of the trace, visit lists,
 `sort_rays`, the NVDR_LEAF_BATCH / NVDR_EARLY_EXIT loops) are TPU
@@ -30,7 +33,6 @@ from .bvh import LeafBVH
 BIG = 3e37
 TMAX_INF = 1e16
 _MASK_BUDGET = 1 << 24      # floats live per block group of the plain mask
-MASK_MAX_LEAVES = 12288     # the kernel's one int flag per leaf, in 48 KB
 WALK_BOX_BYTES = 32         # shared memory per supernode or leaf box
 SMEM_MAX = 232448           # the dynamic shared memory an H100 block can use
 
@@ -111,10 +113,10 @@ def trace_rayf(rayf, bvh: LeafBVH, tmin=0.0, tmax=TMAX_INF):
 # Visit mask (kernel 9)
 # ---------------------------------------------------------------------------
 
-def visit_masks_plain(rayf, aabb_lo, aabb_hi, ray_block, tmin, tmax):
-    """Plain PyTorch version of the mask kernel (the JAX package's
-    visit_masks_od): per-axis slab accumulation over [G*RB, C]
-    temporaries, block groups bounded to ~2^24 floats."""
+def _visit_hits(rayf, aabb_lo, aabb_hi, ray_block, tmin, tmax):
+    """Yield, for each group of G consecutive ray blocks, whether each ray
+    enters each leaf's box, bool [G, ray_block, C]: per-axis slab
+    accumulation, groups bounded to ~2^24 floats."""
     Rp = rayf.shape[0]
     NB = Rp // ray_block
     C = aabb_lo.shape[0]
@@ -125,7 +127,6 @@ def visit_masks_plain(rayf, aabb_lo, aabb_hi, ray_block, tmin, tmax):
     G = max(1, min(NB, _MASK_BUDGET // max(1, ray_block * C)))
     while NB % G:
         G -= 1
-    out = []
     for g0 in range(0, NB, G):
         og = o[g0 * ray_block:(g0 + G) * ray_block].reshape(G, ray_block, 3)
         ig = inv[g0 * ray_block:(g0 + G) * ray_block].reshape(G, ray_block, 3)
@@ -138,7 +139,25 @@ def visit_masks_plain(rayf, aabb_lo, aabb_hi, ray_block, tmin, tmax):
                 * ig[:, :, None, ax]
             tn = torch.maximum(tn, torch.minimum(t0, t1))
             tf = torch.minimum(tf, torch.maximum(t0, t1))
-        out.append(torch.any(tf >= tn, dim=1).to(torch.int32))
+        yield tf >= tn
+
+
+def visit_masks_plain(rayf, aabb_lo, aabb_hi, ray_block, tmin, tmax):
+    """Plain PyTorch version of the mask kernel (the JAX package's
+    visit_masks_od)."""
+    return torch.cat([torch.any(h, dim=1).to(torch.int32) for h in
+                      _visit_hits(rayf, aabb_lo, aabb_hi, ray_block, tmin,
+                                  tmax)])
+
+
+def visit_first_hits(rayf, aabb_lo, aabb_hi, ray_block, tmin, tmax):
+    """[NB, C] int64: per block and leaf, the index within the block of the
+    first ray that enters the leaf's box, ray_block where none does (the
+    mask is first < ray_block)."""
+    out = []
+    for h in _visit_hits(rayf, aabb_lo, aabb_hi, ray_block, tmin, tmax):
+        first = h.to(torch.uint8).argmax(dim=1)
+        out.append(torch.where(h.any(dim=1), first, ray_block))
     return torch.cat(out)
 
 
@@ -151,9 +170,9 @@ def _mask_cuda(rayf, aabb_lo, aabb_hi, ray_block, tmin, tmax):
     kernels.require(rayf, 'rayf', f32, (Rp, 16))
     kernels.require(aabb_lo, 'aabb_lo', f32, (C, 3), dev)
     kernels.require(aabb_hi, 'aabb_hi', f32, (C, 3), dev)
-    if C > MASK_MAX_LEAVES:
-        raise ValueError('visit_masks: %d leaves exceed the kernel\'s %d'
-                         % (C, MASK_MAX_LEAVES))
+    if rayf.data_ptr() % 16:
+        raise ValueError('rayf must be 16-byte aligned (the kernel reads '
+                         'it with 16-byte loads)')
     out = torch.empty((NB, C), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         rc = kernels.lib().nvk_mask(

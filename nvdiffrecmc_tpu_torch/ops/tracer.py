@@ -32,11 +32,21 @@ def slab_hits(o, inv, lo, hi, tmin):
     return (tf >= tn) & (lo[None, :, 0] <= hi[None, :, 0])
 
 
+def cross(a, b):
+    """a x b [R, 3], each product and difference its own rounding, as the
+    walk's cross3 computes it under --fmad=false (torch.linalg.cross on
+    the card may fuse a product into the difference)."""
+    a0, a1, a2 = a.unbind(-1)
+    b0, b1, b2 = b.unbind(-1)
+    return torch.stack([a1 * b2 - a2 * b1, a2 * b0 - a0 * b2,
+                        a0 * b1 - a1 * b0], -1)
+
+
 def tri_hits(o, d, rows, tmin):
     """Plücker any-hit of rays (o, d) [R, 3] against triangle rows (layout
     in bvh.py): rows [L, 24] gives [R, L] (every ray against every row),
     rows [R, L, 24] gives [R, L] (ray i against its own L rows)."""
-    m = torch.linalg.cross(o, d)
+    m = cross(o, d)
 
     def col(k):
         return rows[..., k]

@@ -3,14 +3,18 @@
 scene: the slice's settings at 256x256, and a ragged two-camera frame;
 the backward kernels on the inputs of one training step at each, and the
 light scatter with every ray on one texel; the standalone tracer and the
-visit mask on 2^18 rays made as bench.py makes them, the mask also on
-synthetic box sets of 5 and 300 leaves; the sample kernel on one stratum,
-as the stratum loop launches it; the launches of a validation render past
-256 strata; the BVH walk of trace and trace + shade at the main path's full
-size, on rays that graze sub-box and leaf faces, and its refusal of a
-structure whose boxes do not fit in shared memory; the resolve at 500x333
-on every pixel, on a full-screen triangle, exact and signed-zero depth
-ties, the spot mesh and its second peel layer, and its setup kernel's
+visit mask on 2^18 rays made as bench.py makes them, the mask also at ray
+blocks of 1,000 and 4,096, on synthetic box sets of 5, 300 and 13,000
+leaves, on coherent rays and on runs of equal rays; the row scatter's
+instances (3, 4, 6, 9, 13 channels and the generic one) on repeated,
+alternating and out-of-range ids, zero rows, a ragged row count and
+unaligned values; the sample kernel on one stratum, as the stratum loop
+launches it; the launches of a validation render past 256 strata; the BVH
+walk of trace and trace + shade at the main path's full size, on rays
+that graze sub-box and leaf faces and on rays aimed at the mesh's edges
+and vertices, and its refusal of a structure whose boxes do not fit in
+shared memory; the resolve at 500x333 on every pixel, on a full-screen
+triangle, exact and signed-zero depth ties, the spot mesh and its second peel layer, and its setup kernel's
 fields bit for bit; the denoiser in both modes at 500x333 and sigma 2 and
 0.6, a refused launch, and 20 launches equal to the first at 1x1, 33x9
 and 511x257; the guide and sample kernels at odd light sizes, 37x75 and
@@ -443,14 +447,20 @@ def test_trace_matches_plain(spot_rays):
 
 
 @pytest.mark.parametrize('ray_block,n_leaves', [(1024, None), (256, 5),
-                                                (64, 300)])
+                                                (64, 300), (1000, None),
+                                                (4096, None), (256, 13000)])
 def test_mask_matches_plain(spot_rays, ray_block, n_leaves):
-    """The spot BVH's 207 leaves (not a multiple of the kernel's 256
-    threads), and synthetic box sets of 5 and 300 leaves."""
+    """The spot BVH's 207 leaves (not a multiple of 32), and synthetic box
+    sets of 5, 300 and 13,000 leaves (past the 12,288 of the shared flag
+    array the kernel had before); ray blocks of 1,000 and 4,096 rays (the
+    kernel stages 512 a tile: 1,000 is no multiple of it)."""
     from nvdiffrecmc_tpu_torch import checks
     from nvdiffrecmc_tpu_torch.ops import bvh as bvh_mod
     ro, rd, bvh = spot_rays
-    rayf = bvh_mod.ray_features(ro, rd)
+    n = ro.shape[0] // ray_block * ray_block
+    if n_leaves is not None and n_leaves > 1000:
+        n = 1 << 14
+    rayf = bvh_mod.ray_features(ro[:n], rd[:n])
     lo, hi = bvh.aabb_lo, bvh.aabb_hi
     if n_leaves is not None:
         g = torch.Generator(device=ro.device)
@@ -461,6 +471,130 @@ def test_mask_matches_plain(spot_rays, ray_block, n_leaves):
         lo[0], hi[0] = 3e37, -3e37                    # an empty leaf
     r = checks.check_mask(rayf, lo, hi, ray_block, 0.0, 1e16, reps=1)
     assert r['ok'], r
+
+
+def test_mask_coherent_rays_matches_plain(spot_rays):
+    """Blocks of 1,024 rays from one point each in a narrow cone: most
+    leaves stay unset for a whole block, so the kernel walks every ray for
+    them."""
+    from nvdiffrecmc_tpu_torch import checks
+    from nvdiffrecmc_tpu_torch.ops import bvh as bvh_mod
+    from nvdiffrecmc_tpu_torch.ops import pallas_tracer
+    _, _, bvh = spot_rays
+    dev = bvh.aabb_lo.device
+    g = torch.Generator(device=dev)
+    g.manual_seed(3)
+    nb, rb = 256, 1024
+    lo, hi = bvh.aabb_lo.amin(0), bvh.aabb_hi.amax(0)
+    p = lo + (hi - lo) * torch.rand((nb, 1, 3), generator=g, device=dev)
+    d = torch.randn((nb, 1, 3), generator=g, device=dev)
+    ro = (p + 0.01 * torch.randn((nb, rb, 3), generator=g, device=dev))
+    rd = d + 0.05 * torch.randn((nb, rb, 3), generator=g, device=dev)
+    rd = rd / rd.norm(dim=-1, keepdim=True)
+    rayf = bvh_mod.ray_features(ro.reshape(-1, 3).contiguous(),
+                                rd.reshape(-1, 3).contiguous())
+    r = checks.check_mask(rayf, bvh.aabb_lo, bvh.aabb_hi, rb, 0.0, 1e16,
+                          reps=1)
+    assert r['ok'], r
+    want = pallas_tracer.visit_masks_plain(rayf, bvh.aabb_lo, bvh.aabb_hi,
+                                           rb, 0.0, 1e16)
+    assert float(want.double().mean()) < 0.5, float(want.double().mean())
+
+
+def test_mask_duplicate_rays_matches_plain(spot_rays):
+    """Runs of equal rays (the kernel stages one ray of a run) of 1 to 300
+    rays, across tiles and blocks of 1,000, a third of them disabled rays
+    at BIG with a zero direction, against the spot BVH's leaves and an
+    inverted leaf at BIG, which the disabled rays enter ((BIG - BIG) 2e12
+    = 0 on every axis)."""
+    from nvdiffrecmc_tpu_torch import checks
+    from nvdiffrecmc_tpu_torch.ops import bvh as bvh_mod
+    ro, rd, bvh = spot_rays
+    dev = ro.device
+    g = torch.Generator(device=dev)
+    g.manual_seed(9)
+    runs = torch.randint(1, 301, (400,), generator=g, device=dev)
+    src = torch.randint(0, ro.shape[0], (400,), generator=g, device=dev)
+    off = torch.rand((400,), generator=g, device=dev) < 1 / 3
+    n = int(runs.sum()) // 1000 * 1000
+    pick = torch.repeat_interleave(src, runs)[:n]
+    dead = torch.repeat_interleave(off, runs)[:n, None]
+    o = torch.where(dead, torch.full_like(ro[pick], 3e37), ro[pick])
+    d = torch.where(dead, torch.zeros_like(rd[pick]), rd[pick])
+    rayf = bvh_mod.ray_features(o.contiguous(), d.contiguous())
+    lo = torch.cat([bvh.aabb_lo, torch.full((1, 3), 3e37, device=dev)])
+    hi = torch.cat([bvh.aabb_hi, torch.full((1, 3), -3e37, device=dev)])
+    r = checks.check_mask(rayf, lo.contiguous(), hi.contiguous(), 1000,
+                          0.0, 1e16, reps=1)
+    assert r['ok'], r
+
+
+SCATTER_CHANNELS = [3, 4, 6, 9, 13, 5, 500]   # the instances, generic 5, 500
+
+
+def _scatter_inputs(pattern, C, dev):
+    """Seeded update rows of the named pattern for C channels."""
+    rng = np.random.RandomState(C)
+    M, V = (100003, 20000) if C < 100 else (4099, 300)
+    idx = rng.randint(0, V, M)
+    vals = rng.randn(M, C).astype(np.float32)
+    if pattern == 'one_id':
+        idx[:] = 77
+    elif pattern == 'alternate':          # lanes alternate between two ids
+        idx = np.where(np.arange(M) % 2 == 0, 11, 12)
+    elif pattern == 'runs':               # the vertex adjoint's runs
+        idx = np.repeat(rng.randint(0, V, (M // 48 + 1, 3)), 16,
+                        0).reshape(-1)[:M]
+    elif pattern == 'zero_rows':          # whole zero rows, some ids bad
+        vals[rng.rand(M) < 0.7] = 0.0
+        idx[rng.rand(M) < 0.05] = -3
+        idx[rng.rand(M) < 0.05] = V + 9
+    elif pattern == 'ragged':             # M not a multiple of 32 or 256
+        idx, vals = idx[:M - 90], vals[:M - 90]
+    idx = torch.as_tensor(idx, dtype=torch.int64, device=dev)
+    vals = torch.as_tensor(vals, device=dev)
+    if pattern == 'unaligned':            # vals not 16-byte aligned
+        buf = torch.empty(vals.numel() + 1, device=dev)
+        buf[1:] = vals.reshape(-1)
+        vals = buf[1:].reshape(M, C)
+        assert vals.data_ptr() % 16
+    return idx, vals, V
+
+
+@pytest.mark.parametrize('pattern', ['random', 'one_id', 'alternate',
+                                     'runs', 'zero_rows', 'ragged',
+                                     'unaligned'])
+@pytest.mark.parametrize('C', SCATTER_CHANNELS)
+def test_scatter_instances_match_plain(C, pattern):
+    """Every template instance of the row scatter (the step's channel
+    counts) and the generic one (5; 500, wider than a warp's rows could
+    be staged in shared memory) on every id equal, lanes alternating between two ids,
+    runs of three ids, whole zero rows with ids out of range, a row count
+    that is no multiple of the block, and unaligned values."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA device')
+    from nvdiffrecmc_tpu_torch import checks, kernels
+    kernels.build()
+    idx, vals, V = _scatter_inputs(pattern, C, torch.device('cuda', 0))
+    r = checks.check_scatter(idx, vals, V, reps=1)
+    assert r['ok'], r
+
+
+def test_scatter_hot_row_integers_exact():
+    """Small integers on one row: every partial sum is exact in float32,
+    so the grouped sums and the atomics must give the exact total."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA device')
+    from nvdiffrecmc_tpu_torch import kernels
+    from nvdiffrecmc_tpu_torch.ops import pallas_scatter
+    kernels.build()
+    M, C = 65536 + 17, 9
+    vals = (torch.arange(M * C, device='cuda') % 7).float().reshape(M, C)
+    idx = torch.full((M,), 5, dtype=torch.int64, device='cuda')
+    got = pallas_scatter._scatter_cuda(idx, vals, 8).cpu()
+    assert torch.equal(got[5], vals.sum(0).cpu())
+    got[5] = 0.0
+    assert float(got.abs().max()) == 0.0
 
 
 def test_validation_render_launches():
@@ -575,6 +709,31 @@ def test_trace_grazing_rays(spot_rays):
     assert r['ok'] and r['agree'] == 1.0, r
     occ_share = float(r['compared_on'].split(', ')[1].split()[0])
     assert 0.0 < occ_share < 1.0
+
+
+def test_trace_edge_rays_match_plain(spot_rays):
+    """Rays aimed at the spot mesh's vertices and at points on its edges,
+    from random points around them: their Plücker edge terms are ~0, so
+    the ray's moment o x d decides them in its last bits, and the kernel
+    equals the plain tracer on every ray only if both round the moment's
+    products alike (tracer.cross)."""
+    from nvdiffrecmc_tpu_torch import checks
+    from nvdiffrecmc_tpu_torch.dataset.dataset_mesh import spot256_scene
+    _, _, bvh = spot_rays
+    dev = bvh.tri.device
+    mesh = spot256_scene(dev)
+    v = mesh.v_pos[mesh.t_pos_idx.long()]              # [T, 3, 3]
+    g = torch.Generator(device=dev)
+    g.manual_seed(11)
+    targets = [v[:, 0], v[:, 1], v[:, 2]]
+    for i, j in ((0, 1), (1, 2), (2, 0)):
+        for t in (0.5, 0.25):
+            targets.append(v[:, i] + t * (v[:, j] - v[:, i]))
+    p = torch.cat(targets)
+    ro = p + torch.randn(p.shape, generator=g, device=dev)
+    rd = p - ro
+    r = checks.check_trace(ro.contiguous(), rd.contiguous(), bvh, reps=1)
+    assert r['ok'] and r['agree'] == 1.0, r
 
 
 def test_walk_refuses_too_many_boxes():

@@ -8,7 +8,8 @@ two give the same index, hence the same pdf and frac bits; the tables of
 light.update_pdf are non-decreasing.  Lights with a ragged width (75),
 black texels (flat runs), a black row, draws exactly on CDF values, at 0
 and at 1; the search ranges' lengths; the guide tables against a count
-by sorted search; and the light sizes the kernels take."""
+by sorted search and against the library yardstick of the kernels line;
+and the light sizes the kernels take."""
 
 import numpy as np
 import pytest
@@ -95,6 +96,25 @@ def test_sample_guide_plain_counts_buckets(Hl, Wl):
                                   torch.arange(K + 1).expand(
                                       cdf.shape[0], -1).contiguous())
         assert torch.equal(guide, want)
+
+
+@pytest.mark.parametrize('Hl,Wl', [(37, 75), (16, 256), (64, 128)])
+def test_searchsorted_yardstick_equals_guide(Hl, Wl):
+    """The guide's library yardstick (checks.library_ms), searchsorted of
+    the edges arange(K + 1) into each CDF scaled by K, gives the guide
+    tables on a non-decreasing CDF: every entry but the last of each
+    table, which the guide's clamp of bucket K to K - 1 raises by the
+    entries whose v K reaches K."""
+    from nvdiffrecmc_tpu_torch import checks
+    t = _tables(Hl, Wl, seed=5 * Hl + Wl)
+    g, gr = _guides(t)
+    yc, yr = (torch.searchsorted(c, e).long()
+              for c, e in checks.guide_search_args(t.rows, t.cols))
+    for cdf, guide, yard in ((t.cols, g, yc), (t.rows[None], gr[None], yr)):
+        K = cdf.shape[1]
+        assert torch.equal(guide[:, :K], yard[:, :K])
+        assert torch.equal(guide[:, K] - yard[:, K],
+                           (cdf * float(K) >= K).sum(1))
 
 
 def test_guide_ranges_are_short_on_the_probe():
