@@ -59,6 +59,28 @@ one):
 11. count the kernels (PyTorch's and ours) that one rasterize call of
    phase 3's frame launches, under torch.profiler: at most
    RESOLVE_MAX_LAUNCHES up to the resolve's output;
+12. one recorded pass-2 step at batch 4 (512x512 textures), each kernel
+   of the step (every row scatter launch among them) against its plain
+   version at those shapes; then the pass-2 program, in
+   chiprun_out/train_cli/ (cleared first): the
+   spot256 geometry written with the port's write_obj under a constant kd
+   0.5 and ks (0, 0.5, 0) at 512x512 as the base mesh; an MTL override
+   that gives the reference mesh texture_kd.png and Ks 0 0.5 0; a config
+   of configs/spot.json's keys (batch 4, 512x512, 512x512 textures,
+   n_samples 4, lock_pos, white background, the latlong display layer)
+   with that scene, probe.hdr as envlight, 20 iterations, a probe and a
+   checkpoint every 10, validation on.  `python3 -m
+   nvdiffrecmc_tpu_torch.train --config` runs as a subprocess; its log,
+   probe and validation lines are relayed, with the median ms per step,
+   the peak device memory, the seconds per probe, per validation view
+   and for the export, and the kernel launches of the run and per step
+   (every kernel but the mask launched; per step as in phase 6).  Checks:
+   every loss and PSNR finite, validate/metrics.txt with 16 views and its
+   averages, mesh/ with the OBJ, MTL, three PNGs and probe.hdr, the OBJ
+   read back by load_obj (26,474 triangles, v_pos within 1e-5 of the
+   checkpoint's), probe.hdr read back at 512x1024, the exported kd off
+   the initial gray.  Then `-i 12 --validate false` into the same out_dir
+   resumes from iteration 11 and runs that one step;
 7. with --profile only: torch.profiler over 4 more frames and over 4 more
    training steps; prints device time by kernel, launches and host gaps,
    and writes the full tables to chiprun_out/profile_port.txt and
@@ -70,10 +92,12 @@ Any failure raises and exits non-zero before the last line.  The last
 three lines are the kernels JSON (all eleven entries: the ten kernels that
 replace the TPU kernels, the denoiser's two modes apart, and the sampler's
 guide kernel; each with its time, its plain version's, its bound and, for
-the two scatters, index_add_'s, for the guide torch.searchsorted's; the
-row scatter's entry is its largest launch, with every launch of the step
-and their summed time and bound beside it), the card line, and {"ok":
-true, "device": {...}}.
+the two scatters, index_add_'s, for the guide torch.searchsorted's, and
+its launches in phase 12's program and per step there and, for the
+step's kernels, its check at batch 4; the row scatter's
+entry is its largest launch, with every launch of the step and their
+summed time and bound beside it), the card line, and {"ok": true,
+"device": {...}}.
 
 Usage: python3 chip_smoke.py [--profile]
 """
@@ -81,6 +105,7 @@ Usage: python3 chip_smoke.py [--profile]
 import argparse
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -104,6 +129,9 @@ TRACER_RAYS = 2 ** 21   # bench.py's bench_tracer
 RESOLVE_MAX_LAUNCHES = 10   # kernels of one rasterize call up to the resolve
 VAL_FRAMES = 2
 VAL_N = 32              # the reference validation protocol's n_samples
+PROGRAM_ITERS = 20
+PROGRAM_VIEWS = 16      # main()'s validation views
+PROGRAM_TIMEOUT = 600   # seconds for each run of the program
 
 
 def smi_line():
@@ -708,6 +736,213 @@ def small_validation_agreement(device):
     return share, float(diff.max())
 
 
+# ---------------------------------------------------------------------------
+# The pass-2 program
+# ---------------------------------------------------------------------------
+
+def program_setup(work):
+    """Phase 12's scene and config in work/: the base mesh (spot256's
+    geometry, constant kd 0.5 and ks (0, 0.5, 0) at 512x512, written by the
+    port's write_obj), the reference's MTL override, and the config.
+    Returns the config's path."""
+    import torch
+    from nvdiffrecmc_tpu_torch.dataset.dataset_mesh import (
+        SPOT256_DIR, SPOT256_PROBE, spot256_scene)
+    from nvdiffrecmc_tpu_torch.render import obj as obj_mod
+    from nvdiffrecmc_tpu_torch.render import texture as texture_mod
+    mesh = spot256_scene('cpu')
+    mesh.material = {
+        'bsdf': 'pbr',
+        'kd': texture_mod.Texture2D(data=torch.full((1, 512, 512, 3), 0.5)),
+        'ks': texture_mod.Texture2D(data=torch.tensor(
+            [0.0, 0.5, 0.0]).expand(1, 512, 512, 3).contiguous())}
+    os.makedirs(os.path.join(work, 'base'))
+    obj_mod.write_obj(os.path.join(work, 'base'), mesh)
+    mtl = os.path.join(work, 'spot256.mtl')
+    with open(mtl, 'w') as f:
+        f.write('newmtl defaultMat\nbsdf pbr\nmap_Kd %s\nKs 0 0.5 0\n'
+                % os.path.join(SPOT256_DIR, 'texture_kd.png'))
+    here = os.path.dirname(os.path.abspath(__file__))
+    with open(os.path.join(here, 'configs', 'spot.json')) as f:
+        cfg = json.load(f)
+    cfg.update(ref_mesh=os.path.join(SPOT256_DIR, 'mesh.obj'),
+               base_mesh=os.path.join(work, 'base', 'mesh.obj'),
+               mtl_override=mtl, envlight=SPOT256_PROBE, iter=PROGRAM_ITERS,
+               save_interval=10, checkpoint_interval=10, validate=True,
+               out_root=work, out_dir='spot')
+    path = os.path.join(work, 'config.json')
+    with open(path, 'w') as f:
+        json.dump(cfg, f, indent=1)
+    return path
+
+
+def run_program(argv, log_path):
+    """python3 -m nvdiffrecmc_tpu_torch.train argv in this checkout; its
+    output goes to log_path.  Returns the output's lines; raises on a
+    non-zero exit."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, '-m', 'nvdiffrecmc_tpu_torch.train'] + argv,
+        cwd=here, capture_output=True, text=True, timeout=PROGRAM_TIMEOUT)
+    with open(log_path, 'w') as f:
+        f.write(proc.stdout + proc.stderr)
+    print('program %s: exit %d, %.1f s (log %s)'
+          % (' '.join(argv), proc.returncode, time.perf_counter() - t0,
+             log_path), flush=True)
+    if proc.returncode != 0:
+        print(proc.stderr[-4000:], flush=True)
+        raise RuntimeError('the program exited with %d' % proc.returncode)
+    return proc.stdout.splitlines()
+
+
+def _after(lines, prefix):
+    """The rest of each line that starts with prefix."""
+    return [ln[len(prefix):] for ln in lines if ln.startswith(prefix)]
+
+
+def _finite(x):
+    return x == x and abs(x) != float('inf')
+
+
+def batch4_checks(device):
+    """One recorded pass-2 step at spot.json's batch 4 (512x512 textures,
+    four DatasetMesh targets over random backgrounds): each kernel of the
+    step held against its plain version at the shapes the program gives
+    it, every row scatter launch among them.  Returns each kernel's
+    check."""
+    import torch
+    from nvdiffrecmc_tpu_torch import checks, train
+    st = train_setup(device, RES, N_SAMPLES, 512)
+    ds, FLAGS, p = st['ds'], st['FLAGS'], st['params']
+    gen = torch.Generator(device=device)
+    gen.manual_seed(23)
+    target = train.prepare_batch(ds.collate([ds[i] for i in range(4)]),
+                                 FLAGS['train_res'], 'random', gen, FLAGS)
+    with checks.Recorder() as rec:
+        il, rl = train.train_step(st['geometry'], p, st['opts'], st['static'],
+                                  target, 0, FLAGS, st['loss_fn'], ds.perms,
+                                  gen)
+        torch.cuda.synchronize()
+    check_step(p, il, rl)
+    out, bad = {}, []
+    with torch.no_grad():
+        for name in checks.FORWARD + checks.BACKWARD:
+            r = checks.run(name, rec.args, reps=2)
+            print_compare(r, ' (batch 4)')
+            out[name] = r
+            if not r['ok']:
+                bad.append(name)
+        for i, a in enumerate(rec.args['scatter_all']):
+            r = checks.check_scatter(*a, reps=2)
+            print_compare(r, ' (batch 4, launch %d of %d)'
+                          % (i + 1, len(rec.args['scatter_all'])))
+            if not r['ok']:
+                bad.append('scatter launch %d' % (i + 1))
+    if bad:
+        raise RuntimeError('kernels disagree with their plain versions at '
+                           'batch 4: %s' % bad)
+    return out
+
+
+def program_phase():
+    """Phase 12: a recorded step at batch 4 against the plain versions,
+    the program at spot.json's batch 4, then its resume.  Returns (the
+    kernel launches of the program's first run, per step there, each
+    kernel's check at batch 4)."""
+    import re
+    import numpy as np
+    import torch
+    from nvdiffrecmc_tpu_torch.render import light as light_mod
+    from nvdiffrecmc_tpu_torch.render import obj as obj_mod
+    from nvdiffrecmc_tpu_torch.render import texture as texture_mod
+    here = os.path.dirname(os.path.abspath(__file__))
+    at_batch_4 = batch4_checks('cuda')
+    work = os.path.join(here, 'chiprun_out', 'train_cli')
+    shutil.rmtree(work, ignore_errors=True)
+    cfg = program_setup(work)
+    torch.cuda.empty_cache()
+    lines = run_program(['--config', cfg], os.path.join(work, 'run.log'))
+    relay = ('iter=', '[probe]', 'Resumed', 'MSE', 'peak device memory',
+             'mesh_pass:', 'validation:', 'export:')
+    for i, ln in enumerate(lines):
+        if ln.startswith(relay) or (i and lines[i - 1].startswith('MSE')):
+            print('program | ' + ln, flush=True)
+    losses = [float(x) for ln in _after(lines, 'iter=')
+              for x in re.findall(r'_loss=([-+\w.]+)', ln)]
+    psnrs = [float(x.split()[-2]) for x in _after(lines, '[probe] iter=')
+             if 'PSNR' in x]
+    logged = len(range(0, PROGRAM_ITERS, 10))   # log and probe every 10
+    if len(losses) != 2 * logged or len(psnrs) != logged or not all(
+            _finite(x) for x in losses + psnrs):
+        raise RuntimeError('program losses %s, probe PSNRs %s'
+                           % (losses, psnrs))
+    summary = _after(lines, 'mesh_pass: ')[0]
+    med = float(re.search(r'median ([\d.]+) ms', summary).group(1))
+    per_step = json.loads(summary.split('kernel launches per step ')[1])
+    launches = json.loads(_after(lines, 'kernel launches: ')[0])
+    probe_s = [float(x.split()[-2]) for x in _after(lines, '[probe] iter=')
+               if 'took' in x]
+    val_s = float(_after(lines, 'validation: ')[0].split()[0])
+    export_s = float(_after(lines, 'export: ')[0].split()[0])
+    peak = float(_after(lines, 'peak device memory: ')[0].split()[0])
+    print('program: median %.3f ms per step at batch 4 (%d steps), peak '
+          'device memory %.3f GiB, %s s per probe, %.3f s per validation '
+          'view, export %.3f s (%s)'
+          % (med, PROGRAM_ITERS, peak, ', '.join('%.3f' % x for x in probe_s),
+             val_s / PROGRAM_VIEWS, export_s, smi_line()), flush=True)
+    print('program: kernel launches %s; per step %s' % (launches, per_step),
+          flush=True)
+    idle = [n for n, c in launches.items() if c == 0 and n != 'mask']
+    want = dict(STEP_LAUNCHES)
+    wrong = {n: per_step[n] for n in want if per_step[n] != want[n]}
+    if idle or wrong or per_step['scatter'] < 1:
+        raise RuntimeError('program: kernels not launched %s, per step %s'
+                           % (idle, wrong or per_step))
+
+    out = os.path.join(work, 'spot')
+    metrics = open(os.path.join(out, 'validate', 'metrics.txt')).read()
+    rows = metrics.splitlines()
+    if len(rows) != PROGRAM_VIEWS + 2 or not rows[-1].startswith('AVERAGES'):
+        raise RuntimeError('validate/metrics.txt: %s' % rows)
+    if not all(_finite(float(r.split(',')[2])) for r in rows[1:-1]):
+        raise RuntimeError('validate/metrics.txt: %s' % rows)
+    mesh_dir = os.path.join(out, 'mesh')
+    files = sorted(os.listdir(mesh_dir))
+    if files != ['mesh.mtl', 'mesh.obj', 'probe.hdr', 'texture_kd.png',
+                 'texture_ks.png', 'texture_n.png']:
+        raise RuntimeError('mesh/ holds %s' % files)
+    back = obj_mod.load_obj(os.path.join(mesh_dir, 'mesh.obj'), device='cpu')
+    ckpt = torch.load(os.path.join(out, 'checkpoint_mesh_pass.pkl'),
+                      map_location='cpu', weights_only=True)
+    v_err = float((back.v_pos - ckpt['params']['geo']['v_pos']).abs().max())
+    probe = light_mod._read_hdr(os.path.join(mesh_dir, 'probe.hdr'))
+    kd = texture_mod.load_image(os.path.join(mesh_dir, 'texture_kd.png'))
+    gray = texture_mod.load_image(os.path.join(work, 'base',
+                                               'texture_kd.png'))
+    kd_moved = float(np.abs(kd - gray).mean())
+    print('program: metrics.txt %s; mesh/ %s; OBJ read back: %d triangles, '
+          'v_pos within %.2e of the checkpoint (iteration %d); probe.hdr %s; '
+          'exported kd %.4f from the initial gray on average'
+          % (rows[-1], files, back.t_pos_idx.shape[0], v_err,
+             ckpt['iteration'], probe.shape, kd_moved), flush=True)
+    if back.t_pos_idx.shape[0] != 26474 or v_err > 1e-5 or \
+            probe.shape != (512, 1024, 3) or kd_moved < 1.0 / 255.0:
+        raise RuntimeError('the exported mesh, probe or kd is wrong')
+
+    lines = run_program(['--config', cfg, '-i', '12', '--validate', 'false'],
+                        os.path.join(work, 'resume.log'))
+    for ln in lines:
+        if ln.startswith(('Resumed', 'mesh_pass:')):
+            print('program (resume) | ' + ln, flush=True)
+    resumed = _after(lines, 'Resumed ')
+    if not (resumed and resumed[0].endswith('from iteration 11')
+            and _after(lines, 'mesh_pass: 1 steps from iteration 11')):
+        raise RuntimeError('the program did not resume from iteration 11 '
+                           'for one step')
+    return launches, per_step, at_batch_4
+
+
 def print_tests(work, rays, G, label):
     """Triangle tests per ray (checks.trace_work): the walk's, in its order
     with its early exit, and the least any walk needs, each with sub-boxes
@@ -954,6 +1189,17 @@ def main():
     v_clip, tri, H, W = results['resolve']['args'][:4]
     with torch.no_grad():
         rasterize_launches(v_clip, tri, (H, W))
+
+    # 12. the pass-2 program at spot.json's batch 4, and its resume
+    del results
+    program_launches, program_per_step, at_batch_4 = program_phase()
+    for row in rows:
+        row['launches_in_program'] = program_launches[row['name']]
+        row['launches_per_program_step'] = program_per_step[row['name']]
+        if row['name'] in at_batch_4:
+            r = at_batch_4[row['name']]
+            row['at_batch_4'] = dict(ms=r['ms'], plain_ms=r['plain_ms'],
+                                     max_abs_err=r['max_abs_err'])
 
     # 7. optional profile: every profiler session after every timed phase
     if args.profile:

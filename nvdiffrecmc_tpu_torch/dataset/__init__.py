@@ -1,2 +1,3 @@
 """Datasets."""
+from .dataset import BatchIterator, Dataset  # noqa: F401
 from .dataset_mesh import DatasetMesh  # noqa: F401

@@ -17,6 +17,7 @@ from ..render import mesh as mesh_mod
 from ..render import obj as obj_mod
 from ..render import render as render_mod
 from ..render import texture as texture_mod
+from .dataset import Dataset, rng_state, set_rng_state
 
 SPOT256_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__)))), 'docs', 'quality_r5', 'spot256')
@@ -75,10 +76,11 @@ def spot256_scene(device=None):
                                    device=device)
 
 
-class DatasetMesh:
+class DatasetMesh(Dataset):
     """Seeded random training cameras, or with validate=True the
     validation orbit of num_validation_frames views, and their ground-truth
-    renders."""
+    renders.  The cameras come from self.rng and each render's noise from
+    the number of frames rendered so far: state_dict holds both."""
 
     def __init__(self, ref_mesh: mesh_mod.Mesh, cam_radius, FLAGS,
                  validate=False, num_validation_frames=200, seed=0):
@@ -171,3 +173,10 @@ class DatasetMesh:
         for k in ('mv', 'mvp', 'campos'):
             out[k] = np.concatenate([b[k] for b in batch])
         return out
+
+    def state_dict(self):
+        return {'rng': rng_state(self.rng), 'frame_count': self._frame_count}
+
+    def load_state_dict(self, state):
+        set_rng_state(self.rng, state['rng'])
+        self._frame_count = state['frame_count']

@@ -7,10 +7,16 @@ per triangle (the fields of `_chunk_coefs` and the pixel rectangle of
 a 64-bit atomicMin of (depth, id) keys over the rectangle's pixels, and an
 unpack kernel per pixel.  On CPU tensors it runs `resolve_plain`:
 `resolve_batch_plain`, the same function in plain PyTorch, over the
-per-chunk coefficients of `_chunk_coefs`.  `_tri_coefs` gives those fields
-per triangle, as the setup kernel lays them out, and `covered_pairs` lists
-the (pixel, triangle) pairs the raster kernel takes its atomics on, in
-plain PyTorch."""
+per-chunk coefficients of `_chunk_coefs` and the rectangles of
+`_tri_rects`.  `_tri_coefs` gives those fields per triangle, as the setup
+kernel lays them out, and `covered_pairs` lists the (pixel, triangle)
+pairs the raster kernel takes its atomics on, in plain PyTorch.
+
+A triangle covers only pixels of its rectangle (its screen box grown by
+one pixel).  Where its three vertices nearly coincide, its edge fields are
+rounding noise and can pass the inside test pixels away from it: the spot
+mesh has two such slivers (ids 15947 and 17640), which the JAX package's
+per-chunk boxes let through."""
 
 import functools
 
@@ -86,15 +92,19 @@ def _pixel_ndc_xy(H, W, device):
     return sx, sy
 
 
-def resolve_batch_plain(coef, H, W, prev_z, prev_id):
-    """Plain PyTorch resolve.  coef [N, NC, 15, TC]; prev_z [N, H, W]
-    (-BIG for the first layer, +BIG where the pixel stays empty); prev_id
-    [N, H, W] int32 (tri_id+1 to exclude).  Returns (z [N,H,W] f32,
-    tid [N,H,W] int32, tri_id+1, 0 empty)."""
+def resolve_batch_plain(coef, rect, H, W, prev_z, prev_id):
+    """Plain PyTorch resolve.  coef [N, NC, 15, TC]; rect [N, NC, 4, TC]
+    int32, each triangle's pixel rectangle (`_tri_rects`, chunked as
+    coef): a pixel outside it is not the triangle's, whatever its fields
+    say; prev_z [N, H, W] (-BIG for the first layer, +BIG where the pixel
+    stays empty); prev_id [N, H, W] int32 (tri_id+1 to exclude).  Returns
+    (z [N,H,W] f32, tid [N,H,W] int32, tri_id+1, 0 empty)."""
     N, NC = coef.shape[:2]
     sx, sy = _pixel_ndc_xy(H, W, coef.device)
     sx = sx[None, None, :, None]
     sy = sy[None, :, None, None]
+    xs = torch.arange(W, device=coef.device)[None, None, :, None]
+    ys = torch.arange(H, device=coef.device)[None, :, None, None]
     pz = prev_z[..., None]
     pid = prev_id[..., None]
     best_z = torch.full((N, H, W), BIG, device=coef.device)
@@ -102,6 +112,7 @@ def resolve_batch_plain(coef, H, W, prev_z, prev_id):
     lane = torch.arange(TC, device=coef.device, dtype=torch.int32)
     for c in range(NC):
         cf = coef[:, c][:, :, None, None, :]          # [N, 15, 1, 1, TC]
+        r = rect[:, c][:, :, None, None, :]           # [N, 4, 1, 1, TC]
 
         def field(f):
             return cf[:, 3 * f] * sx + cf[:, 3 * f + 1] * sy + cf[:, 3 * f + 2]
@@ -109,7 +120,8 @@ def resolve_batch_plain(coef, H, W, prev_z, prev_id):
         ids = c * TC + lane + 1
         inside = ((e0 > 0.0) & (e1 > 0.0) & (e2 > 0.0) & (s > 0.0)
                   & (z >= -1.0) & (z <= 1.0) & (z > pz + Z_EPS)
-                  & (ids != pid))
+                  & (ids != pid) & (xs >= r[:, 0]) & (ys >= r[:, 1])
+                  & (xs <= r[:, 2]) & (ys <= r[:, 3]))
         zm = torch.where(inside, z, torch.full_like(z, BIG))
         zmin, k = torch.min(zm, dim=-1)               # first (lowest) id
         better = zmin < best_z
@@ -121,12 +133,24 @@ def resolve_batch_plain(coef, H, W, prev_z, prev_id):
             torch.where(hit, best_id, torch.zeros_like(best_id)))
 
 
+def _chunk_rects(rect):
+    """[T, 4] rectangles -> [NC, 4, TC], padded with empty ones."""
+    pad = (-rect.shape[0]) % TC
+    if pad:
+        rect = torch.cat([rect, rect.new_tensor([[0, 0, -1, -1]]).expand(
+            pad, 4)], 0)
+    return rect.reshape(-1, TC, 4).permute(0, 2, 1).contiguous()
+
+
 def resolve_plain(v_clip, tri, H, W, prev_z, prev_id):
     """The resolve's whole function in plain PyTorch: the fields of
-    `_chunk_coefs`, then `resolve_batch_plain`.  v_clip [N, V, 4]; tri
-    [T, 3]; prev_z, prev_id [N, H, W]."""
+    `_chunk_coefs` and the rectangles of `_tri_rects`, then
+    `resolve_batch_plain`.  v_clip [N, V, 4]; tri [T, 3]; prev_z, prev_id
+    [N, H, W]."""
     coef = torch.stack([_chunk_coefs(v, tri)[0] for v in v_clip])
-    return resolve_batch_plain(coef, H, W, prev_z, prev_id)
+    rect = torch.stack([_chunk_rects(_tri_rects(v, tri, H, W))
+                        for v in v_clip])
+    return resolve_batch_plain(coef, rect, H, W, prev_z, prev_id)
 
 
 def _tri_rects(v_clip, tri, H, W):

@@ -196,3 +196,11 @@ def checkerboard(res, checker_size):
                     np.ones((checker_size, checker_size))) * 0.33 + 0.33
     check = check[:res[0], :res[1]]
     return np.stack((check, check, check), axis=-1).astype(np.float32)
+
+
+def time_to_text(x):
+    if x > 3600:
+        return "%.2f h" % (x / 3600)
+    if x > 60:
+        return "%.2f m" % (x / 60)
+    return "%.2f s" % x

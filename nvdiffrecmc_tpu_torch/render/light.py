@@ -1,6 +1,6 @@
 """HDR lat-long environment light and its importance-sampling tables
 (counterpart of nvdiffrecmc_tpu/render/light.py).  Radiance .hdr files are
-decoded with numpy (flat and adaptive-RLE scanlines)."""
+read and written with numpy (flat and adaptive-RLE scanlines)."""
 
 import math
 import os
@@ -10,6 +10,8 @@ import numpy as np
 import torch
 
 from ..device import resolve
+from ..ops import vecmath
+from ..ops.texture import bilinear_sample
 
 
 def create_trainable_env_rnd(base_res, scale=0.5, bias=0.25, seed=0,
@@ -20,6 +22,12 @@ def create_trainable_env_rnd(base_res, scale=0.5, bias=0.25, seed=0,
     rng = np.random.RandomState(seed)
     base = rng.rand(base_res, base_res, 3).astype(np.float32) * scale + bias
     return torch.as_tensor(base, device=device)
+
+
+def generate_image(base, res):
+    """The probe bilinearly resampled to a lat-long image [res0, res1, 3]."""
+    texcoord = vecmath.pixel_grid(res[1], res[0], device=base.device)
+    return bilinear_sample(base[None], texcoord[None])[0]
 
 
 class LightTables(NamedTuple):
@@ -95,6 +103,66 @@ def _read_hdr(path):
     scale = np.where(e > 0, np.ldexp(1.0, e.astype(np.int32) - 136), 0.0)
     return np.where(e[..., None] > 0, (rgbe[..., :3] + 0.5) * scale[..., None],
                     0.0)
+
+
+def _rle_channel(x):
+    """One channel of a scanline (uint8 [W]) as adaptive-RLE bytes: runs of
+    4 or more equal bytes as (128 + n, byte), n <= 127; the rest as
+    literal (n, bytes...), n <= 128."""
+    W = x.shape[0]
+    starts = np.flatnonzero(np.concatenate(([True], x[1:] != x[:-1])))
+    lengths = np.diff(np.append(starts, W))
+    out = bytearray()
+
+    def literal(a, b):
+        for s in range(a, b, 128):
+            e = min(s + 128, b)
+            out.append(e - s)
+            out.extend(x[s:e].tobytes())
+    done = 0
+    for s, n in zip(starts[lengths >= 4], lengths[lengths >= 4]):
+        literal(done, s)
+        for k in range(0, n, 127):
+            out.append(128 + min(n - k, 127))
+            out.append(int(x[s]))
+        done = s + n
+    literal(done, W)
+    return bytes(out)
+
+
+def _write_hdr(path, img):
+    """float [H, W, 3] as a Radiance .hdr: RGBE with the exponent of the
+    largest channel, mantissas floored; adaptive-RLE scanlines for widths
+    8-32767, flat ones otherwise."""
+    img = np.asarray(img, dtype=np.float32)
+    H, W, _ = img.shape
+    maxc = np.max(img, axis=-1)
+    e = np.zeros((H, W), np.int32)
+    m = maxc > 1e-32
+    e[m] = np.ceil(np.log2(maxc[m])).astype(np.int32) + 1
+    scale = np.ldexp(1.0, -e + 8)
+    rgbe = np.zeros((H, W, 4), np.uint8)
+    with np.errstate(invalid='ignore'):
+        q = np.clip(np.floor(img * scale[..., None]), 0, 255).astype(np.uint8)
+    rgbe[..., :3] = np.where(m[..., None], q, 0)
+    rgbe[..., 3] = np.where(m, e + 128, 0).astype(np.uint8)
+    with open(path, 'wb') as f:
+        f.write(b'#?RADIANCE\nFORMAT=32-bit_rle_rgbe\n\n')
+        f.write(('-Y %d +X %d\n' % (H, W)).encode())
+        if not 8 <= W <= 32767:
+            f.write(rgbe.tobytes())
+            return
+        head = bytes((2, 2, W >> 8, W & 255))
+        for y in range(H):
+            f.write(head + b''.join(_rle_channel(rgbe[y, :, c])
+                                    for c in range(4)))
+
+
+def save_env_map(fn, base):
+    """The probe as a 512 x 1024 lat-long .hdr."""
+    with torch.no_grad():
+        color = generate_image(base, [512, 1024])
+    _write_hdr(fn, color.cpu().numpy())
 
 
 def load_env(fn, scale=1.0, device=None):

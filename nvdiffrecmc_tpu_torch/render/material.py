@@ -1,7 +1,7 @@
 """Material dicts + .mtl IO (counterpart of
 nvdiffrecmc_tpu/render/material.py): 'bsdf' (str), 'kd'/'ks'/'normal'
-(Texture2D).  kd is stored sRGB and converted to linear on load; the ks
-occlusion (red) channel is zeroed when clear_ks."""
+(Texture2D).  kd is stored sRGB and converted to linear on load (and back
+on save); the ks occlusion (red) channel is zeroed when clear_ks."""
 
 import os
 import re
@@ -10,6 +10,7 @@ import numpy as np
 import torch
 
 from ..device import resolve
+from ..ops import vecmath
 from . import texture
 
 
@@ -73,6 +74,31 @@ def load_mtl(fn, clear_ks=True, device=None):
                 data=mips if isinstance(mat['ks'].data, list) else mips[0],
                 min_max=mat['ks'].min_max)
     return materials
+
+
+def save_mtl(fn, material):
+    """fn (newmtl defaultMat) and, beside it, texture_kd.png (sRGB),
+    texture_ks.png and texture_n.png (normals mapped to [0, 1])."""
+    folder = os.path.dirname(fn)
+    with open(fn, 'w') as f:
+        f.write('newmtl defaultMat\n')
+        if material is not None:
+            f.write('bsdf   %s\n' % material['bsdf'])
+            if 'kd' in material:
+                f.write('map_Kd texture_kd.png\n')
+                texture.save_texture2D(os.path.join(folder, 'texture_kd.png'),
+                                       texture.rgb_to_srgb(material['kd']))
+            if 'ks' in material:
+                f.write('map_Ks texture_ks.png\n')
+                texture.save_texture2D(os.path.join(folder, 'texture_ks.png'),
+                                       material['ks'])
+            if 'normal' in material:
+                texture.save_texture2D(
+                    os.path.join(folder, 'texture_n.png'), material['normal'],
+                    lambda_fn=lambda x: (vecmath.safe_normalize(x) + 1) * 0.5)
+                f.write('bump texture_n.png\n')
+        else:
+            f.write('Kd 1 1 1\nKs 0 0 0\nKa 0 0 0\nTf 1 1 1\nNi 1\nNs 0\n')
 
 
 def _find_mat(materials, name):

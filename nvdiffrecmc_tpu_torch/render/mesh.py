@@ -2,8 +2,12 @@
 nvdiffrecmc_tpu/render/mesh.py): a dataclass of tensors on one device."""
 
 import dataclasses
+import os
 from typing import Any
 
+import numpy as np
+
+from ..device import resolve
 from ..ops import mesh_ops
 
 
@@ -32,3 +36,20 @@ def compute_tangents(mesh: Mesh) -> Mesh:
         mesh.t_tex_idx, mesh.tri_mask)
     return dataclasses.replace(mesh, v_tng=v_tng, t_tng_idx=mesh.t_nrm_idx)
 
+
+
+def unit_size(v_pos_np):
+    """Host vertices moved and scaled into the unit cube [-1, 1]^3."""
+    v = np.asarray(v_pos_np)
+    c = (v.min(0) + v.max(0)) / 2
+    s = np.abs(v - c).max()
+    return (v - c) / max(s, 1e-9)
+
+
+def load_mesh(filename, mtl_override=None, device=None):
+    """An .obj file as a Mesh (its material from mtl_override when given)."""
+    from . import obj
+    if os.path.splitext(filename)[1] != '.obj':
+        raise ValueError('not an .obj mesh: %s' % filename)
+    return obj.load_obj(filename, clear_ks=True, mtl_override=mtl_override,
+                        device=resolve(device))

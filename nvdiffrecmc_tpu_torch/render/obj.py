@@ -1,7 +1,8 @@
-"""Wavefront OBJ loading (counterpart of nvdiffrecmc_tpu/render/obj.py):
-polygon triangulation, mtllib loading, v-flip of texcoords.  Meshes that use
-more than one material need the JAX package's uber-material merge, which is
-not ported yet."""
+"""Wavefront OBJ load and save (counterpart of
+nvdiffrecmc_tpu/render/obj.py): polygon triangulation, mtllib loading (or an
+override), v-flip of texcoords, OBJ + MTL export.  Meshes that use more than
+one material need the JAX package's uber-material merge, which is not
+ported yet (load_obj raises on them)."""
 
 import os
 
@@ -76,7 +77,10 @@ def mesh_from_lists(vertices, texcoords, normals, faces, tfaces, nfaces,
         material=material)
 
 
-def load_obj(filename, clear_ks=True, device=None):
+def load_obj(filename, clear_ks=True, mtl_override=None, device=None):
+    """The mesh of an OBJ file with its material: the one its faces use,
+    from the file's mtllib, or from mtl_override (read with clear_ks on)
+    when given."""
     device = resolve(device)
     obj_path = os.path.dirname(filename)
     all_materials = [{
@@ -87,12 +91,15 @@ def load_obj(filename, clear_ks=True, device=None):
         'ks': texture.Texture2D(data=torch.tensor(
             [0.0, 0.0, 0.0], device=device)[None, None, None, :]),
     }]
-    with open(filename, 'r') as f:
-        for line in f:
-            if line.split() and line.split()[0] == 'mtllib':
-                all_materials += material_mod.load_mtl(
-                    os.path.join(obj_path, line.split()[1]), clear_ks,
-                    device=device)
+    if mtl_override is not None:
+        all_materials += material_mod.load_mtl(mtl_override, device=device)
+    else:
+        with open(filename, 'r') as f:
+            for line in f:
+                if line.split() and line.split()[0] == 'mtllib':
+                    all_materials += material_mod.load_mtl(
+                        os.path.join(obj_path, line.split()[1]), clear_ks,
+                        device=device)
 
     (vertices, texcoords, normals, faces, tfaces, nfaces,
      mfaces) = read_obj(filename)
@@ -108,3 +115,52 @@ def load_obj(filename, clear_ks=True, device=None):
     uber = used[0] if used else all_materials[0]
     return mesh_from_lists(vertices, texcoords, normals, faces, tfaces,
                            nfaces, material=uber, device=device)
+
+
+def write_obj(folder, mesh, save_material=True):
+    """folder/mesh.obj (vt written as 1 - v, triangles masked off by
+    tri_mask dropped) and, with save_material, folder/mesh.mtl and its
+    textures: the JAX package's text, line for line."""
+    obj_file = os.path.join(folder, 'mesh.obj')
+    print("Writing mesh: ", obj_file)
+
+    def to_np(x):
+        return None if x is None else x.detach().cpu().numpy()
+
+    v_pos = to_np(mesh.v_pos)
+    v_nrm = to_np(mesh.v_nrm)
+    v_tex = to_np(mesh.v_tex)
+    t_pos_idx = to_np(mesh.t_pos_idx)
+    t_nrm_idx = to_np(mesh.t_nrm_idx)
+    t_tex_idx = to_np(mesh.t_tex_idx)
+    if mesh.tri_mask is not None:
+        keep = to_np(mesh.tri_mask) > 0
+        t_pos_idx = t_pos_idx[keep]
+        t_nrm_idx = t_nrm_idx[keep] if t_nrm_idx is not None else None
+        t_tex_idx = t_tex_idx[keep] if t_tex_idx is not None else None
+
+    with open(obj_file, 'w') as f:
+        f.write("mtllib mesh.mtl\ng default\n")
+        for v in v_pos:
+            f.write('v {} {} {} \n'.format(v[0], v[1], v[2]))
+        if v_tex is not None:
+            for v in v_tex:
+                f.write('vt {} {} \n'.format(v[0], 1.0 - v[1]))
+        if v_nrm is not None:
+            for v in v_nrm:
+                f.write('vn {} {} {}\n'.format(v[0], v[1], v[2]))
+        f.write("s 1 \ng pMesh1\nusemtl defaultMat\n")
+        for i in range(len(t_pos_idx)):
+            f.write("f ")
+            for j in range(3):
+                f.write(' %s/%s/%s' % (
+                    str(t_pos_idx[i][j] + 1),
+                    '' if v_tex is None else str(t_tex_idx[i][j] + 1),
+                    '' if v_nrm is None else str(t_nrm_idx[i][j] + 1)))
+            f.write("\n")
+
+    if save_material:
+        mtl_file = os.path.join(folder, 'mesh.mtl')
+        print("Writing material: ", mtl_file)
+        material_mod.save_mtl(mtl_file, mesh.material)
+    print("Done exporting mesh")

@@ -1,5 +1,5 @@
 """2D texture container with auto mip chains, trainable textures, and a
-PNG reader and writer (counterpart of
+PNG reader and writer, with the texture save of the export (counterpart of
 nvdiffrecmc_tpu/render/texture.py).
 
 PNG files are decoded and encoded with the standard library's zlib and
@@ -7,6 +7,7 @@ numpy: 8-bit gray, gray+alpha, RGB and RGBA, non-interlaced; the decoder
 takes filter types 0-4, the encoder writes filter 0."""
 
 import dataclasses
+import os
 import struct
 import zlib
 from typing import Any
@@ -68,8 +69,12 @@ class Texture2D:
 def create_trainable(init, res=None, min_max=None, device=None):
     """A Texture2D whose data is a fresh tensor, resized to res (bilinear
     magnification, area minification); its mips are built when sampled.
-    init: an array [C], [H, W, C] or [1, H, W, C]."""
+    init: an array [C], [H, W, C] or [1, H, W, C], or a Texture2D (its
+    base level, and its min_max unless one is given)."""
     device = resolve(device)
+    if isinstance(init, Texture2D):
+        min_max = init.min_max if min_max is None else min_max
+        init = init.getMips()[0]
     init = _to_nhwc(init, device)
     if res is not None:
         init = vecmath.scale_img_nhwc(init, res)
@@ -78,6 +83,11 @@ def create_trainable(init, res=None, min_max=None, device=None):
 
 def srgb_to_rgb(texture: Texture2D):
     return texture._replace_mips([vecmath.srgb_to_rgb(m)
+                                  for m in texture.getMips()])
+
+
+def rgb_to_srgb(texture: Texture2D):
+    return texture._replace_mips([vecmath.rgb_to_srgb(m)
                                   for m in texture.getMips()])
 
 
@@ -216,3 +226,17 @@ def load_texture2D(fn, lambda_fn=None, channels=None, device=None):
     if lambda_fn is not None:
         img = lambda_fn(img)
     return Texture2D(data=img)
+
+
+def save_texture2D(fn, tex, lambda_fn=None):
+    """tex as a PNG at fn (lambda_fn applied first), or, for a mip list,
+    one PNG per level as <base>_<level><ext>."""
+    def _save(path, mip):
+        save_image(path, lambda_fn(mip) if lambda_fn is not None else mip)
+
+    if isinstance(tex.data, list):
+        base, ext = os.path.splitext(fn)
+        for i, mip in enumerate(tex.data):
+            _save(base + ("_%d" % i) + ext, mip[0])
+    else:
+        _save(fn, tex.data[0])

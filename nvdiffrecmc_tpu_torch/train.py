@@ -1,26 +1,44 @@
-"""The pass-2 training step and validation of the port (counterpart of the
-repository's train.py): losses, batch preparation, the trainable material,
-three Adam optimizers with the JAX package's learning-rate schedule, the
-gradient conventions, the post-step projections, and the validation render
-at the reference protocol.  There is no command line yet.
+"""The pass-2 trainer of the port (counterpart of the repository's
+train.py): losses, batch preparation, the trainable material, three Adam
+optimizers with the JAX package's learning-rate schedule, the gradient
+conventions, the post-step projections, the validation render at the
+reference protocol, the training loop with its probes and checkpoints, and
+the program.
 
 Parameters are a dict {'geo': {'v_pos'}, 'mat': {'kd', 'ks', 'normal'},
-'light'} of leaf tensors; `train_step` renders one view through
+'light'} of leaf tensors; `train_step` renders one batch through
 `DLMesh.tick`, runs `backward()`, and updates them in place.  `validate`
-renders the validation views with `render_eval` and writes their PSNR."""
+renders the validation views with `render_eval` and writes their PSNR.
+`main` runs the JAX program's base-mesh branch (pass 2 on a given mesh);
+pass 1 (DMTet) is not ported.
 
+Usage: python3 -m nvdiffrecmc_tpu_torch.train --config <json> [flags]
+(on the CUDA card; main(argv, device='cpu') runs it on the CPU)."""
+
+import json
 import os
+import pickle
+import statistics
+import time
 
 import numpy as np
 import torch
 
+from . import config, kernels
+from .dataset import BatchIterator, DatasetMesh
+from .dataset.dataset_mesh import load_env_or_procedural
 from .device import resolve
+from .geometry import DLMesh
 from .ops import envshade
 from .ops import loss as loss_ops
 from .ops import vecmath
 from .render import light as light_mod
+from .render import mesh as mesh_mod
+from .render import obj as obj_mod
 from .render import render as render_mod
 from .render import texture as texture_mod
+
+RADIUS = 3.0
 
 _LOSSES = {
     'smape': ('smape', 'none'),
@@ -72,11 +90,13 @@ def prepare_batch(target, train_res, bg_type, generator, FLAGS):
     return out
 
 
-def initial_guess_material(geometry, mlp, FLAGS, device=None):
+def initial_guess_material(geometry, mlp, FLAGS, init_mat=None,
+                           device=None):
     """(mat_params, mat_static): trainable kd, ks and normal textures at
-    FLAGS['texture_res'] and their bounds, as the JAX package's guess with
-    no initial material: constant kd, ks drawn from numpy's
-    RandomState(0), a flat normal map."""
+    FLAGS['texture_res'] and their bounds, as the JAX package guesses
+    them: from init_mat's textures (resized to texture_res) when given,
+    else constant kd and ks drawn from numpy's RandomState(0); the normal
+    map from init_mat, else flat."""
     if mlp:
         raise NotImplementedError('neural (kd_ks) materials are not ported')
     device = resolve(device)
@@ -85,19 +105,28 @@ def initial_guess_material(geometry, mlp, FLAGS, device=None):
         return torch.tensor(FLAGS[k], dtype=torch.float32, device=device)
     kd_min, kd_max, ks_min, ks_max = (f32('kd_min'), f32('kd_max'),
                                       f32('ks_min'), f32('ks_max'))
-    rng = np.random.RandomState(0)
     res = tuple(FLAGS['texture_res'])
-    num_ch = 4 if FLAGS['layers'] > 1 else 3
-    kd_data = (torch.ones(res + (num_ch,), device=device)
-               * (kd_max - kd_min)[0:num_ch] + kd_min[0:num_ch])[None]
-    ks = np.concatenate((
-        rng.uniform(0.0, 0.01, size=res + (1,)),
-        rng.uniform(float(ks_min[1]), float(ks_max[1]), size=res + (1,)),
-        rng.uniform(float(ks_min[2]), float(ks_max[2]), size=res + (1,))),
-        axis=2)
-    ks_data = torch.as_tensor(ks.astype(np.float32), device=device)[None]
-    nrm_data = texture_mod.create_trainable(
-        np.array([0, 0, 1], np.float32), res, device=device).data
+
+    def trainable(init):
+        return texture_mod.create_trainable(init, res, device=device).data
+    if init_mat is None:
+        rng = np.random.RandomState(0)
+        num_ch = 4 if FLAGS['layers'] > 1 else 3
+        kd_data = (torch.ones(res + (num_ch,), device=device)
+                   * (kd_max - kd_min)[0:num_ch] + kd_min[0:num_ch])[None]
+        ks = np.concatenate((
+            rng.uniform(0.0, 0.01, size=res + (1,)),
+            rng.uniform(float(ks_min[1]), float(ks_max[1]), size=res + (1,)),
+            rng.uniform(float(ks_min[2]), float(ks_max[2]), size=res + (1,))),
+            axis=2)
+        ks_data = torch.as_tensor(ks.astype(np.float32), device=device)[None]
+    else:
+        kd_data = trainable(init_mat['kd'])
+        ks_data = trainable(init_mat['ks'])
+    if init_mat is None or 'normal' not in init_mat:
+        nrm_data = trainable(np.array([0, 0, 1], np.float32))
+    else:
+        nrm_data = trainable(init_mat['normal'])
     params = {'kd': kd_data, 'ks': ks_data, 'normal': nrm_data}
     static = {
         'kind': 'tex',
@@ -147,19 +176,23 @@ def _group(p):
     return [p] if torch.is_tensor(p) else list(p.values())
 
 
-def lr_schedule(count, lr_decay_rate):
-    """The JAX package's pass-2 schedule (no warm-up):
-    10^(-count * lr_decay_rate)."""
-    return 10.0 ** (-count * lr_decay_rate)
+def lr_schedule(count, lr_decay_rate, warmup_iter=0):
+    """The JAX package's schedule: a linear warm-up over warmup_iter
+    steps, then 10^(-(count - warmup_iter) * lr_decay_rate)."""
+    if count < warmup_iter:
+        return min(max(count / max(warmup_iter, 1), 0.0), 1.0)
+    return 10.0 ** (-max(count - warmup_iter, 0) * lr_decay_rate)
 
 
-def make_optimizers(params, FLAGS):
+def make_optimizers(params, FLAGS, pass_idx=0, warmup_iter=0):
     """{'geo', 'mat', 'light'} -> (Adam, LambdaLR): b1 0.9, b2 0.999, eps
     1e-8; base rates as the JAX package derives them from
-    FLAGS['learning_rate'], a number or [pos, mat(, light)] (the light's
-    is 3x the material's by default); the schedule factor at step count
-    0, 1, ... as optax applies it."""
+    FLAGS['learning_rate']: a list holds one entry per pass, and an entry
+    is a number or [pos, mat(, light)] (the light's is 3x the material's
+    by default); the schedule factor at step count 0, 1, ... as optax
+    applies it."""
     lr = FLAGS['learning_rate']
+    lr = lr[pass_idx] if isinstance(lr, (list, tuple)) else lr
     if isinstance(lr, (list, tuple)):
         lr_pos, lr_mat = lr[0], lr[1]
         lr_lgt = lr[2] if len(lr) > 2 else lr[1] * 3.0
@@ -172,7 +205,7 @@ def make_optimizers(params, FLAGS):
         opt = torch.optim.Adam(_group(params[name]), lr=base,
                                betas=(0.9, 0.999), eps=1e-8)
         sched = torch.optim.lr_scheduler.LambdaLR(
-            opt, lambda c: lr_schedule(c, rate))
+            opt, lambda c: lr_schedule(c, rate, warmup_iter))
         out[name] = (opt, sched)
     return out
 
@@ -242,14 +275,16 @@ def train_step(geometry, params, optimizers, mat_static, target, it, FLAGS,
 
 @torch.no_grad()
 def render_eval(geometry, geo_params, mat_params, mat_static, light_base,
-                target, FLAGS, n_samples=32, uniforms=None):
+                target, FLAGS, n_samples=32, uniforms=None, bsdf=None):
     """The reference's validation render: n_samples x n_samples strata in
     one call (the JAX package's split into K renders of 4x4 strata is a TPU
     watchdog tactic), spp FLAGS['spp'], no MSAA, no denoiser, shadow scale
     1, MC seed 1000.  uniforms: optional per-layer lists for env_shade.
-    Returns the render buffers."""
+    bsdf overrides the material's: a G-buffer one ('kd', 'ks', 'normal',
+    'tangent') renders one pass with no MC estimate.  Returns the render
+    buffers."""
     res = tuple(target.get('resolution', FLAGS['train_res']))
-    bsdf = mat_static['bsdf']
+    bsdf = mat_static['bsdf'] if bsdf is None else bsdf
     F = dict(FLAGS, n_samples=n_samples)
     spp = FLAGS['spp']
     dev = light_base.device
@@ -276,16 +311,41 @@ def render_eval(geometry, geo_params, mat_params, mat_static, light_base,
 @torch.no_grad()
 def validate_itr(target, ref_mesh, geometry, geo_params, mat_params,
                  mat_static, light_base, FLAGS, n_samples=32):
-    """One validation view: (the [H, 2W, 3] sRGB image of the render beside
-    the target, {'ref', 'opt'} sRGB images)."""
+    """One validation view: (the [H, W', 3] image of the render beside the
+    target and the display layers of FLAGS['display'], the dict of sRGB
+    images: 'ref', 'opt', and 'light_image' and each G-buffer bsdf's
+    display layer)."""
     buffers = render_eval(geometry, geo_params, mat_params, mat_static,
                           light_base, target, FLAGS, n_samples)
     result_dict = {
         'ref': vecmath.rgb_to_srgb(target['img'][0, ..., 0:3]),
         'opt': vecmath.rgb_to_srgb(buffers['shaded'][0, ..., 0:3]),
     }
-    result_image = torch.cat([result_dict['opt'], result_dict['ref']], dim=1)
-    return result_image, result_dict
+    images = [result_dict['opt'], result_dict['ref']]
+    for layer in FLAGS.get('display') or []:
+        if 'latlong' in layer and layer['latlong']:
+            img = light_mod.generate_image(light_base, FLAGS['display_res'])
+            img = vecmath.rgb_to_srgb(img / (1 + img))
+            result_dict['light_image'] = img
+            images.append(img)
+        elif 'bsdf' in layer:
+            img = render_eval(geometry, geo_params, mat_params, mat_static,
+                              light_base, target, FLAGS, n_samples,
+                              bsdf=layer['bsdf'])['shaded'][0, ..., 0:3]
+            if layer['bsdf'] == 'kd':
+                img = vecmath.rgb_to_srgb(img)
+            result_dict[layer['bsdf']] = img
+            images.append(img)
+        elif 'normals' in layer and not FLAGS['no_perturbed_nrm'] \
+                and 'perturbed_nrm' in buffers:
+            images.append((buffers['perturbed_nrm'][0, ..., 0:3] + 1.0) * 0.5)
+        elif 'diffuse_light' in layer and 'diffuse_light' in buffers:
+            images.append(vecmath.rgb_to_srgb(
+                buffers['diffuse_light'][..., 0:3])[0])
+        elif 'specular_light' in layer and 'specular_light' in buffers:
+            images.append(vecmath.rgb_to_srgb(
+                buffers['specular_light'][..., 0:3])[0])
+    return torch.cat(images, dim=1), result_dict
 
 
 @torch.no_grad()
@@ -328,3 +388,251 @@ def validate(geometry, geo_params, mat_params, mat_static, light_base,
         print("MSE,      PSNR")
         print("%1.8f, %2.3f" % (avg_mse, avg_psnr))
     return avg_psnr
+
+
+# ---------------------------------------------------------------------------
+# The optimization loop (reference train.py:313-494)
+# ---------------------------------------------------------------------------
+
+def optimize_mesh(geometry, mat_params, mat_static, light_base, dataset_train,
+                  dataset_validate, FLAGS, warmup_iter=0, log_interval=10,
+                  pass_idx=0, pass_name='', optimize_light=True,
+                  optimize_geometry=True):
+    """The JAX package's optimize_mesh: FLAGS['iter'] steps over batches of
+    dataset_train (over random backgrounds; the backgrounds and the jitter
+    from one generator seeded 42 + pass_idx), a probe of one validation
+    view every save_interval / display_interval steps, a log line every
+    log_interval steps, a checkpoint every checkpoint_interval steps, and
+    resume from <out_dir>/checkpoint_<pass_name>.pkl when FLAGS['resume'].
+    Returns the trained parameters."""
+    device = light_base.device
+    F = dict(FLAGS, lock_pos=not optimize_geometry,
+             lock_light=not optimize_light)
+    params = make_params(geometry, mat_params, light_base)
+    optimizers = make_optimizers(params, F, pass_idx, warmup_iter)
+    loss_fn = createLoss(F)
+    perms = envshade.make_perms(F['n_samples'], device=device)
+    it_batches = BatchIterator(dataset_train, F['batch'], shuffle=True)
+    generator = torch.Generator(device=device)
+    generator.manual_seed(42 + pass_idx)
+    state = dict(params=params, optimizers=optimizers, generator=generator,
+                 batches=it_batches, dataset=dataset_train)
+
+    ckpt_path = os.path.join(F['out_dir'], 'checkpoint_%s.pkl' % pass_name)
+    start_it = 0
+    if F['resume'] and os.path.exists(ckpt_path):
+        start_it = load_checkpoint(ckpt_path, **state) + 1
+        print('Resumed %s from iteration %d' % (ckpt_path, start_it))
+
+    img_loss_vec, reg_loss_vec, iter_dur_vec = [], [], []
+    step_launches = dict.fromkeys(kernels.LAUNCHES, 0)
+    img_cnt = 0
+    v_it = BatchIterator(dataset_validate, 1, shuffle=False)
+    ckpt_interval = F['checkpoint_interval']
+    for it in range(start_it, F['iter']):
+        target = prepare_batch(next(it_batches), F['train_res'], 'random',
+                               generator, F)
+        target = {k: target[k] for k in ('img', 'mvp', 'campos', 'background')}
+
+        display_now = F['display_interval'] and \
+            (it % F['display_interval'] == 0)
+        save_image_now = F['save_interval'] and (it % F['save_interval'] == 0)
+        if save_image_now or display_now:
+            t0 = time.perf_counter()
+            vt = prepare_batch(next(v_it), F['train_res'], F['background'],
+                               generator, F)
+            result_image, rd = validate_itr(
+                vt, dataset_validate.getMesh(), geometry, params['geo'],
+                params['mat'], mat_static, params['light'], F)
+            p_mse = float(np.mean(
+                (np.clip(rd['opt'].cpu().numpy(), 0, 1)
+                 - np.clip(rd['ref'].cpu().numpy(), 0, 1)) ** 2))
+            print('[probe] iter=%d val-view PSNR %.2f dB'
+                  % (it, float(vecmath.mse_to_psnr(p_mse))), flush=True)
+            if display_now:    # no window: the JAX fallback without glfw
+                texture_mod.save_image(
+                    os.path.join(F['out_dir'], 'display.png'), result_image)
+            if save_image_now:
+                texture_mod.save_image(os.path.join(
+                    F['out_dir'], 'img_%s_%06d.png' % (pass_name, img_cnt)),
+                    result_image)
+                img_cnt += 1
+            print('[probe] iter=%d took %.3f s'
+                  % (it, time.perf_counter() - t0), flush=True)
+
+        before = dict(kernels.LAUNCHES)
+        t0 = time.perf_counter()
+        img_loss, reg_loss = train_step(geometry, params, optimizers,
+                                        mat_static, target, it, F, loss_fn,
+                                        perms, generator)
+        img_loss_f, reg_loss_f = float(img_loss), float(reg_loss)
+        iter_dur_vec.append(time.perf_counter() - t0)
+        for k, v in kernels.LAUNCHES.items():
+            step_launches[k] += v - before[k]
+        img_loss_vec.append(img_loss_f)
+        reg_loss_vec.append(reg_loss_f)
+        if len(iter_dur_vec) == 1 and device.type == 'cuda':
+            print('peak device memory after the first step: %.3f GiB'
+                  % (torch.cuda.max_memory_allocated(device) / 2 ** 30),
+                  flush=True)
+
+        if ckpt_interval and it > 0 and it % ckpt_interval == 0:
+            save_checkpoint(ckpt_path, it, **state)
+
+        if log_interval and (it % log_interval == 0):
+            rem = (F['iter'] - it) * np.mean(iter_dur_vec[-log_interval:])
+            print("iter=%5d, img_loss=%.6f, reg_loss=%.6f, time=%.1f ms, "
+                  "rem=%s" % (it, np.mean(img_loss_vec[-log_interval:]),
+                              np.mean(reg_loss_vec[-log_interval:]),
+                              np.mean(iter_dur_vec[-log_interval:]) * 1000,
+                              vecmath.time_to_text(rem)), flush=True)
+
+    n = len(iter_dur_vec)
+    if n:
+        print('%s: %d steps from iteration %d, median %.3f ms per step; '
+              'kernel launches per step %s'
+              % (pass_name, n, start_it,
+                 statistics.median(iter_dur_vec) * 1000,
+                 json.dumps({k: v / n for k, v in step_launches.items()})),
+              flush=True)
+    return params
+
+
+# ---------------------------------------------------------------------------
+# Checkpointing
+# ---------------------------------------------------------------------------
+
+def save_checkpoint(path, it, params, optimizers, generator, batches,
+                    dataset):
+    """Write the training state after iteration it to path atomically (a
+    .tmp file, fsync, rename): the parameters, each group's Adam and
+    schedule state, the generator's state, the batch iterator's state and
+    the training dataset's (its camera RNG and frame count)."""
+    os.makedirs(os.path.dirname(path) or '.', exist_ok=True)
+    state = {
+        'iteration': int(it),
+        'params': {'geo': {k: v.detach().cpu() for k, v
+                           in params['geo'].items()},
+                   'mat': {k: v.detach().cpu() for k, v
+                           in params['mat'].items()},
+                   'light': params['light'].detach().cpu()},
+        'optimizers': {k: {'adam': opt.state_dict(),
+                           'schedule': sched.state_dict()}
+                       for k, (opt, sched) in optimizers.items()},
+        'generator': generator.get_state(),
+        'batches': batches.state_dict(),
+        'dataset': dataset.state_dict(),
+    }
+    tmp = path + '.tmp'
+    with open(tmp, 'wb') as f:
+        torch.save(state, f)
+        f.flush()
+        os.fsync(f.fileno())
+    os.replace(tmp, path)
+
+
+@torch.no_grad()
+def load_checkpoint(path, params, optimizers, generator, batches, dataset):
+    """Restore save_checkpoint's state into the live objects: parameters
+    copied into the existing leaf tensors (the optimizers keep their
+    references), then the optimizers', generator's, iterator's and
+    dataset's states.  Returns the saved iteration.  Raises, naming path,
+    when the file cannot be read."""
+    try:
+        state = torch.load(path, map_location='cpu', weights_only=True)
+    except (OSError, EOFError, RuntimeError, pickle.UnpicklingError) as e:
+        raise RuntimeError('checkpoint %s is unreadable: %s' % (path, e)) \
+            from e
+    for group in ('geo', 'mat'):
+        for k, p in params[group].items():
+            p.copy_(state['params'][group][k])
+    params['light'].copy_(state['params']['light'])
+    for k, (opt, sched) in optimizers.items():
+        opt.load_state_dict(state['optimizers'][k]['adam'])
+        sched.load_state_dict(state['optimizers'][k]['schedule'])
+    generator.set_state(state['generator'])
+    batches.load_state_dict(state['batches'])
+    dataset.load_state_dict(state['dataset'])
+    return state['iteration']
+
+
+# ---------------------------------------------------------------------------
+# The program (reference train.py:497-700): pass 2 on a given base mesh
+# ---------------------------------------------------------------------------
+
+def main(argv=None, device=None):
+    """Parse the flags (config.parse_flags), build the reference dataset
+    from FLAGS['ref_mesh'] (an .obj rendered by DatasetMesh), the light
+    (trainable, or FLAGS['envlight']), train the base mesh's material and
+    light (optimize_mesh), validate 16 views when FLAGS['validate'], and
+    export mesh.obj, mesh.mtl, its textures and probe.hdr into
+    <out_dir>/mesh/.  device: None means the CUDA card.  Returns the
+    trained parameters."""
+    FLAGS = config.parse_flags(argv)
+    if FLAGS['base_mesh'] is None:
+        raise NotImplementedError('pass 1 (DMTet) is not ported')
+    device = resolve(device)
+    print("Config / Flags:")
+    print("---------")
+    for key in sorted(FLAGS):
+        print(key, FLAGS[key])
+    print("---------")
+    os.makedirs(FLAGS['out_dir'], exist_ok=True)
+
+    ref_mesh_path = config.resolve_path(FLAGS, FLAGS['ref_mesh'])
+    if os.path.splitext(ref_mesh_path)[1] != '.obj':
+        raise NotImplementedError('reference %s: only .obj meshes '
+                                  '(DatasetMesh) are ported' % ref_mesh_path)
+    ref_mesh = mesh_mod.load_mesh(
+        ref_mesh_path, config.resolve_path(FLAGS, FLAGS['mtl_override']),
+        device=device)
+    dataset_train = DatasetMesh(ref_mesh, RADIUS, FLAGS, validate=False)
+    dataset_validate = DatasetMesh(ref_mesh, RADIUS, FLAGS, validate=True,
+                                   seed=1)
+
+    if FLAGS['learn_lighting']:
+        light_base = light_mod.create_trainable_env_rnd(
+            FLAGS['probe_res'], scale=0.0, bias=0.5, device=device)
+    else:
+        light_base = load_env_or_procedural(
+            config.resolve_path(FLAGS, FLAGS['envlight']),
+            FLAGS['env_scale'], device=device)
+
+    base_mesh = mesh_mod.load_mesh(
+        config.resolve_path(FLAGS, FLAGS['base_mesh']), device=device)
+    geometry = DLMesh(base_mesh, FLAGS)
+    mat_params, mat_static = initial_guess_material(
+        geometry, False, FLAGS, init_mat=base_mesh.material, device=device)
+    params = optimize_mesh(geometry, mat_params, mat_static, light_base,
+                           dataset_train, dataset_validate, FLAGS,
+                           pass_idx=0, pass_name='mesh_pass', warmup_iter=0,
+                           optimize_light=not FLAGS['lock_light'],
+                           optimize_geometry=not FLAGS['lock_pos'])
+
+    if FLAGS['validate']:
+        t0 = time.perf_counter()
+        validate(geometry, params['geo'], params['mat'], mat_static,
+                 params['light'], dataset_validate,
+                 os.path.join(FLAGS['out_dir'], 'validate'), FLAGS,
+                 max_frames=16)
+        print('validation: %.3f s' % (time.perf_counter() - t0), flush=True)
+
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        final_mesh, _ = geometry.getMesh(
+            params['geo'], make_material(params['mat'], mat_static),
+            build_bvh=False)
+        os.makedirs(os.path.join(FLAGS['out_dir'], 'mesh'), exist_ok=True)
+        obj_mod.write_obj(os.path.join(FLAGS['out_dir'], 'mesh/'), final_mesh)
+        light_mod.save_env_map(
+            os.path.join(FLAGS['out_dir'], 'mesh/probe.hdr'), params['light'])
+    print('export: %.3f s' % (time.perf_counter() - t0), flush=True)
+    if device.type == 'cuda':
+        print('peak device memory: %.3f GiB'
+              % (torch.cuda.max_memory_allocated(device) / 2 ** 30))
+    print('kernel launches: %s' % json.dumps(kernels.LAUNCHES), flush=True)
+    return params
+
+
+if __name__ == '__main__':
+    main()

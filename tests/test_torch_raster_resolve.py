@@ -9,9 +9,12 @@ ordered-bits key (shifted into int64's signed order) and
 scatter_reduce(..., 'amin').  It must equal resolve_batch_plain bit for bit
 on every pixel: the spot mesh at 64x64 under two cameras and its second
 peel layer, two triangles at exactly equal depth, a -0.0 / +0.0 tie, a
-triangle crossing w = 0 and degenerate triangles.  Every pair that the
-plain version's fields cover, over all pixels and triangles, must lie in
-its triangle's rectangle (the rectangle is conservative)."""
+triangle crossing w = 0 and degenerate triangles.  On those cases every
+pair that the fields cover, over all pixels and triangles, lies in its
+triangle's rectangle (the rectangle takes nothing from an ordinary
+triangle).  A sliver of the spot mesh, whose fields are rounding noise,
+passes the inside test only outside its rectangle, and both resolves
+leave it those pixels."""
 
 import os
 
@@ -19,7 +22,7 @@ import numpy as np
 import pytest
 import torch
 
-from nvdiffrecmc_tpu_torch.ops import pallas_raster, vecmath
+from nvdiffrecmc_tpu_torch.ops import pallas_raster, vecmath, xfm
 from nvdiffrecmc_tpu_torch.render import obj as obj_mod
 
 RES = 64
@@ -217,3 +220,40 @@ def test_rectangles_hold_every_covered_pair(name):
         got = pallas_raster.covered_pairs(coef15, rect, H, W, pz[b],
                                           pid[b])[0].numel()
         assert got == n and n > 0
+
+
+def test_sliver_noise_outside_its_rectangle():
+    """Triangle 15946 of the spot mesh (its three vertices within 3e-6 of
+    each other in w) under DatasetMesh(seed=5)'s second training camera at
+    512x512: its fields pass the inside test on 6 pixels, all outside its
+    rectangle, nearer than the triangles that do cover them.  The plain
+    resolve, over it and those two triangles, gives each pixel the nearer
+    real triangle, as the key scheme does."""
+    v, f = obj_mod.read_obj(SPOT)[0:4:3]
+    tri = torch.tensor(np.array(f, np.int32))[[14577, 14585, 15946]]
+    rng = np.random.RandomState(5)
+    for _ in range(2):
+        mv = vecmath.translate(0, 0, -3.0) @ \
+            vecmath.random_rotation_translation(0.25, rng)
+    mvp = vecmath.perspective(np.deg2rad(45), 1.0, 0.1, 1000.0) @ mv
+    v_clip = xfm.xfm_points(torch.tensor(np.array(v, np.float32)),
+                            torch.tensor(mvp.astype(np.float32)))[0]
+    H = W = 512
+    coef15 = pallas_raster._tri_coefs(v_clip, tri)
+    rect = pallas_raster._tri_rects(v_clip, tri, H, W)
+    sx, sy = pallas_raster._pixel_ndc_xy(H, W, 'cpu')
+    c = coef15[2]
+    e0, e1, e2, z, sm = (c[3 * k] * sx[None, :] + c[3 * k + 1] * sy[:, None]
+                         + c[3 * k + 2] for k in range(5))
+    y, x = torch.nonzero((e0 > 0) & (e1 > 0) & (e2 > 0) & (sm > 0)
+                         & (z >= -1) & (z <= 1), as_tuple=True)
+    x0, y0, x1, y1 = rect[2].tolist()
+    assert x.numel() == 6
+    assert not bool(((x >= x0) & (x <= x1) & (y >= y0) & (y <= y1)).any())
+    args = (v_clip[None], tri, H, W) + _first_layer(1, H, W)
+    zp, tidp = pallas_raster.resolve_plain(*args)
+    zk, tidk = _key_resolve(*args)
+    assert torch.equal(tidp, tidk) and torch.equal(zp, zk)
+    got = tidp[0, y, x]
+    assert bool((got > 0).all()) and bool((got != 3).all())
+    assert bool((z[y, x] < zp[0, y, x]).all())    # the noise is nearer

@@ -1,5 +1,6 @@
 """Port parity, the whole pass-2 training step on the octasphere of
-__graft_entry__._make_scene at 64x64, n_samples 2, with 32x32 kd / ks /
+__graft_entry__._make_scene at 64x64, n_samples 2, at batch 1 and at batch
+2 (a second view turned by 0.6 rad), with 32x32 kd / ks /
 normal textures from initial_guess_material, a 16x16 trainable light
 (create_trainable_env_rnd(16, 0.0, 0.5)), denoiser sigma 2.0, logl1 and
 the relative Laplacian: DLMesh.tick under jax.grad (the JAX side shades
@@ -58,6 +59,19 @@ def _bf16(x):
     return np.asarray(jnp.asarray(x).astype(jnp.bfloat16).astype(jnp.float32))
 
 
+def _views(mvp, campos, batch):
+    """The scene's camera, then one turned by 0.6 rad about y for each
+    further view: ([B, 4, 4], [B, 3])."""
+    mvp, campos = np.asarray(mvp), np.asarray(campos)
+    mvps, cams = [mvp[0]], [campos[0]]
+    for i in range(1, batch):
+        rot = t_vecmath.rotate_y(0.6 * i)
+        mvps.append(mvp[0] @ rot)
+        cams.append((rot.T @ np.append(campos[0], 1.0))[:3])
+    return (np.stack(mvps).astype(np.float32),
+            np.stack(cams).astype(np.float32))
+
+
 def _target(m, mvp, campos):
     """A ground-truth view of the mesh under another material and light,
     from a camera turned by 0.15 rad (so that no silhouette pixel of the
@@ -85,7 +99,7 @@ def _target(m, mvp, campos):
             convert.tensor(campos, device='cpu'),
             make_light(base), (RES, RES), bvh, None, gen, msaa=True,
             denoiser_sigma=2.0, rnd_seed=9)['shaded'].numpy()
-    bg = rng.rand(1, RES, RES, 3).astype(np.float32)
+    bg = rng.rand(img.shape[0], RES, RES, 3).astype(np.float32)
     a = img[..., 3:4]
     mixed = np.concatenate([bg * (1 - a) + img[..., 0:3] * a, a], -1)
     return {'img': mixed, 'background': bg, 'mvp': np.asarray(mvp),
@@ -166,8 +180,10 @@ def _flat(p):
             'light': p['light']}
 
 
-def test_train_step_matches_jax(monkeypatch):
+@pytest.mark.parametrize('batch', [1, 2])
+def test_train_step_matches_jax(monkeypatch, batch):
     m, _, perms, mvp, campos = ge._make_scene(res=RES, n_samples=N)
+    mvp, campos = _views(mvp, campos, batch)
     target = _target(m, mvp, campos)
     tb = j_light.update_pdf(j_light.create_trainable_env_rnd(16, 0.0, 0.5))
     tables = (_bf16(tb.pdf), _bf16(tb.rows), _bf16(tb.cols))
@@ -177,11 +193,11 @@ def test_train_step_matches_jax(monkeypatch):
                                                            tables)
 
     FLAGS, geo, params, mat_static = _port_setup(m, kd_noise=True)
-    P = RES * RES
+    P = batch * RES * RES
     u8 = j_ps.make_uniforms(jax.random.PRNGKey(IT), N * N, P, N, perms)
     kj = jax.random.split(jax.random.split(jax.random.PRNGKey(11), 1)[0],
                           3)[0]
-    offset = jax.random.normal(kj, (1, RES, RES, 2)) * 0.005
+    offset = jax.random.normal(kj, (batch, RES, RES, 2)) * 0.005
     tgt = {k: torch.as_tensor(np.array(v)) for k, v in target.items()}
     port_tables = t_light.LightTables(*(torch.as_tensor(np.array(x))
                                         for x in tables))
