@@ -69,18 +69,37 @@ one):
    of configs/spot.json's keys (batch 4, 512x512, 512x512 textures,
    n_samples 4, lock_pos, white background, the latlong display layer)
    with that scene, probe.hdr as envlight, 20 iterations, a probe and a
-   checkpoint every 10, validation on.  `python3 -m
-   nvdiffrecmc_tpu_torch.train --config` runs as a subprocess; its log,
-   probe and validation lines are relayed, with the median ms per step,
-   the peak device memory, the seconds per probe, per validation view
-   and for the export, and the kernel launches of the run and per step
-   (every kernel but the mask launched; per step as in phase 6).  Checks:
-   every loss and PSNR finite, validate/metrics.txt with 16 views and its
-   averages, mesh/ with the OBJ, MTL, three PNGs and probe.hdr, the OBJ
-   read back by load_obj (26,474 triangles, v_pos within 1e-5 of the
-   checkpoint's), probe.hdr read back at 512x1024, the exported kd off
-   the initial gray.  Then `-i 12 --validate false` into the same out_dir
-   resumes from iteration 11 and runs that one step;
+   checkpoint every 10, no validation (phase 13's pass 2 validates).
+   `python3 -m nvdiffrecmc_tpu_torch.train --config` runs as a
+   subprocess; its log and probe lines are relayed, with the median ms
+   per step, the peak device memory, the seconds per probe and for the
+   export, and the kernel launches of the run and per step (every kernel
+   but the mask launched; per step as in phase 6).  Checks: every loss
+   and PSNR finite, mesh/ with the OBJ, MTL, three PNGs and probe.hdr,
+   the OBJ read back by load_obj (26,474 triangles, v_pos within 1e-5 of
+   the checkpoint's), probe.hdr read back at 512x1024, the exported kd off
+   the initial gray.  Then `-i 12` into the same out_dir resumes from
+   iteration 11 and runs that one step; the checkpoints are deleted;
+13. pass 1, the pass boundary and both passes: the program on the config
+   of phase 12 without base_mesh, validation on, in
+   chiprun_out/train_two_pass/ (pass 1 on the DMTet Kuhn grid 64, 98,304
+   triangle slots, with the default hash grid and its 32-wide MLP, 20
+   iterations and 8 dmtet_validate views; the bake at 512x512; pass 2 on
+   the baked mesh, 20 iterations, 16 views).  Relayed and printed: each
+   pass's median ms per step and launches per step (as in phase 6), the
+   surface triangles against the slots at the end of pass 1 and every
+   overflow warning, the seconds of extract, prune, unwrap and
+   bake, s per view of each validation, every probe's PSNR and seconds,
+   peak device memory.  Checks: losses and PSNRs finite, both
+   metrics.txt, dmtet_mesh/ and mesh/ read back, pass 2's mesh the baked
+   one.  Then, in this process, one recorded pass-1 step at batch 4
+   (iteration PASS1_IT) holds every kernel of the step against its plain
+   version (every row scatter launch; the hash-grid table's, 268 M rows
+   of C = 2, also with the generic instance, timed against both and
+   index_add_); PASS1_STEPS more steps give ms per step, launches per
+   step, peak memory and, per step and image, the triangles the resolve
+   gives the whole screen (a vertex at w <= 1e-6); last a kernel-only
+   trace of 2 more steps gives pass 1's device ms per step;
 7. with --profile only: torch.profiler over 4 more frames and over 4 more
    training steps; prints device time by kernel, launches and host gaps,
    and writes the full tables to chiprun_out/profile_port.txt and
@@ -93,11 +112,13 @@ three lines are the kernels JSON (all eleven entries: the ten kernels that
 replace the TPU kernels, the denoiser's two modes apart, and the sampler's
 guide kernel; each with its time, its plain version's, its bound and, for
 the two scatters, index_add_'s, for the guide torch.searchsorted's, and
-its launches in phase 12's program and per step there and, for the
-step's kernels, its check at batch 4; the row scatter's
+its launches in phase 12's program and per step there, in phase 13's
+program and per pass-1 step there and, for the step's kernels, its check
+at batch 4 and at pass 1's batch 4; the row scatter's
 entry is its largest launch, with every launch of the step and their
-summed time and bound beside it), the card line, and {"ok": true,
-"device": {...}}.
+summed time and bound beside it, and pass 1's hash-grid launch with the
+generic instance's and index_add_'s times), the card line, and {"ok":
+true, "device": {...}}.
 
 Usage: python3 chip_smoke.py [--profile]
 """
@@ -132,6 +153,9 @@ VAL_N = 32              # the reference validation protocol's n_samples
 PROGRAM_ITERS = 20
 PROGRAM_VIEWS = 16      # main()'s validation views
 PROGRAM_TIMEOUT = 600   # seconds for each run of the program
+DMTET_VIEWS = 8         # main()'s validation views after pass 1
+PASS1_IT = 3            # the recorded pass-1 step's iteration
+PASS1_STEPS = 4         # pass-1 steps timed in this process
 
 
 def smi_line():
@@ -740,37 +764,44 @@ def small_validation_agreement(device):
 # The pass-2 program
 # ---------------------------------------------------------------------------
 
-def program_setup(work):
-    """Phase 12's scene and config in work/: the base mesh (spot256's
-    geometry, constant kd 0.5 and ks (0, 0.5, 0) at 512x512, written by the
-    port's write_obj), the reference's MTL override, and the config.
-    Returns the config's path."""
+def program_setup(work, base_mesh=True, out_dir='spot', iters=PROGRAM_ITERS,
+                  validate=False):
+    """The scene and config of phases 12 and 13 in work/: the reference's
+    MTL override and a config of configs/spot.json's keys over the spot256
+    scene, iters iterations, a probe and a checkpoint every 10, out_dir
+    under work.  base_mesh: phase 12's base mesh (spot256's geometry,
+    constant kd 0.5 and ks (0, 0.5, 0) at 512x512, written by the port's
+    write_obj); without it the program runs pass 1 first.  Returns the
+    config's path."""
     import torch
     from nvdiffrecmc_tpu_torch.dataset.dataset_mesh import (
         SPOT256_DIR, SPOT256_PROBE, spot256_scene)
     from nvdiffrecmc_tpu_torch.render import obj as obj_mod
     from nvdiffrecmc_tpu_torch.render import texture as texture_mod
-    mesh = spot256_scene('cpu')
-    mesh.material = {
-        'bsdf': 'pbr',
-        'kd': texture_mod.Texture2D(data=torch.full((1, 512, 512, 3), 0.5)),
-        'ks': texture_mod.Texture2D(data=torch.tensor(
-            [0.0, 0.5, 0.0]).expand(1, 512, 512, 3).contiguous())}
-    os.makedirs(os.path.join(work, 'base'))
-    obj_mod.write_obj(os.path.join(work, 'base'), mesh)
+    os.makedirs(work, exist_ok=True)
+    here = os.path.dirname(os.path.abspath(__file__))
+    with open(os.path.join(here, 'configs', 'spot.json')) as f:
+        cfg = json.load(f)
+    if base_mesh:
+        mesh = spot256_scene('cpu')
+        mesh.material = {
+            'bsdf': 'pbr',
+            'kd': texture_mod.Texture2D(data=torch.full((1, 512, 512, 3),
+                                                        0.5)),
+            'ks': texture_mod.Texture2D(data=torch.tensor(
+                [0.0, 0.5, 0.0]).expand(1, 512, 512, 3).contiguous())}
+        os.makedirs(os.path.join(work, 'base'))
+        obj_mod.write_obj(os.path.join(work, 'base'), mesh)
+        cfg['base_mesh'] = os.path.join(work, 'base', 'mesh.obj')
     mtl = os.path.join(work, 'spot256.mtl')
     with open(mtl, 'w') as f:
         f.write('newmtl defaultMat\nbsdf pbr\nmap_Kd %s\nKs 0 0.5 0\n'
                 % os.path.join(SPOT256_DIR, 'texture_kd.png'))
-    here = os.path.dirname(os.path.abspath(__file__))
-    with open(os.path.join(here, 'configs', 'spot.json')) as f:
-        cfg = json.load(f)
     cfg.update(ref_mesh=os.path.join(SPOT256_DIR, 'mesh.obj'),
-               base_mesh=os.path.join(work, 'base', 'mesh.obj'),
-               mtl_override=mtl, envlight=SPOT256_PROBE, iter=PROGRAM_ITERS,
-               save_interval=10, checkpoint_interval=10, validate=True,
-               out_root=work, out_dir='spot')
-    path = os.path.join(work, 'config.json')
+               mtl_override=mtl, envlight=SPOT256_PROBE, iter=iters,
+               save_interval=10, checkpoint_interval=10, validate=validate,
+               out_root=work, out_dir=out_dir)
+    path = os.path.join(work, 'config_%s.json' % out_dir)
     with open(path, 'w') as f:
         json.dump(cfg, f, indent=1)
     return path
@@ -845,16 +876,76 @@ def batch4_checks(device):
     return out
 
 
-def program_phase():
-    """Phase 12: a recorded step at batch 4 against the plain versions,
-    the program at spot.json's batch 4, then its resume.  Returns (the
-    kernel launches of the program's first run, per step there, each
-    kernel's check at batch 4)."""
+def pass_summary(lines, pass_name):
+    """(median ms per step, kernel launches per step) from the program's
+    `<pass_name>: N steps ...` line."""
     import re
-    import numpy as np
-    import torch
+    summary = [x for x in _after(lines, pass_name + ': ') if 'steps' in x][0]
+    med = float(re.search(r'median ([\d.]+) ms', summary).group(1))
+    return med, json.loads(summary.split('kernel launches per step ')[1])
+
+
+def check_program_log(lines, n_passes):
+    """The program's losses and probe PSNRs, all finite, one log line and
+    one probe each 10 iterations of each pass.  Returns the PSNRs and the
+    seconds of each probe."""
+    import re
+    losses = [float(x) for ln in _after(lines, 'iter=')
+              for x in re.findall(r'_loss=([-+\w.]+)', ln)]
+    psnrs = [float(x.split()[-2]) for x in _after(lines, '[probe] iter=')
+             if 'PSNR' in x]
+    logged = n_passes * len(range(0, PROGRAM_ITERS, 10))
+    if len(losses) != 2 * logged or len(psnrs) != logged or not all(
+            _finite(x) for x in losses + psnrs):
+        raise RuntimeError('program losses %s, probe PSNRs %s'
+                           % (losses, psnrs))
+    probe_s = [float(x.split()[-2]) for x in _after(lines, '[probe] iter=')
+               if 'took' in x]
+    return psnrs, probe_s
+
+
+def check_step_launches(per_step, label):
+    wrong = {n: per_step[n] for n in STEP_LAUNCHES
+             if per_step[n] != STEP_LAUNCHES[n]}
+    if wrong or per_step['scatter'] < 1:
+        raise RuntimeError('%s: kernel launches per step %s'
+                           % (label, wrong or per_step))
+
+
+def check_mesh_dir(mesh_dir):
+    """The export's files; the OBJ read back.  Returns (files, the mesh,
+    probe.hdr's shape)."""
     from nvdiffrecmc_tpu_torch.render import light as light_mod
     from nvdiffrecmc_tpu_torch.render import obj as obj_mod
+    files = sorted(os.listdir(mesh_dir))
+    if files != ['mesh.mtl', 'mesh.obj', 'probe.hdr', 'texture_kd.png',
+                 'texture_ks.png', 'texture_n.png']:
+        raise RuntimeError('%s holds %s' % (mesh_dir, files))
+    back = obj_mod.load_obj(os.path.join(mesh_dir, 'mesh.obj'), device='cpu')
+    probe = light_mod._read_hdr(os.path.join(mesh_dir, 'probe.hdr'))
+    if probe.shape != (512, 1024, 3):
+        raise RuntimeError('%s/probe.hdr is %s' % (mesh_dir, probe.shape))
+    return files, back, probe.shape
+
+
+def check_metrics(folder, views):
+    """folder/metrics.txt: views finite PSNRs and the averages line.
+    Returns that line."""
+    rows = open(os.path.join(folder, 'metrics.txt')).read().splitlines()
+    if len(rows) != views + 2 or not rows[-1].startswith('AVERAGES') or \
+            not all(_finite(float(r.split(',')[2])) for r in rows[1:-1]):
+        raise RuntimeError('%s/metrics.txt: %s' % (folder, rows))
+    return rows[-1]
+
+
+def program_phase():
+    """Phase 12: a recorded step at batch 4 against the plain versions,
+    the program at spot.json's batch 4 on the base mesh (no validation:
+    phase 13's pass 2 validates), then its resume.  Returns (the kernel
+    launches of the program's first run, per step there, each kernel's
+    check at batch 4)."""
+    import numpy as np
+    import torch
     from nvdiffrecmc_tpu_torch.render import texture as texture_mod
     here = os.path.dirname(os.path.abspath(__file__))
     at_batch_4 = batch4_checks('cuda')
@@ -863,74 +954,46 @@ def program_phase():
     cfg = program_setup(work)
     torch.cuda.empty_cache()
     lines = run_program(['--config', cfg], os.path.join(work, 'run.log'))
-    relay = ('iter=', '[probe]', 'Resumed', 'MSE', 'peak device memory',
-             'mesh_pass:', 'validation:', 'export:')
-    for i, ln in enumerate(lines):
-        if ln.startswith(relay) or (i and lines[i - 1].startswith('MSE')):
+    relay = ('iter=', '[probe]', 'Resumed', 'peak device memory',
+             'mesh_pass:', 'export:')
+    for ln in lines:
+        if ln.startswith(relay):
             print('program | ' + ln, flush=True)
-    losses = [float(x) for ln in _after(lines, 'iter=')
-              for x in re.findall(r'_loss=([-+\w.]+)', ln)]
-    psnrs = [float(x.split()[-2]) for x in _after(lines, '[probe] iter=')
-             if 'PSNR' in x]
-    logged = len(range(0, PROGRAM_ITERS, 10))   # log and probe every 10
-    if len(losses) != 2 * logged or len(psnrs) != logged or not all(
-            _finite(x) for x in losses + psnrs):
-        raise RuntimeError('program losses %s, probe PSNRs %s'
-                           % (losses, psnrs))
-    summary = _after(lines, 'mesh_pass: ')[0]
-    med = float(re.search(r'median ([\d.]+) ms', summary).group(1))
-    per_step = json.loads(summary.split('kernel launches per step ')[1])
+    _, probe_s = check_program_log(lines, 1)
+    med, per_step = pass_summary(lines, 'mesh_pass')
     launches = json.loads(_after(lines, 'kernel launches: ')[0])
-    probe_s = [float(x.split()[-2]) for x in _after(lines, '[probe] iter=')
-               if 'took' in x]
-    val_s = float(_after(lines, 'validation: ')[0].split()[0])
     export_s = float(_after(lines, 'export: ')[0].split()[0])
     peak = float(_after(lines, 'peak device memory: ')[0].split()[0])
     print('program: median %.3f ms per step at batch 4 (%d steps), peak '
-          'device memory %.3f GiB, %s s per probe, %.3f s per validation '
-          'view, export %.3f s (%s)'
+          'device memory %.3f GiB, %s s per probe, export %.3f s (%s)'
           % (med, PROGRAM_ITERS, peak, ', '.join('%.3f' % x for x in probe_s),
-             val_s / PROGRAM_VIEWS, export_s, smi_line()), flush=True)
+             export_s, smi_line()), flush=True)
     print('program: kernel launches %s; per step %s' % (launches, per_step),
           flush=True)
     idle = [n for n, c in launches.items() if c == 0 and n != 'mask']
-    want = dict(STEP_LAUNCHES)
-    wrong = {n: per_step[n] for n in want if per_step[n] != want[n]}
-    if idle or wrong or per_step['scatter'] < 1:
-        raise RuntimeError('program: kernels not launched %s, per step %s'
-                           % (idle, wrong or per_step))
+    if idle:
+        raise RuntimeError('program: kernels not launched %s' % idle)
+    check_step_launches(per_step, 'program')
 
     out = os.path.join(work, 'spot')
-    metrics = open(os.path.join(out, 'validate', 'metrics.txt')).read()
-    rows = metrics.splitlines()
-    if len(rows) != PROGRAM_VIEWS + 2 or not rows[-1].startswith('AVERAGES'):
-        raise RuntimeError('validate/metrics.txt: %s' % rows)
-    if not all(_finite(float(r.split(',')[2])) for r in rows[1:-1]):
-        raise RuntimeError('validate/metrics.txt: %s' % rows)
-    mesh_dir = os.path.join(out, 'mesh')
-    files = sorted(os.listdir(mesh_dir))
-    if files != ['mesh.mtl', 'mesh.obj', 'probe.hdr', 'texture_kd.png',
-                 'texture_ks.png', 'texture_n.png']:
-        raise RuntimeError('mesh/ holds %s' % files)
-    back = obj_mod.load_obj(os.path.join(mesh_dir, 'mesh.obj'), device='cpu')
+    files, back, probe_shape = check_mesh_dir(os.path.join(out, 'mesh'))
     ckpt = torch.load(os.path.join(out, 'checkpoint_mesh_pass.pkl'),
                       map_location='cpu', weights_only=True)
     v_err = float((back.v_pos - ckpt['params']['geo']['v_pos']).abs().max())
-    probe = light_mod._read_hdr(os.path.join(mesh_dir, 'probe.hdr'))
-    kd = texture_mod.load_image(os.path.join(mesh_dir, 'texture_kd.png'))
+    kd = texture_mod.load_image(os.path.join(out, 'mesh', 'texture_kd.png'))
     gray = texture_mod.load_image(os.path.join(work, 'base',
                                                'texture_kd.png'))
     kd_moved = float(np.abs(kd - gray).mean())
-    print('program: metrics.txt %s; mesh/ %s; OBJ read back: %d triangles, '
-          'v_pos within %.2e of the checkpoint (iteration %d); probe.hdr %s; '
-          'exported kd %.4f from the initial gray on average'
-          % (rows[-1], files, back.t_pos_idx.shape[0], v_err,
-             ckpt['iteration'], probe.shape, kd_moved), flush=True)
+    print('program: mesh/ %s; OBJ read back: %d triangles, v_pos within '
+          '%.2e of the checkpoint (iteration %d); probe.hdr %s; exported kd '
+          '%.4f from the initial gray on average'
+          % (files, back.t_pos_idx.shape[0], v_err, ckpt['iteration'],
+             probe_shape, kd_moved), flush=True)
     if back.t_pos_idx.shape[0] != 26474 or v_err > 1e-5 or \
-            probe.shape != (512, 1024, 3) or kd_moved < 1.0 / 255.0:
-        raise RuntimeError('the exported mesh, probe or kd is wrong')
+            kd_moved < 1.0 / 255.0:
+        raise RuntimeError('the exported mesh or kd is wrong')
 
-    lines = run_program(['--config', cfg, '-i', '12', '--validate', 'false'],
+    lines = run_program(['--config', cfg, '-i', '12'],
                         os.path.join(work, 'resume.log'))
     for ln in lines:
         if ln.startswith(('Resumed', 'mesh_pass:')):
@@ -940,7 +1003,276 @@ def program_phase():
             and _after(lines, 'mesh_pass: 1 steps from iteration 11')):
         raise RuntimeError('the program did not resume from iteration 11 '
                            'for one step')
+    drop_checkpoints(out)
     return launches, per_step, at_batch_4
+
+
+# ---------------------------------------------------------------------------
+# Pass 1 (DMTet + the hash-grid material), the pass boundary, both passes
+# ---------------------------------------------------------------------------
+
+def pass1_setup(device, res=RES, batch=4, grid=64):
+    """Pass 1's state at configs/spot.json's settings (batch 4, 512x512,
+    n_samples 4, lr 0.03, the trainable light) with the JAX package's
+    defaults for what spot.json leaves out (DMTet grid 64, mesh_scale 2.1,
+    24 grid^2 triangle slots, the default HashEncodingConfig, a 32-wide
+    MLP of 2 hidden layers), PROGRAM_ITERS iterations for the schedules,
+    on the spot256 dataset.  Returns the dict of train_setup."""
+    from nvdiffrecmc_tpu_torch import config, train
+    from nvdiffrecmc_tpu_torch.dataset.dataset_mesh import (
+        SPOT256_PROBE, DatasetMesh, spot256_scene)
+    from nvdiffrecmc_tpu_torch.geometry import DMTetGeometry
+    from nvdiffrecmc_tpu_torch.render import light as light_mod
+    FLAGS = config.make_flags(
+        train_res=[res, res], n_samples=N_SAMPLES, batch=batch,
+        texture_res=[512, 512], learning_rate=[0.03, 0.01],
+        ks_min=[0, 0.1, 0.0], ks_max=[0, 1.0, 1.0], background='white',
+        iter=PROGRAM_ITERS, envlight=SPOT256_PROBE, dmtet_grid=grid)
+    ds = DatasetMesh(spot256_scene(device), CAM_RADIUS, FLAGS, seed=5)
+    geometry = DMTetGeometry(grid, FLAGS['mesh_scale'], FLAGS, device=device)
+    mat_params, mat_static = train.initial_guess_material(
+        geometry, True, FLAGS, device=device)
+    mat_static['no_perturbed_nrm'] = True
+    light = light_mod.create_trainable_env_rnd(FLAGS['probe_res'], 0.0, 0.5,
+                                               device=device)
+    params = train.make_params(geometry, mat_params, light)
+    return dict(FLAGS=FLAGS, ds=ds, geometry=geometry, params=params,
+                static=mat_static, opts=train.make_optimizers(params, FLAGS),
+                loss_fn=train.createLoss(FLAGS))
+
+
+class FullScreenCount:
+    """Counts, in each rasterize call made inside it, the triangles of each
+    image that the resolve gives the whole screen: valid ones with a
+    vertex at w <= 1e-6.  counts: one list per call."""
+
+    def __init__(self):
+        self.counts = []
+
+    def __enter__(self):
+        import torch
+        from nvdiffrecmc_tpu_torch.ops import pallas_raster, rasterizer
+        self._orig = orig = pallas_raster.resolve_batch
+
+        def wrapped(v_clip, tri, *a):
+            with torch.no_grad():
+                valid = [rasterizer._tri_setup(v, tri)[4] for v in v_clip]
+                w = v_clip[:, tri.long(), 3].amin(-1)          # [N, T]
+                self.counts.append([int((ok & (wn <= 1e-6)).sum())
+                                    for ok, wn in zip(valid, w)])
+            return orig(v_clip, tri, *a)
+        pallas_raster.resolve_batch = wrapped
+        return self
+
+    def __exit__(self, *exc):
+        from nvdiffrecmc_tpu_torch.ops import pallas_raster
+        pallas_raster.resolve_batch = self._orig
+        return False
+
+
+def hashgrid_scatter(args):
+    """Row 7 at pass 1's largest launch, the hash-grid table's cotangent
+    (C = 2): the C = 2 instance (its check), the generic instance and
+    index_add_ on the same input, and the bound."""
+    from nvdiffrecmc_tpu_torch import checks
+    idx, vals, rows = args
+    r = checks.check_scatter(idx, vals, rows, reps=3)
+    g = checks.check_scatter(idx, vals, rows, reps=3, generic=True)
+    b = checks.bound('scatter', args)
+    r.update(generic_ms=g['ms'], generic_ok=g['ok'],
+             library_ms=checks.library_ms('scatter', args, reps=3),
+             bound_ms=b['bound_ms'], bound_by=b['bound_by'])
+    print_compare(r, ' (pass 1, the hash-grid table)')
+    print_compare(g, ' (pass 1, the hash-grid table, generic instance)')
+    r['ok'] = r['ok'] and g['ok']
+    print('hash-grid scatter (C = 2): %s; instance %.3f ms, generic %.3f ms, '
+          'index_add_ %.3f ms, bound %.3f ms by %s (%s)'
+          % (r['compared_on'], r['ms'], r['generic_ms'], r['library_ms'],
+             r['bound_ms'], r['bound_by'], smi_line()), flush=True)
+    return r
+
+
+def pass1_checks(device):
+    """Phase 13, in this process: one recorded pass-1 step at batch 4
+    (iteration PASS1_IT, so that the shadow and denoiser ramps are under
+    way), each of its kernels against its plain version (every row scatter
+    launch among them, the hash-grid table's at C = 2 timed against the
+    generic instance and index_add_); then PASS1_STEPS steps, their ms,
+    launches, the full-screen triangles of each image and the triangle
+    count.  Returns (the checks, the hash-grid scatter's row, launches per
+    step, the state)."""
+    import torch
+    from nvdiffrecmc_tpu_torch import checks, kernels, train
+    torch.cuda.reset_peak_memory_stats()
+    st = pass1_setup(device)
+    ds, FLAGS, p = st['ds'], st['FLAGS'], st['params']
+    gen = torch.Generator(device=device)
+    gen.manual_seed(29)
+    targets = [train.prepare_batch(
+        ds.collate([ds[4 * i + j] for j in range(4)]), FLAGS['train_res'],
+        'random', gen, FLAGS) for i in range(PASS1_STEPS + 1)]
+
+    def step(it, target):
+        return train.train_step(st['geometry'], p, st['opts'], st['static'],
+                                target, it, FLAGS, st['loss_fn'], ds.perms,
+                                gen)
+    with FullScreenCount() as full:
+        with checks.Recorder() as rec:
+            il, rl = step(PASS1_IT, targets[0])
+            torch.cuda.synchronize()
+        check_step(p, il, rl)
+        out, bad = {}, []
+        with torch.no_grad():
+            for name in checks.FORWARD + checks.BACKWARD:
+                if name == 'scatter':
+                    continue
+                r = checks.run(name, rec.args, reps=2)
+                print_compare(r, ' (pass 1, batch 4)')
+                out[name] = r
+                if not r['ok']:
+                    bad.append(name)
+            calls = rec.args['scatter_all']
+            big = max(range(len(calls)), key=lambda i: calls[i][1].numel())
+            for i, a in enumerate(calls):
+                if i == big:
+                    r = out['scatter'] = hashgrid_scatter(a)
+                else:
+                    r = checks.check_scatter(*a, reps=2)
+                    print_compare(r, ' (pass 1, batch 4, launch %d of %d)'
+                                  % (i + 1, len(calls)))
+                if not r['ok']:
+                    bad.append('scatter launch %d' % (i + 1))
+        del rec, calls
+        if bad:
+            raise RuntimeError('kernels disagree with their plain versions '
+                               'at pass 1: %s' % bad)
+        times = []
+        kernels.reset_launches()
+        for i in range(1, PASS1_STEPS + 1):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            il, rl = step(PASS1_IT + i, targets[i])
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            check_step(p, il, rl)
+            n, cap = st['geometry'].tri_count(p['geo'])
+            print('pass 1 step %d: %.2f ms, img_loss %.5f, reg_loss %.5f, '
+                  '%d surface triangles of %d slots'
+                  % (PASS1_IT + i, times[-1], float(il), float(rl), n, cap),
+                  flush=True)
+        per_step = {k: v / PASS1_STEPS for k, v in kernels.LAUNCHES.items()}
+    check_step_launches(per_step, 'pass 1 (in this process)')
+    for i, c in enumerate(full.counts):
+        print('pass 1 step %d: triangles with a vertex at w <= 1e-6 (whole-'
+              'screen rectangles) per image %s' % (PASS1_IT + i, c),
+              flush=True)
+    print('pass 1 in this process: median %.3f ms per step over %d steps '
+          '(batch 4, 512x512, n_samples 4, grid 64, %d slots); launches per '
+          'step %s; peak device memory %.3f GiB (%s)'
+          % (statistics.median(times), PASS1_STEPS,
+             st['geometry'].max_tris, per_step,
+             torch.cuda.max_memory_allocated() / 2 ** 30, smi_line()),
+          flush=True)
+    return out, per_step, st, targets
+
+
+def two_pass_program():
+    """Phase 13, the program: configs/spot.json's keys with no base_mesh,
+    PROGRAM_ITERS iterations in each pass, a probe and a checkpoint every
+    10, validation on (DMTET_VIEWS views after pass 1, PROGRAM_VIEWS after
+    pass 2), in chiprun_out/train_two_pass/.  Returns (the kernel launches
+    of the run, per pass-1 step)."""
+    import re
+    import torch
+    here = os.path.dirname(os.path.abspath(__file__))
+    work = os.path.join(here, 'chiprun_out', 'train_two_pass')
+    shutil.rmtree(work, ignore_errors=True)
+    cfg = program_setup(work, base_mesh=False, validate=True)
+    torch.cuda.empty_cache()
+    lines = run_program(['--config', cfg], os.path.join(work, 'run.log'))
+    relay = ('iter=', '[probe]', 'WARNING', 'MSE', 'peak device memory',
+             'dmtet_pass1:', 'dmtet_validate:', 'prune_small', 'pass '
+             'boundary:', 'Base mesh', 'mesh_pass:', 'validation:',
+             'export:')
+    for i, ln in enumerate(lines):
+        if ln.startswith(relay) or (i and lines[i - 1].startswith('MSE')):
+            print('two passes | ' + ln, flush=True)
+    psnrs, probe_s = check_program_log(lines, 2)
+    med1, per_step1 = pass_summary(lines, 'dmtet_pass1')
+    med2, per_step2 = pass_summary(lines, 'mesh_pass')
+    tris = [x for x in _after(lines, 'dmtet_pass1: ') if 'slots' in x][0]
+    boundary = _after(lines, 'pass boundary: ')[0]
+    launches = json.loads(_after(lines, 'kernel launches: ')[0])
+    peak = float(_after(lines, 'peak device memory: ')[0].split()[0])
+    val1 = float(_after(lines, 'dmtet_validate: ')[0].split()[0])
+    val2 = float(_after(lines, 'validation: ')[0].split()[0])
+    secs = dict(re.findall(r'(extract|prune|unwrap|bake) ([\d.]+) s',
+                           boundary))
+    print('two passes: pass 1 median %.3f ms per step, pass 2 %.3f ms (batch '
+          '4, %d steps each); pass 1 ends with %s; boundary: extract %s s, '
+          'prune %s s, unwrap %s s, bake %s s; %.3f s per dmtet_validate '
+          'view, %.3f s per validation view; probes PSNR %s dB, %s s; peak '
+          'device memory %.3f GiB (%s)'
+          % (med1, med2, PROGRAM_ITERS, tris, secs['extract'],
+             secs['prune'], secs['unwrap'], secs['bake'], val1 / DMTET_VIEWS,
+             val2 / PROGRAM_VIEWS, psnrs, probe_s, peak, smi_line()),
+          flush=True)
+    print('two passes: kernel launches %s; per pass-1 step %s; per pass-2 '
+          'step %s' % (launches, per_step1, per_step2), flush=True)
+    check_step_launches(per_step1, 'pass 1')
+    check_step_launches(per_step2, 'pass 2')
+    if 'OVERFLOW' in tris:
+        print('two passes: WARNING, marching tets overflowed at the end of '
+              'pass 1', flush=True)
+    out = os.path.join(work, 'spot')
+    avg1 = check_metrics(os.path.join(out, 'dmtet_validate'), DMTET_VIEWS)
+    avg2 = check_metrics(os.path.join(out, 'validate'), PROGRAM_VIEWS)
+    files1, mesh1, _ = check_mesh_dir(os.path.join(out, 'dmtet_mesh'))
+    files2, mesh2, _ = check_mesh_dir(os.path.join(out, 'mesh'))
+    print('two passes: dmtet_validate %s; validate %s; dmtet_mesh/ %d '
+          'triangles, %d vertices; mesh/ %d triangles'
+          % (avg1, avg2, mesh1.t_pos_idx.shape[0], mesh1.v_pos.shape[0],
+             mesh2.t_pos_idx.shape[0]), flush=True)
+    if mesh1.t_pos_idx.shape[0] == 0 or \
+            mesh2.t_pos_idx.shape[0] != mesh1.t_pos_idx.shape[0]:
+        raise RuntimeError('the baked mesh is empty or pass 2 changed it')
+    drop_checkpoints(out)
+    return launches, per_step1
+
+
+def drop_checkpoints(folder):
+    """Delete the program's checkpoints in folder once read (pass 1's
+    holds the 2^23-row table and its Adam moments, ~200 MB), so that
+    chiprun_out/ stays small enough to come back."""
+    for name in sorted(os.listdir(folder)):
+        if name.endswith('.pkl'):
+            path = os.path.join(folder, name)
+            print('dropping %s (%.1f MB)'
+                  % (path, os.path.getsize(path) / 2 ** 20), flush=True)
+            os.remove(path)
+
+
+def device_ms_per_step(run, steps):
+    """Device ms per call of run(i) under a kernel-only torch.profiler
+    trace of `steps` calls (after one warm-up): the sum of the kernels'
+    device time; and the wall ms per call in that trace."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    run(0)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for i in range(steps):
+            run(1 + i)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / steps
+    averages = prof.key_averages()
+    key = 'self_device_time_total'
+    if averages and not hasattr(averages[0], key):
+        key = 'self_cuda_time_total'
+    busy = sum(getattr(e, key) for e in averages
+               if e.device_type == torch.autograd.DeviceType.CUDA)
+    return busy / 1e3 / steps, wall
 
 
 def print_tests(work, rays, G, label):
@@ -1200,6 +1532,38 @@ def main():
             r = at_batch_4[row['name']]
             row['at_batch_4'] = dict(ms=r['ms'], plain_ms=r['plain_ms'],
                                      max_abs_err=r['max_abs_err'])
+
+    # 13. pass 1, the pass boundary and pass 2 through the program at
+    # spot.json's settings; then pass 1's kernels at batch 4 in this process
+    two_launches, pass1_per_step = two_pass_program()
+    at_pass1, _, st1, targets1 = pass1_checks(device)
+    for row in rows:
+        name = row['name']
+        row['launches_in_two_pass_program'] = two_launches[name]
+        row['launches_per_pass1_step'] = pass1_per_step[name]
+        if name in at_pass1:
+            r = at_pass1[name]
+            row['at_pass1_batch_4'] = dict(
+                ms=r['ms'], plain_ms=r['plain_ms'],
+                max_abs_err=r['max_abs_err'],
+                compared_on=r.get('compared_on'))
+        if name == 'scatter':
+            r = at_pass1[name]
+            row['pass1_hashgrid'] = {k: r[k] for k in (
+                'compared_on', 'ms', 'plain_ms', 'generic_ms', 'library_ms',
+                'bound_ms', 'bound_by', 'max_abs_err', 'err_over_bound')}
+
+    def pass1_step(i):
+        from nvdiffrecmc_tpu_torch import train
+        train.train_step(st1['geometry'], st1['params'], st1['opts'],
+                         st1['static'], targets1[i % len(targets1)],
+                         PASS1_IT + PASS1_STEPS + 1 + i, st1['FLAGS'],
+                         st1['loss_fn'], st1['ds'].perms, None)
+    dev_ms, wall = device_ms_per_step(pass1_step, 2)
+    print('pass 1 (kernel-only trace, batch 4): %.3f ms device per step, '
+          '%.3f ms wall in the trace (%s)' % (dev_ms, wall, smi_line()),
+          flush=True)
+    del st1, targets1
 
     # 7. optional profile: every profiler session after every timed phase
     if args.profile:

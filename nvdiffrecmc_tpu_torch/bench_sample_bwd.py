@@ -29,6 +29,10 @@ host's):
   check (checks.check_scatter) and how often its ids repeat inside a warp
   (id_repeats), and the generic instance on the largest launch's first 5
   channels;
+- pass 1's largest scatter, the hash-grid table's cotangent (C = 2) of
+  one batch-1 pass-1 step at spot.json's settings (chip_smoke.pass1_setup,
+  iteration chip_smoke.PASS1_IT): the C = 2 instance, the generic instance
+  on the same input and index_add_, with its bound, checks and id repeats;
 - the mask on both inputs, with its bound and the entries that differ
   from its plain version (must be 0);
 - the sample kernel's, shade_bwd's and the mask's registers, spill bytes
@@ -38,7 +42,8 @@ host's):
   the process's later launches): the device time and launches per call of
   the sample kernel on the frame and the validation stratum, of the guide
   kernel on the frame's light, of shade_bwd, of each row scatter, of the
-  generic instance and of the mask on both inputs.
+  generic instance, of the hash-grid scatter's two instances and of the
+  mask on both inputs.
 
 The results (every sample output, shade_bwd's dgb and drad, both masks)
 go to --out; --compare counts the entries in which two such files differ
@@ -127,6 +132,22 @@ def record(dev, path):
         rec['mask_validation_stratum0'] = (
             bvh_mod.ray_features(ro, rd).cpu(), bvh.aabb_lo.cpu(),
             bvh.aabb_hi.cpu(), 1024, tmin, 1e16)
+        # pass 1's largest launch: the hash-grid table's cotangent (C = 2)
+        del st, p
+        st1 = chip_smoke.pass1_setup(dev, batch=1)
+        gen.manual_seed(29)
+        tgt = train.prepare_batch(st1['ds'].collate([st1['ds'][0]]),
+                                  st1['FLAGS']['train_res'], 'random', gen,
+                                  st1['FLAGS'])
+        calls['scatter'] = []
+        room.update(scatter=100)
+        train.train_step(st1['geometry'], st1['params'], st1['opts'],
+                         st1['static'], tgt, chip_smoke.PASS1_IT,
+                         st1['FLAGS'], st1['loss_fn'], st1['ds'].perms, gen)
+        torch.cuda.synchronize()
+        room.clear()
+        rec['scatter_hashgrid'] = max(calls['scatter'],
+                                      key=lambda a: a[1].numel())
     torch.save(rec, path)
 
 
@@ -199,6 +220,18 @@ def run(dev, args):
     t['scatter_generic_ms'] = events_ms(
         lambda: pallas_scatter._scatter_cuda(*gen), 20)
     t['scatter_generic_ok'] = checks.check_scatter(*gen, reps=1)['ok']
+    hg = to_device(rec['scatter_hashgrid'], dev)
+    b = checks.bound('scatter', hg)
+    t['scatter_hashgrid'] = dict(
+        rows=hg[1].shape[0], channels=hg[1].shape[1], out_rows=hg[2],
+        ms=events_ms(lambda: pallas_scatter._scatter_cuda(*hg), 20),
+        generic_ms=events_ms(lambda: pallas_scatter._scatter_cuda(
+            *hg, generic=True), 20),
+        index_add_ms=checks.library_ms('scatter', hg),
+        bound_ms=b['bound_ms'], bound_by=b['bound_by'],
+        ok=checks.check_scatter(*hg, reps=1)['ok'],
+        generic_ok=checks.check_scatter(*hg, reps=1, generic=True)['ok'],
+        **id_repeats(*hg))
     for key in MASK_KEYS:
         a = to_device(rec[key], dev)
         res[key] = pallas_tracer._mask_cuda(*a)
@@ -234,6 +267,11 @@ def run(dev, args):
     t['scatter_sum_device_ms'] = sum(s['device_ms'] for s in scatters)
     t['scatter_generic_device_ms'] = device_ms(
         lambda: pallas_scatter._scatter_cuda(*gen), 20)[0]
+    hgr = t['scatter_hashgrid']
+    hgr['device_ms'] = device_ms(
+        lambda: pallas_scatter._scatter_cuda(*hg), 20)[0]
+    hgr['generic_device_ms'] = device_ms(
+        lambda: pallas_scatter._scatter_cuda(*hg, generic=True), 20)[0]
     for key in MASK_KEYS:
         a = to_device(rec[key], dev)
         t[key + '_device_ms'] = device_ms(

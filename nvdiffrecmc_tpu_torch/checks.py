@@ -229,8 +229,10 @@ def check_denoise_grad(g6, nrm, zdz, sigma, reps=20):
             g6, nrm, zdz, sigma, True), 2))
 
 
-def check_scatter(idx, vals, out_rows, reps=20):
-    got = pallas_scatter._scatter_cuda(idx, vals, out_rows)
+def check_scatter(idx, vals, out_rows, reps=20, generic=False):
+    """The row scatter (its generic instance with generic) against the
+    float64 sum of the plain version."""
+    got = pallas_scatter._scatter_cuda(idx, vals, out_rows, generic)
     exact = vals.double()
     want = pallas_scatter.scatter_add_plain(idx, exact, out_rows)
     abs_sum = pallas_scatter.scatter_add_plain(idx, exact.abs(), out_rows)
@@ -243,8 +245,8 @@ def check_scatter(idx, vals, out_rows, reps=20):
         max_abs_err=float((got - want).abs().max()), ok=worst <= 1.0,
         compared_on='%d rows x %d channels into %d' % (
             vals.shape[0], vals.shape[1], out_rows),
-        ms=time_ms(lambda: pallas_scatter._scatter_cuda(idx, vals, out_rows),
-                   reps),
+        ms=time_ms(lambda: pallas_scatter._scatter_cuda(
+            idx, vals, out_rows, generic), reps),
         plain_ms=time_ms(lambda: pallas_scatter.scatter_add_plain(
             idx, vals, out_rows), reps))
 

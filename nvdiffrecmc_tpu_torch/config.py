@@ -1,9 +1,10 @@
 """Flags of the port: the command line and JSON configs of
 nvdiffrecmc_tpu/config.py, as a plain dict.  Every key of DEFAULTS is one
-the port reads; the keys of UNREAD (pass 1's and the reference configs'
-random_textures) are accepted and ignored; any other key is refused.  A key
-whose value changes what the pass-2 program computes in a way the port
-does not honour (HONOURED) raises NotImplementedError."""
+the port reads; the keys of UNREAD (the reference configs'
+random_textures, the NeRF / LLFF datasets' pre_load, the TPU BVH's
+leaf_size) are accepted and ignored; any other key is refused.  A key
+whose value changes what the program computes in a way the port does not
+honour (HONOURED) raises NotImplementedError."""
 
 import argparse
 import copy
@@ -70,12 +71,19 @@ DEFAULTS = dict(
     # the JAX package does; at iter 5000 the reference's constants
     scale_schedules=True,
     micro_batch=0,
+    # pass 1 (DMTet + hash-grid material): the JAX package's values
+    dmtet_grid=64,
+    mesh_scale=2.1,
+    sdf_regularizer=0.2,
+    max_tris=None,          # None: 24 * dmtet_grid^2 triangle slots
+    sdf_init='random',      # or 'sphere'
+    # at the pass boundary, drop connected components with fewer than
+    # this fraction of the faces (0: keep all)
+    prune_components=0.01,
 )
 
-# read only by pass 1 (DMTet), the NeRF / LLFF datasets, or nothing
-UNREAD = frozenset(('dmtet_grid', 'mesh_scale', 'sdf_regularizer',
-                    'max_tris', 'sdf_init', 'prune_components',
-                    'random_textures', 'pre_load', 'leaf_size'))
+# read only by the NeRF / LLFF datasets, or nothing
+UNREAD = frozenset(('random_textures', 'pre_load', 'leaf_size'))
 
 # the only value (by truth) of each key that the port honours
 HONOURED = dict(transparency=False, decorrelated=False,

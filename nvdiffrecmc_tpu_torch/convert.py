@@ -2,8 +2,9 @@
 
 Every function reads its input through numpy (np.asarray works on JAX
 arrays without importing JAX here), so both packages can render one scene:
-a Mesh's fields, a material dict's textures with their mips, and a light
-dict's base and sampling tables."""
+a Mesh's fields, a material dict's textures with their mips, a light
+dict's base and sampling tables, and the trainer's parameters (pass 1's
+among them, in the port's layouts)."""
 
 import dataclasses
 
@@ -73,12 +74,28 @@ def light(lgt, device=None):
     return {k: tensor(lgt[k], device) for k in ('base', 'pdf', 'rows', 'cols')}
 
 
+def mlp_texture(p, device=None):
+    """hashgrid.MLPTexture3DParams of the JAX package (table [L, T, F],
+    weights) -> the port's neural material {'table': [L*T, F], 'w0', ...}."""
+    device = resolve(device)
+    table = np.asarray(p.table)
+    out = {'table': tensor(table.reshape(-1, table.shape[-1]), device)}
+    out.update(('w%d' % i, tensor(w, device))
+               for i, w in enumerate(p.weights))
+    return out
+
+
 def params(p, device=None):
     """The JAX trainer's {'geo', 'mat', 'light'} parameters (nested dicts
-    or lists of arrays) -> the same structure of tensors."""
+    or lists of arrays) -> the same structure of tensors, in the port's
+    layouts: a 'kd_ks' neural material becomes the 'mat' dict of
+    mlp_texture, the DMTet 'deform' [3, Nv] becomes [Nv, 3]."""
     device = resolve(device)
     if isinstance(p, dict):
-        return {k: params(v, device) for k, v in p.items()}
+        if 'kd_ks' in p:
+            return mlp_texture(p['kd_ks'], device)
+        return {k: (tensor(np.asarray(v).T, device) if k == 'deform'
+                    else params(v, device)) for k, v in p.items()}
     if isinstance(p, (list, tuple)):
         return [params(v, device) for v in p]
     return tensor(p, device)

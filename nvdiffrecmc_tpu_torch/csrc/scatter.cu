@@ -30,6 +30,10 @@
 // - the kernel is a template on C for the step's channel counts (3, 4, 6,
 //   9, 13), with one generic instance for any other C: the row index comes
 //   from a loop counter, never from a division of the element index;
+// - C = 2, the hash-grid table of pass 1 (268 M rows a step at batch 4),
+//   has a kernel of its own that stages nothing: a lane's row is one
+//   8-byte load, the group's sum one float2 atomic (the staged template
+//   measured slower there than the generic instance);
 // - each warp of an instance stages its 32 rows (128 C bytes, 16-byte
 //   aligned when vals is) into shared memory with 16-byte streaming loads;
 //   the generic instance, which no step launch uses, reads each lane's row
@@ -137,6 +141,49 @@ __global__ void scatter_add_kernel(const int64_t* __restrict__ idx,
     }
 }
 
+// C = 2, the hash-grid table's cotangent (hundreds of millions of 8-byte
+// rows): a lane loads its row as one float2 (8-byte loads, no staging),
+// the group's lowest lane sums the group's rows in lane order, reading the
+// others' again (the warp's 256 bytes are in L1), and adds the sum with one
+// float2 atomic.  aligned: vals is 8-byte aligned (else scalar loads).
+__device__ __forceinline__ float2 load_row2(const float* vals, long long m,
+                                            int aligned) {
+    if (aligned) return __ldcs((const float2*)vals + m);
+    return make_float2(__ldcs(vals + 2 * m), __ldcs(vals + 2 * m + 1));
+}
+
+__global__ void scatter_add_c2(const int64_t* __restrict__ idx,
+                               const float* __restrict__ vals,
+                               float* __restrict__ out, long long M,
+                               long long V, int aligned) {
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    const long long chunks = (M + 31) >> 5;
+    for (long long k = (long long)blockIdx.x * SCATTER_WARPS + warp;
+         k < chunks; k += (long long)gridDim.x * SCATTER_WARPS) {
+        const long long m0 = k << 5, m = m0 + lane;
+        const long long id = m < M ? __ldcs((const long long*)idx + m) : -1;
+        float2 v = make_float2(0.f, 0.f);
+        if (m < M) v = load_row2(vals, m, aligned);
+        const bool active = (v.x != 0.f || v.y != 0.f) && id >= 0 && id < V;
+        bool lead = active;
+        const unsigned live = __ballot_sync(FULL_MASK, active);
+        if (live & (live - 1)) {   // two or more live lanes
+            const unsigned grp = __match_any_sync(
+                FULL_MASK, active ? (unsigned long long)id : ~0ULL);
+            lead = active && __ffs(grp) - 1 == lane;
+            if (lead) {
+                for (unsigned g = grp & (grp - 1); g; g &= g - 1) {
+                    const float2 o = load_row2(vals, m0 + __ffs(g) - 1,
+                                               aligned);
+                    v.x += o.x;
+                    v.y += o.y;
+                }
+            }
+        }
+        if (lead) atomicAdd((float2*)(out + 2 * id), v);
+    }
+}
+
 // Any C: a lane's row is read from global memory, the group's lowest lane
 // sums the group's rows channel by channel, in lane order, and adds each
 // nonzero sum with a scalar atomic.
@@ -174,6 +221,7 @@ typedef void (*ScatterFn)(const int64_t*, const float*, float*, long long,
 
 static ScatterFn pick(int C) {
     switch (C) {
+        case 2: return scatter_add_c2;
         case 3: return scatter_add_kernel<3>;
         case 4: return scatter_add_kernel<4>;
         case 6: return scatter_add_kernel<6>;
@@ -183,17 +231,21 @@ static ScatterFn pick(int C) {
     }
 }
 
+// generic != 0 runs the generic instance whatever C is (to time it
+// against an instance on the same input).
 extern "C" int nvk_scatter_add(const int64_t* idx, const float* vals,
                                float* out, long long M, int C, long long V,
-                               cudaStream_t stream) {
+                               int generic, cudaStream_t stream) {
     if (M == 0 || C == 0) return 0;
     const long long blocks =
         ((M + 31) / 32 + SCATTER_WARPS - 1) / SCATTER_WARPS;
     dim3 grid((unsigned)(blocks < (1LL << 20) ? blocks : (1LL << 20)));
-    ScatterFn fn = pick(C);
+    ScatterFn fn = generic ? nullptr : pick(C);
+    // the staged instances load 16 bytes at a time, C = 2 8 bytes
+    const uintptr_t align = C == 2 ? 7 : 15;
     if (fn)
         fn<<<grid, 32 * SCATTER_WARPS, 0, stream>>>(
-            idx, vals, out, M, V, ((uintptr_t)vals & 15) == 0);
+            idx, vals, out, M, V, ((uintptr_t)vals & align) == 0);
     else
         scatter_add_generic<<<grid, 32 * SCATTER_WARPS, 0, stream>>>(
             idx, vals, out, M, C, V);

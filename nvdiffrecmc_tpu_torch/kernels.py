@@ -50,7 +50,7 @@ _SIGNATURES = {
     'nvk_shade_bwd': [_VP] * 6 + [_I] * 3 + [_VP],
     'nvk_shade_bwd_info': [_VP],
     'nvk_light_scatter': [_VP, _VP, _I, _I, _I, _VP],
-    'nvk_scatter_add': [_VP, _VP, _VP, _LL, _I, _LL, _VP],
+    'nvk_scatter_add': [_VP, _VP, _VP, _LL, _I, _LL, _I, _VP],
     'nvk_trace': [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _I, _I,
                   _I, _I, _I, _F, _VP],
     'nvk_mask': [_VP, _VP, _VP, _VP, _I, _I, _I, _F, _F, _VP],

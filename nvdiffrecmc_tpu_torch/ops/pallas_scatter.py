@@ -5,10 +5,11 @@ nvdiffrecmc_tpu/ops/pallas_scatter.py).
 `scatter_add_plain` (index_add_) on CPU tensors.  The kernel gives a warp
 32 update rows, sums the rows of a warp that share an output row, and adds
 each such sum with Hopper's vector float atomics; it has an instance for
-each channel count of the training step (3, 4, 6, 9, 13) and a generic
-one.  `rows_gather` is `table[idx]` with that scatter as its backward: the
-adjoint of every vertex-attribute, triangle and texel gather of the
-training step goes through it, as it does in the JAX package.  Rows whose
+each channel count of the training steps (3, 4, 6, 9, 13, and 2 for the
+hash-grid table of pass 1) and a generic one.  `rows_gather` is
+`table[idx]` with that scatter as its backward: the adjoint of every
+vertex-attribute, triangle, texel and hash-grid gather of the training
+steps goes through it, as it does in the JAX package.  Rows whose
 id lies outside [0, V) are dropped.  The JAX package's work lists and
 value layout [C, M] serve the TPU's one-hot matmul and are not carried
 over: here values are [M, C] rows."""
@@ -30,7 +31,9 @@ def scatter_add_plain(idx, vals, out_rows):
     return out.index_add_(0, idx[keep], vals[keep])
 
 
-def _scatter_cuda(idx, vals, out_rows):
+def _scatter_cuda(idx, vals, out_rows, generic=False):
+    """csrc/scatter.cu on idx [M] int64 and vals [M, C] f32; generic runs
+    its generic instance whatever C is (to time the two on one input)."""
     M, C = vals.shape
     dev = vals.device
     kernels.require(idx, 'idx', torch.int64, (M,), dev)
@@ -39,7 +42,7 @@ def _scatter_cuda(idx, vals, out_rows):
     with torch.cuda.device(dev):
         rc = kernels.lib().nvk_scatter_add(
             idx.data_ptr(), vals.data_ptr(), out.data_ptr(), M, C, out_rows,
-            kernels.stream_ptr(vals))
+            int(generic), kernels.stream_ptr(vals))
     kernels.LAUNCHES['scatter'] += 1
     kernels.check(rc, 'nvk_scatter_add')
     return out

@@ -150,6 +150,33 @@ def scale_img_nhwc(x, size, mag='bilinear', min='area'):
 # Camera / matrix helpers (host-side numpy)
 # ---------------------------------------------------------------------------
 
+def dilate(x, x_avg, mask, N):
+    """Fill the texels outside mask [1,H,W,1] with the Gaussian-weighted
+    average of the masked texels of x [1,H,W,C] in an N x N window (N
+    odd), or with x_avg where the window holds none (the seam fill of the
+    bake, reference util.py:71-89)."""
+    variance = (1.0 / 2.5) ** 2
+    g = torch.linspace(-1.0, 1.0, N, device=x.device)
+    gy, gx = torch.meshgrid(g, g, indexing='ij')
+    kern = (0.5 * np.pi * variance) * torch.exp(
+        -(gx ** 2 + gy ** 2) / (2 * variance))
+    kern = kern / torch.sum(kern)
+
+    def conv(img):      # depthwise, zero padded to the input's size
+        c = img.shape[-1]
+        out = torch.nn.functional.conv2d(
+            img.permute(0, 3, 1, 2), kern.expand(c, 1, N, N),
+            padding=N // 2, groups=c)
+        return out.permute(0, 2, 3, 1)
+
+    epsilon = 1e-6
+    mask_flt = conv(mask)
+    x_flt = conv(x * mask)
+    x_flt = torch.where(mask_flt > epsilon,
+                        x_flt / torch.clamp(mask_flt, min=epsilon), x_avg)
+    return x_flt * (1 - mask) + x * mask
+
+
 def perspective(fovy=0.7854, aspect=1.0, n=0.1, f=1000.0):
     y = np.tan(fovy / 2)
     return np.array([[1 / (y * aspect), 0, 0, 0],

@@ -4,9 +4,11 @@ denoise -> composite (counterpart of nvdiffrecmc_tpu/render/render.py).
 `lgt` is a dict with 'base' [Hl,Wl,3] and the sampling tables 'pdf'
 [Hl,Wl], 'rows' [Hl], 'cols' [Hl,Wl] (light.update_pdf).  Randomness comes
 from a torch.Generator (`generator`, on the mesh's device) for the jitter
-taps, or from explicit `offsets`, and from `rnd_seed` (or explicit
-`uniforms`) for the MC shading.  Differentiable in the mesh's vertices,
-its material's textures and the light's base."""
+taps and a neural material's position noise, or from explicit `offsets`,
+and from `rnd_seed` (or explicit `uniforms`) for the MC shading.
+Differentiable in the mesh's vertices, its material's textures (or the
+neural material's table and weights) and the light's base.  `render_uv`
+bakes a neural material into textures at the pass boundary."""
 
 import torch
 
@@ -24,11 +26,13 @@ from ..ops import texture as tex_ops
 
 def shade_pre(FLAGS, rast, gb_depth, gb_pos, gb_geometric_normal, gb_normal,
               gb_tangent, gb_texc, gb_texc_deriv, view_pos, material, bsdf,
-              generator, offset=None):
-    """Seed-independent half of the pixel shader: texture taps, jitter
-    smoothness terms, shading normal.  offset: the [B,H,W,2] jitter of the
-    smoothness taps, or None to draw it from `generator`.  Returns the
-    `pre` dict."""
+              generator, offset=None, noise=None):
+    """Seed-independent half of the pixel shader: texture taps (or the
+    neural material's `kd_ks` at the positions and at the positions plus
+    noise), jitter smoothness terms, shading normal.  offset: the [B,H,W,2]
+    jitter of the smoothness taps, noise: the [B,H,W,3] position noise of
+    a neural material; each drawn from `generator` (offset first) when
+    None.  Returns the `pre` dict."""
     B, H, W = gb_depth.shape[:3]
     dev = gb_pos.device
     if offset is None:
@@ -46,38 +50,56 @@ def shade_pre(FLAGS, rast, gb_depth, gb_pos, gb_geometric_normal, gb_normal,
             off += b.shape[-1]
         return outs
 
-    if 'kd_ks' in material:
-        raise NotImplementedError('neural (kd_ks) materials are not ported')
     perturbed_nrm = None
-    tex_keys = ['kd', 'ks'] + (['normal'] if 'normal' in material else [])
-    mips_per = [material[k].buildMips() for k in tex_keys]
-    shapes = {tuple(tuple(m.shape[1:3]) for m in mips) for mips in mips_per}
-    if len(shapes) == 1:
-        outs = tex_ops.texture_sample_multi(mips_per, gb_texc, gb_texc_deriv)
-        kd = outs[0]
-        ks = outs[1][..., 0:3]
-        if 'normal' in material:
-            perturbed_nrm = outs[2]
+    mlp_material = 'kd_ks' in material
+    if mlp_material:
+        if noise is None:
+            noise = torch.randn(gb_pos.shape, generator=generator,
+                                device=dev) * 0.01
+        # one encode over the stacked (noisy, clean) points
+        both = material['kd_ks'](torch.cat([gb_pos + noise, gb_pos], dim=0))
+        all_tex_jitter, all_tex = torch.chunk(both, 2, dim=0)
+        kd, ks = all_tex[..., 0:3], all_tex[..., 3:6]
+        kd_grad = abs_pos0(all_tex_jitter[..., 0:3] - kd)
+        ks_grad = abs_pos0(all_tex_jitter[..., 3:6] - ks) * torch.tensor(
+            [0., 1., 1.], device=dev)
     else:
-        kd = material['kd'].sample(gb_texc, gb_texc_deriv)
-        ks = material['ks'].sample(gb_texc, gb_texc_deriv)[..., 0:3]
-        if 'normal' in material:
-            perturbed_nrm = material['normal'].sample(gb_texc, gb_texc_deriv)
+        tex_keys = ['kd', 'ks'] + (['normal'] if 'normal' in material
+                                   else [])
+        mips_per = [material[k].buildMips() for k in tex_keys]
+        shapes = {tuple(tuple(m.shape[1:3]) for m in mips)
+                  for mips in mips_per}
+        if len(shapes) == 1:
+            outs = tex_ops.texture_sample_multi(mips_per, gb_texc,
+                                                gb_texc_deriv)
+            kd = outs[0]
+            ks = outs[1][..., 0:3]
+            if 'normal' in material:
+                perturbed_nrm = outs[2]
+        else:
+            kd = material['kd'].sample(gb_texc, gb_texc_deriv)
+            ks = material['ks'].sample(gb_texc, gb_texc_deriv)[..., 0:3]
+            if 'normal' in material:
+                perturbed_nrm = material['normal'].sample(gb_texc,
+                                                          gb_texc_deriv)
     if material.get('no_perturbed_nrm', False):
         perturbed_nrm = None
 
-    tap_bufs = [mask, gb_normal, kd, ks]
+    tap_bufs = [mask, gb_normal]
+    if not mlp_material:
+        tap_bufs += [kd, ks]
     if perturbed_nrm is not None:
         tap_bufs.append(perturbed_nrm)
     taps = iter(_jitter_taps(tap_bufs))
     mask_tap = next(taps)
     grad_weight = mask * mask_tap
     nrm_jitter = next(taps)
-    kd_jitter = next(taps)
-    ks_jitter = next(taps)
-    ks_sel = torch.tensor([0., 1., 1.], device=dev)
-    kd_grad = abs_pos0(kd_jitter[..., 0:3] - kd[..., 0:3]) * grad_weight
-    ks_grad = abs_pos0(ks_jitter - ks) * ks_sel * grad_weight
+    if not mlp_material:
+        kd_jitter = next(taps)
+        ks_jitter = next(taps)
+        ks_sel = torch.tensor([0., 1., 1.], device=dev)
+        kd_grad = abs_pos0(kd_jitter[..., 0:3] - kd[..., 0:3]) * grad_weight
+        ks_grad = abs_pos0(ks_jitter - ks) * ks_sel * grad_weight
 
     alpha = kd[..., 3:4] if kd.shape[-1] == 4 else torch.ones_like(kd[..., 0:1])
     kd = kd[..., 0:3]
@@ -235,7 +257,8 @@ def gbuffer_layer(v_pos_clip, rast, rast_deriv, mesh, resolution, spp, msaa):
 def render_gbuffer(FLAGS, mesh, mtx_in, view_pos, resolution, spp,
                    num_layers, msaa, bsdf, generator, offsets=None):
     """Stage 1: clip transform, depth-peeled rasterization, per-layer
-    G-buffer and shade_pre (layer i jitters by offsets[i] when given).
+    G-buffer and shade_pre (layer i jitters by offsets[i] when given: an
+    offset, or an (offset, position noise) pair for a neural material).
     Returns (v_pos_clip, [(pre, rast), ...])."""
     full_res = [resolution[0] * spp, resolution[1] * spp]
     view_pos = view_pos[:, None, None, :]
@@ -249,10 +272,12 @@ def render_gbuffer(FLAGS, mesh, mtx_in, view_pos, resolution, spp,
         (rast_out_s, gb_depth, gb_pos, gb_geometric_normal, gb_normal,
          gb_tangent, gb_texc, gb_texc_deriv) = gbuffer_layer(
             v_pos_clip, rast, rast_db, mesh, resolution, spp, msaa)
+        off = None if offsets is None else offsets[i]
+        off, noise = off if isinstance(off, tuple) else (off, None)
         pre = shade_pre(FLAGS, rast_out_s, gb_depth, gb_pos,
                         gb_geometric_normal, gb_normal, gb_tangent, gb_texc,
                         gb_texc_deriv, view_pos, mesh.material, bsdf,
-                        generator, None if offsets is None else offsets[i])
+                        generator, off, noise)
         layers.append((pre, rast))
     return v_pos_clip, layers
 
@@ -332,3 +357,19 @@ def _composite(FLAGS, mesh, v_pos_clip, layers, full_res, spp, background):
             off += chans[k]
     return {k: (avg_pool_nhwc(accums[k], spp) if spp > 1 else accums[k])
             for k in key_list}
+
+
+def render_uv(mesh, resolution, mlp_sample_fn):
+    """Rasterize the mesh in UV space and evaluate the neural material at
+    each covered texel's position, to bake it into 2D textures (reference
+    render.py:337-354).  Returns (mask [1,H,W,1], kd [1,H,W,3], ks
+    [1,H,W,3])."""
+    uv_clip = mesh.v_tex[None] * 2.0 - 1.0
+    uv_clip4 = torch.cat((uv_clip, torch.zeros_like(uv_clip[..., 0:1]),
+                          torch.ones_like(uv_clip[..., 0:1])), dim=-1)
+    rast, _ = ras.rasterize(uv_clip4, mesh.t_tex_idx, resolution)
+    gb_pos, _ = ras.interpolate(mesh.v_pos, rast, mesh.t_pos_idx)
+    all_tex = mlp_sample_fn(gb_pos)
+    assert all_tex.shape[-1] == 6, "Combined kd_ks must be 6 channels"
+    mask = (rast[..., -1:] > 0).float()
+    return mask, all_tex[..., 0:3], all_tex[..., 3:6]

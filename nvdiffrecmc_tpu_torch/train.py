@@ -1,20 +1,26 @@
-"""The pass-2 trainer of the port (counterpart of the repository's
-train.py): losses, batch preparation, the trainable material, three Adam
-optimizers with the JAX package's learning-rate schedule, the gradient
-conventions, the post-step projections, the validation render at the
-reference protocol, the training loop with its probes and checkpoints, and
-the program.
+"""The trainer of the port (counterpart of the repository's train.py):
+losses, batch preparation, the trainable material (2D textures, or the
+hash-grid neural material of pass 1), three Adam optimizers with the JAX
+package's learning-rate schedule, the gradient conventions, the post-step
+projections, the validation render at the reference protocol, the
+training loop with its probes and checkpoints, the bake at the pass
+boundary, and the program.
 
-Parameters are a dict {'geo': {'v_pos'}, 'mat': {'kd', 'ks', 'normal'},
-'light'} of leaf tensors; `train_step` renders one batch through
-`DLMesh.tick`, runs `backward()`, and updates them in place.  `validate`
-renders the validation views with `render_eval` and writes their PSNR.
-`main` runs the JAX program's base-mesh branch (pass 2 on a given mesh);
-pass 1 (DMTet) is not ported.
+Parameters are a dict {'geo', 'mat', 'light'} of leaf tensors: 'geo' is
+{'v_pos'} (DLMesh) or {'sdf', 'deform'} (DMTetGeometry); 'mat' is {'kd',
+'ks', 'normal'} or, for the neural material, {'table', 'w0', 'w1', ...}
+(the flat hash-grid table and the MLP's weights).  `train_step` renders
+one batch through the geometry's `tick`, runs `backward()`, and updates
+them in place.  `validate` renders the validation views with
+`render_eval` and writes their PSNR.  `main` runs the JAX program: pass 1
+(DMTet) when the config sets no base_mesh, then the pass boundary (extract,
+prune, unwrap, bake) and pass 2 on the baked mesh; or pass 2 alone on a
+given base mesh.
 
 Usage: python3 -m nvdiffrecmc_tpu_torch.train --config <json> [flags]
 (on the CUDA card; main(argv, device='cpu') runs it on the CPU)."""
 
+import dataclasses
 import json
 import os
 import pickle
@@ -28,8 +34,9 @@ from . import config, kernels
 from .dataset import BatchIterator, DatasetMesh
 from .dataset.dataset_mesh import load_env_or_procedural
 from .device import resolve
-from .geometry import DLMesh
-from .ops import envshade
+from .geometry import DLMesh, DMTetGeometry
+from .geometry.dmtet import ramps
+from .ops import envshade, hashgrid
 from .ops import loss as loss_ops
 from .ops import vecmath
 from .render import light as light_mod
@@ -37,6 +44,7 @@ from .render import mesh as mesh_mod
 from .render import obj as obj_mod
 from .render import render as render_mod
 from .render import texture as texture_mod
+from .uv_unwrap import uv_unwrap as _uv_unwrap_np
 
 RADIUS = 3.0
 
@@ -91,26 +99,42 @@ def prepare_batch(target, train_res, bg_type, generator, FLAGS):
 
 
 def initial_guess_material(geometry, mlp, FLAGS, init_mat=None,
-                           device=None):
-    """(mat_params, mat_static): trainable kd, ks and normal textures at
-    FLAGS['texture_res'] and their bounds, as the JAX package guesses
-    them: from init_mat's textures (resized to texture_res) when given,
-    else constant kd and ks drawn from numpy's RandomState(0); the normal
-    map from init_mat, else flat."""
-    if mlp:
-        raise NotImplementedError('neural (kd_ks) materials are not ported')
+                           device=None, seed=0):
+    """(mat_params, mat_static), as the JAX package guesses them.  mlp:
+    the neural material of pass 1 over geometry's AABB, the default
+    HashEncodingConfig, a 32-wide MLP of 2 hidden layers and 6 channels
+    (kd, ks) bounded by kd_min / kd_max and ks_min / ks_max, drawn from a
+    generator seeded seed.  Else trainable kd, ks and normal textures at
+    FLAGS['texture_res'] and their bounds: from init_mat's textures
+    (resized to texture_res) when given, else constant kd and ks drawn
+    from numpy's RandomState(seed); the normal map from init_mat, else
+    flat."""
     device = resolve(device)
 
     def f32(k):
         return torch.tensor(FLAGS[k], dtype=torch.float32, device=device)
     kd_min, kd_max, ks_min, ks_max = (f32('kd_min'), f32('kd_max'),
                                       f32('ks_min'), f32('ks_max'))
+    if mlp:
+        cfg = hashgrid.HashEncodingConfig()
+        gen = torch.Generator(device=device)
+        gen.manual_seed(seed)
+        p = hashgrid.init_mlp_texture(cfg, channels=6, generator=gen,
+                                      device=device)
+        static = {
+            'kind': 'mlp', 'cfg': cfg, 'aabb': geometry.getAABB(),
+            'min_max': (torch.cat((kd_min[0:3], ks_min)),
+                        torch.cat((kd_max[0:3], ks_max))),
+            'bsdf': FLAGS['bsdf'],
+            'no_perturbed_nrm': bool(FLAGS['no_perturbed_nrm']),
+        }
+        return mlp_params(p), static
     res = tuple(FLAGS['texture_res'])
 
     def trainable(init):
         return texture_mod.create_trainable(init, res, device=device).data
     if init_mat is None:
-        rng = np.random.RandomState(0)
+        rng = np.random.RandomState(seed)
         num_ch = 4 if FLAGS['layers'] > 1 else 3
         kd_data = (torch.ones(res + (num_ch,), device=device)
                    * (kd_max - kd_min)[0:num_ch] + kd_min[0:num_ch])[None]
@@ -138,10 +162,32 @@ def initial_guess_material(geometry, mlp, FLAGS, init_mat=None,
     return params, static
 
 
+def mlp_params(p):
+    """hashgrid.MLPTexture3DParams -> the 'mat' dict {'table', 'w0', ...}."""
+    out = {'table': p.table}
+    out.update(('w%d' % i, w) for i, w in enumerate(p.weights))
+    return out
+
+
+def mlp_texture(mat_params):
+    """The 'mat' dict of the neural material -> MLPTexture3DParams."""
+    n = sum(1 for k in mat_params if k.startswith('w'))
+    return hashgrid.MLPTexture3DParams(
+        table=mat_params['table'],
+        weights=tuple(mat_params['w%d' % i] for i in range(n)))
+
+
 def make_material(mat_params, mat_static):
     """The material dict the shader reads, over the trainable tensors."""
     mat = {'bsdf': mat_static['bsdf'],
            'no_perturbed_nrm': mat_static['no_perturbed_nrm']}
+    if mat_static.get('kind') == 'mlp':
+        p = mlp_texture(mat_params)
+        cfg, aabb, mm = (mat_static['cfg'], mat_static['aabb'],
+                         mat_static['min_max'])
+        mat['kd_ks'] = lambda pos: hashgrid.sample_mlp_texture(
+            p, cfg, aabb, mm, pos)
+        return mat
     for k in ('kd', 'ks', 'normal'):
         if k in mat_params:
             mat[k] = texture_mod.Texture2D(
@@ -152,7 +198,9 @@ def make_material(mat_params, mat_static):
 @torch.no_grad()
 def clamp_material(mat_params, mat_static):
     """Post-step projections, in place: each texture onto its bounds, the
-    normal map back to unit length."""
+    normal map back to unit length (none for the neural material)."""
+    if mat_static.get('kind') == 'mlp':
+        return mat_params
     for k in ('kd', 'ks', 'normal'):
         if k in mat_params:
             tex = texture_mod.Texture2D(data=mat_params[k],
@@ -210,6 +258,13 @@ def make_optimizers(params, FLAGS, pass_idx=0, warmup_iter=0):
     return out
 
 
+def denoiser_sigma(it, FLAGS):
+    """Pass 1's denoiser sigma at iteration it, max(2 shadow ramp, 1e-4),
+    in float32 as the JAX package computes it."""
+    return float(np.maximum(np.float32(2.0) * np.float32(ramps(it, FLAGS)[0]),
+                            np.float32(1e-4)))
+
+
 def compute_grads(geometry, params, mat_static, target, it, FLAGS, loss_fn,
                   perms, generator, uniforms=None, offsets=None):
     """Render target's view with the current parameters and backpropagate
@@ -220,7 +275,11 @@ def compute_grads(geometry, params, mat_static, target, it, FLAGS, loss_fn,
     tables = light_mod.update_pdf(params['light'])
     lgt = {'base': params['light'], 'pdf': tables.pdf, 'rows': tables.rows,
            'cols': tables.cols}
-    sigma = 2.0 if FLAGS['denoiser'] == 'bilateral' else None
+    sigma = None
+    if FLAGS['denoiser'] == 'bilateral':
+        # pass 1 ramps the denoiser with the shadows (dmtet.py:220-221)
+        sigma = (denoiser_sigma(it, FLAGS)
+                 if isinstance(geometry, DMTetGeometry) else 2.0)
     target_full = dict(target, resolution=tuple(FLAGS['train_res']),
                        spp=FLAGS['spp'])
     material = make_material(params['mat'], mat_static)
@@ -235,14 +294,17 @@ def compute_grads(geometry, params, mat_static, target, it, FLAGS, loss_fn,
 @torch.no_grad()
 def apply_grads(params, optimizers, mat_static, FLAGS):
     """The JAX package's apply_grads on the .grad of params: the light
-    gradient times 64 when the light is optimized, the global-norm clip of
-    geometry and material when clip_max_norm > 0, one Adam step per
-    optimized group (lock_pos and lock_light each hold a group: its
-    parameters, Adam state and schedule stay as they are), the
+    gradient times 64 when the light is optimized, the hash-grid table's
+    times 128 / 8 (the reference's loss scale and encoder-parameter scale),
+    the global-norm clip of geometry and material when clip_max_norm > 0,
+    one Adam step per optimized group (lock_pos and lock_light each hold a
+    group: its parameters, Adam state and schedule stay as they are), the
     projections (the light's applies locked or not, as in JAX)."""
     locked = {'geo': FLAGS['lock_pos'], 'light': FLAGS['lock_light']}
     if FLAGS['learn_lighting'] and not locked['light']:
         params['light'].grad.mul_(64.0)
+    if mat_static.get('kind') == 'mlp':
+        params['mat']['table'].grad.mul_(128.0 / 8.0)
     if FLAGS['clip_max_norm'] > 0.0:
         grads = [p.grad for p in _group(params['geo']) + _group(params['mat'])
                  if p.grad is not None]
@@ -267,6 +329,136 @@ def train_step(geometry, params, optimizers, mat_static, target, it, FLAGS,
                            loss_fn, perms, generator, **kw)
     apply_grads(params, optimizers, mat_static, FLAGS)
     return losses
+
+
+# ---------------------------------------------------------------------------
+# The pass boundary: extract the DMTet mesh, unwrap it, bake the neural
+# material into textures (reference train.py:108-152)
+# ---------------------------------------------------------------------------
+
+def _component_labels(faces, n_verts):
+    """Each face's connected component [T] (faces sharing a vertex are
+    connected): the smallest vertex id of the component, by label
+    propagation over the faces."""
+    f = np.asarray(faces, np.int64)
+    label = np.arange(n_verts, dtype=np.int64)
+    while True:
+        low = label[f].min(axis=1)
+        new = label.copy()
+        for i in range(3):
+            np.minimum.at(new, f[:, i], low)
+        new = new[new]                      # pointer jumping
+        if np.array_equal(new, label):
+            return label[f[:, 0]]
+        label = new
+
+
+def prune_small_components(f, ft, min_frac):
+    """Drop the connected components with fewer than min_frac of the
+    faces (min_frac 0: keep all).  When every component is that small,
+    the largest is kept (the first of equal ones), where the JAX package
+    drops them all.  Returns (f, ft, faces dropped)."""
+    if min_frac <= 0 or len(f) == 0:
+        return f, ft, 0
+    labels = _component_labels(f, int(f.max()) + 1)
+    uniq, counts = np.unique(labels, return_counts=True)
+    small = counts < min_frac * len(f)
+    if small.all():
+        small[np.argmax(counts)] = False
+    if not small.any():
+        return f, ft, 0
+    keep = ~np.isin(labels, uniq[small])
+    return f[keep], ft[keep], int((~keep).sum())
+
+
+@torch.no_grad()
+def extract_static_mesh(geometry, params, FLAGS, times=None):
+    """The DMTet mesh on the host without its padding slots and small
+    components (FLAGS['prune_components']), its vertices and texture
+    coordinates compacted to those the faces use; a Mesh on the
+    geometry's device.  times: a dict that receives the seconds of
+    'prune'."""
+    m, _ = geometry.getMesh(params, material=None, build_bvh=False)
+    dev = m.v_pos.device
+    v = m.v_pos.cpu().numpy()
+    f = m.t_pos_idx.cpu().numpy()
+    vt = m.v_tex.cpu().numpy()
+    ft = m.t_tex_idx.cpu().numpy()
+    keep = m.tri_mask.cpu().numpy() > 0
+    f, ft = f[keep], ft[keep]
+    frac = float(FLAGS.get('prune_components', 0.0))
+    t0 = time.perf_counter()
+    f, ft, n_pruned = prune_small_components(f, ft, frac)
+    if times is not None:
+        times['prune'] = time.perf_counter() - t0
+    if n_pruned:
+        print('prune_small_components: dropped %d floater triangles '
+              '(< %.2f%% of %d faces per component)'
+              % (n_pruned, 100 * frac, len(f) + n_pruned))
+    used = np.unique(f)
+    remap = np.full(v.shape[0], -1, np.int64)
+    remap[used] = np.arange(used.shape[0])
+    v, f = v[used], remap[f]
+    used_t = np.unique(ft)
+    remap_t = np.full(vt.shape[0], -1, np.int64)
+    remap_t[used_t] = np.arange(used_t.shape[0])
+    vt, ft = vt[used_t], remap_t[ft]
+
+    def t(a, dtype):
+        return torch.as_tensor(np.ascontiguousarray(a.astype(dtype)),
+                               device=dev)
+    return mesh_mod.Mesh(v_pos=t(v, np.float32), t_pos_idx=t(f, np.int32),
+                         v_tex=t(vt, np.float32),
+                         t_tex_idx=t(ft, np.int32))
+
+
+def uv_unwrap(v_pos, t_pos_idx):
+    """The bake's UV atlas (uv_unwrap.uv_unwrap, the chart-grown
+    unwrapper): (v_tex [Vn, 2], t_tex_idx [T, 3] int32) on v_pos's
+    device."""
+    uvs, tidx = _uv_unwrap_np(v_pos.detach().cpu().numpy(),
+                              t_pos_idx.cpu().numpy())
+    return (torch.as_tensor(uvs, device=v_pos.device),
+            torch.as_tensor(tidx, device=v_pos.device))
+
+
+@torch.no_grad()
+def bake_textures(geometry, params, mat_params, mat_static, FLAGS,
+                  times=None):
+    """The pass boundary: extract_static_mesh, uv_unwrap, then the neural
+    material rendered in UV space at FLAGS['texture_res'] (render_uv) with
+    its seams dilated over 7x7.  Returns (the base mesh, {'kd', 'ks',
+    'normal'} [1, H, W, 3] textures, the normal map flat).  times: a dict
+    that receives the seconds of 'extract' (prune apart), 'prune',
+    'unwrap' and 'bake'."""
+    times = {} if times is None else times
+    dev = mat_params['table'].device
+
+    def lap(name, t0):
+        if dev.type == 'cuda':
+            torch.cuda.synchronize(dev)
+        times[name] = time.perf_counter() - t0
+        return time.perf_counter()
+    t0 = time.perf_counter()
+    base = extract_static_mesh(geometry, params, FLAGS, times)
+    t0 = lap('extract', t0)
+    times['extract'] -= times['prune']
+    v_tex, t_tex_idx = uv_unwrap(base.v_pos, base.t_pos_idx)
+    base = dataclasses.replace(base, v_tex=v_tex, t_tex_idx=t_tex_idx)
+    t0 = lap('unwrap', t0)
+    mat = make_material(mat_params, mat_static)
+    mask, kd, ks = render_mod.render_uv(base, FLAGS['texture_res'],
+                                        mat['kd_ks'])
+
+    def dilate_tex(x):
+        avg = (torch.sum(x * mask, dim=(0, 1, 2))
+               / torch.clamp(torch.sum(mask, dim=(0, 1, 2)), min=1e-6))
+        return vecmath.dilate(x, avg[None, None, None, :], mask, 7)
+    kd, ks = dilate_tex(kd), dilate_tex(ks)
+    normal = torch.tensor([0.0, 0.0, 1.0], device=dev).expand(
+        kd.shape).contiguous()
+    lap('bake', t0)
+    return base, {'kd': kd, 'ks': ks, 'normal': normal}
 
 
 # ---------------------------------------------------------------------------
@@ -486,6 +678,15 @@ def optimize_mesh(geometry, mat_params, mat_static, light_base, dataset_train,
                               np.mean(reg_loss_vec[-log_interval:]),
                               np.mean(iter_dur_vec[-log_interval:]) * 1000,
                               vecmath.time_to_text(rem)), flush=True)
+            # the fixed buffers of marching tets drop triangles past
+            # max_tris: say so at each log line
+            if hasattr(geometry, 'tri_count'):
+                n_tris, cap = geometry.tri_count(params['geo'])
+                if n_tris > cap:
+                    print('WARNING: marching tets OVERFLOW: %d surface '
+                          'triangles > %d slots — geometry is being '
+                          'truncated; raise dmtet max_tris' % (n_tris, cap),
+                          flush=True)
 
     n = len(iter_dur_vec)
     if n:
@@ -557,20 +758,78 @@ def load_checkpoint(path, params, optimizers, generator, batches, dataset):
 
 
 # ---------------------------------------------------------------------------
-# The program (reference train.py:497-700): pass 2 on a given base mesh
+# The program (reference train.py:497-700)
 # ---------------------------------------------------------------------------
+
+def _timed_validate(geometry, params, mat_static, dataset_validate, FLAGS,
+                    name, max_frames):
+    t0 = time.perf_counter()
+    validate(geometry, params['geo'], params['mat'], mat_static,
+             params['light'], dataset_validate,
+             os.path.join(FLAGS['out_dir'], name), FLAGS,
+             max_frames=max_frames)
+    print('%s: %.3f s' % ('validation' if name == 'validate' else name,
+                          time.perf_counter() - t0), flush=True)
+
+
+def dmtet_pass(FLAGS, light_base, dataset_train, dataset_validate, device):
+    """Pass 1 and the pass boundary: DMTetGeometry (dmtet_grid,
+    mesh_scale, max_tris) with the neural material trained by
+    optimize_mesh (light trained when learn_lighting), validated on 8
+    views into dmtet_validate/ when FLAGS['validate'], then baked
+    (bake_textures) and written with its probe into dmtet_mesh/.  Returns
+    (the base mesh with its trainable textures' material, mat_params,
+    mat_static, the trained light)."""
+    geometry = DMTetGeometry(FLAGS['dmtet_grid'], FLAGS['mesh_scale'], FLAGS,
+                             max_tris=FLAGS['max_tris'], device=device)
+    mat_params, mat_static = initial_guess_material(geometry, True, FLAGS,
+                                                    device=device)
+    mat_static['no_perturbed_nrm'] = True
+    params = optimize_mesh(geometry, mat_params, mat_static, light_base,
+                           dataset_train, dataset_validate, FLAGS,
+                           pass_idx=0, pass_name='dmtet_pass1',
+                           optimize_light=FLAGS['learn_lighting'])
+    n_tris, cap = geometry.tri_count(params['geo'])
+    print('dmtet_pass1: %d surface triangles of %d slots%s'
+          % (n_tris, cap, ', OVERFLOW' if n_tris > cap else ''), flush=True)
+    if FLAGS['validate']:
+        _timed_validate(geometry, params, mat_static, dataset_validate,
+                        FLAGS, 'dmtet_validate', 8)
+
+    times = {}
+    base_mesh, baked = bake_textures(geometry, params['geo'], params['mat'],
+                                     mat_static, FLAGS, times)
+    print('pass boundary: %d triangles, %d vertices; extract %.3f s, '
+          'prune %.3f s, unwrap %.3f s, bake %.3f s'
+          % (base_mesh.t_pos_idx.shape[0], base_mesh.v_pos.shape[0],
+             times['extract'], times['prune'], times['unwrap'],
+             times['bake']), flush=True)
+    light_base = params['light'].detach()
+    mat_params, mat_static = initial_guess_material(
+        None, False, FLAGS, device=device,
+        init_mat={k: texture_mod.Texture2D(data=v) for k, v in baked.items()})
+    mat_static['no_perturbed_nrm'] = False
+    base_mesh.material = make_material(mat_params, mat_static)
+    folder = os.path.join(FLAGS['out_dir'], 'dmtet_mesh')
+    os.makedirs(folder, exist_ok=True)
+    obj_mod.write_obj(folder + '/', base_mesh)
+    if FLAGS['learn_lighting']:
+        light_mod.save_env_map(os.path.join(folder, 'probe.hdr'), light_base)
+    return base_mesh, mat_params, mat_static, light_base
+
 
 def main(argv=None, device=None):
     """Parse the flags (config.parse_flags), build the reference dataset
-    from FLAGS['ref_mesh'] (an .obj rendered by DatasetMesh), the light
-    (trainable, or FLAGS['envlight']), train the base mesh's material and
-    light (optimize_mesh), validate 16 views when FLAGS['validate'], and
-    export mesh.obj, mesh.mtl, its textures and probe.hdr into
-    <out_dir>/mesh/.  device: None means the CUDA card.  Returns the
-    trained parameters."""
+    from FLAGS['ref_mesh'] (an .obj rendered by DatasetMesh) and the light
+    (trainable, or FLAGS['envlight']).  Without base_mesh: pass 1 and the
+    pass boundary (dmtet_pass), then pass 2 on the baked mesh (warm-up 100
+    steps); with it: pass 2 on the base mesh and its material.  Pass 2
+    trains the material, the light unless lock_light and the vertices
+    unless lock_pos (optimize_mesh), validates 16 views when
+    FLAGS['validate'], and exports mesh.obj, mesh.mtl, its textures and
+    probe.hdr into <out_dir>/mesh/.  device: None means the CUDA card.
+    Returns the trained parameters."""
     FLAGS = config.parse_flags(argv)
-    if FLAGS['base_mesh'] is None:
-        raise NotImplementedError('pass 1 (DMTet) is not ported')
     device = resolve(device)
     print("Config / Flags:")
     print("---------")
@@ -598,24 +857,27 @@ def main(argv=None, device=None):
             config.resolve_path(FLAGS, FLAGS['envlight']),
             FLAGS['env_scale'], device=device)
 
-    base_mesh = mesh_mod.load_mesh(
-        config.resolve_path(FLAGS, FLAGS['base_mesh']), device=device)
+    if FLAGS['base_mesh'] is None:
+        base_mesh, mat_params, mat_static, light_base = dmtet_pass(
+            FLAGS, light_base, dataset_train, dataset_validate, device)
+        pass_idx, warmup_iter = 1, 100
+    else:
+        base_mesh = mesh_mod.load_mesh(
+            config.resolve_path(FLAGS, FLAGS['base_mesh']), device=device)
+        mat_params, mat_static = initial_guess_material(
+            None, False, FLAGS, init_mat=base_mesh.material, device=device)
+        pass_idx, warmup_iter = 0, 0
     geometry = DLMesh(base_mesh, FLAGS)
-    mat_params, mat_static = initial_guess_material(
-        geometry, False, FLAGS, init_mat=base_mesh.material, device=device)
     params = optimize_mesh(geometry, mat_params, mat_static, light_base,
                            dataset_train, dataset_validate, FLAGS,
-                           pass_idx=0, pass_name='mesh_pass', warmup_iter=0,
+                           pass_idx=pass_idx, pass_name='mesh_pass',
+                           warmup_iter=warmup_iter,
                            optimize_light=not FLAGS['lock_light'],
                            optimize_geometry=not FLAGS['lock_pos'])
 
     if FLAGS['validate']:
-        t0 = time.perf_counter()
-        validate(geometry, params['geo'], params['mat'], mat_static,
-                 params['light'], dataset_validate,
-                 os.path.join(FLAGS['out_dir'], 'validate'), FLAGS,
-                 max_frames=16)
-        print('validation: %.3f s' % (time.perf_counter() - t0), flush=True)
+        _timed_validate(geometry, params, mat_static, dataset_validate,
+                        FLAGS, 'validate', 16)
 
     t0 = time.perf_counter()
     with torch.no_grad():

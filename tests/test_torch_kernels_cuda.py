@@ -19,7 +19,11 @@ fields bit for bit; the denoiser in both modes at 500x333 and sigma 2 and
 0.6, a refused launch, and 20 launches equal to the first at 1x1, 33x9
 and 511x257; the guide and sample kernels at odd light sizes, 37x75 and
 1024x2048, the sampler at 1 and 16 strata; shade_bwd at 1, 16 and 256
-strata on a pixel count that is not a multiple of 32).
+strata on a pixel count that is not a multiple of 32; pass 1: the C = 2
+instance and the generic one on a hash-grid table's cotangent of a million
+rows in both row orders, marching tets on the card against the CPU at
+grid 64, and the hash-grid encode on the card against the CPU at the
+default config).
 Marked `gpu`; skipped where torch.cuda.is_available() is false.  On a machine with a GPU and no JAX:
 
     python -m pytest --noconftest -m gpu tests/test_torch_kernels_cuda.py
@@ -529,7 +533,7 @@ def test_mask_duplicate_rays_matches_plain(spot_rays):
     assert r['ok'], r
 
 
-SCATTER_CHANNELS = [3, 4, 6, 9, 13, 5, 500]   # the instances, generic 5, 500
+SCATTER_CHANNELS = [2, 3, 4, 6, 9, 13, 5, 500]   # the instances, generic 5, 500
 
 
 def _scatter_inputs(pattern, C, dev):
@@ -566,8 +570,8 @@ def _scatter_inputs(pattern, C, dev):
                                      'unaligned'])
 @pytest.mark.parametrize('C', SCATTER_CHANNELS)
 def test_scatter_instances_match_plain(C, pattern):
-    """Every template instance of the row scatter (the step's channel
-    counts) and the generic one (5; 500, wider than a warp's rows could
+    """Every template instance of the row scatter (the steps' channel
+    counts, 2 the hash-grid table's) and the generic one (5; 500, wider than a warp's rows could
     be staged in shared memory) on every id equal, lanes alternating between two ids,
     runs of three ids, whole zero rows with ids out of range, a row count
     that is no multiple of the block, and unaligned values."""
@@ -863,3 +867,98 @@ def test_denoise_repeats_exactly(H, W):
         for _ in range(19):
             assert torch.equal(
                 pallas_denoise._launch(c, nrm, zdz, 2.0, grad_mode), first)
+
+
+# ---------------------------------------------------------------------------
+# Pass 1: the hash-grid table's scatter, marching tets, the encode
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize('order', ['level_major', 'point_major'])
+def test_hashgrid_scatter_c2_matches_plain(order):
+    """The table cotangent of the default hash grid at 8,192 points (16
+    levels x 8 corners x 8,192 = 1,048,576 rows of 2 channels into 2^23
+    rows): the C = 2 instance and the generic one against the plain
+    version, in the port's row order (level, corner, point: a warp's 32
+    rows are neighbouring points, mostly of one coarse cell) and point-major
+    (a warp's rows spread over the levels)."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA device')
+    from nvdiffrecmc_tpu_torch import checks, kernels
+    from nvdiffrecmc_tpu_torch.ops import hashgrid
+    kernels.build()
+    cfg = hashgrid.HashEncodingConfig()
+    gen = torch.Generator(device='cuda')
+    gen.manual_seed(3)
+    # points on a surface patch: neighbours share coarse cells
+    uv = torch.rand((8192, 2), generator=gen, device='cuda')
+    x = torch.stack([uv[:, 0], uv[:, 1], 0.5 + 0.1 * uv[:, 0] * uv[:, 1]],
+                    1)
+    rows = hashgrid.encode_rows(x, cfg)                       # [16, 8, P]
+    if order == 'point_major':
+        rows = rows.permute(2, 0, 1)
+    idx = rows.reshape(-1).contiguous()
+    vals = torch.randn((idx.shape[0], 2), generator=gen, device='cuda')
+    V = cfg.n_levels * hashgrid.table_size(cfg)
+    for generic in (False, True):
+        r = checks.check_scatter(idx, vals, V, reps=1, generic=generic)
+        assert r['ok'], (generic, r)
+
+
+def test_marching_tets_cuda_matches_cpu():
+    """The Kuhn grid 64 (274,625 vertices, 1,572,864 tets) under the
+    reference's random SDF init and a seeded deformation, into 98,304
+    slots (24 x 64^2; the init overflows them, so both truncate): the
+    edge table, faces, face_gidx, tri_mask and the overflow flag equal on
+    the card and on the CPU, vertices within 1e-6."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA device')
+    from nvdiffrecmc_tpu_torch.geometry import dmtet
+    verts, idx = dmtet.kuhn_tet_grid(64)
+    rng = np.random.RandomState(0)
+    sdf = rng.rand(verts.shape[0]).astype(np.float32) - 0.1
+    deform = rng.randn(*verts.shape).astype(np.float32)
+    out = {}
+    for dev in ('cpu', 'cuda'):
+        v = torch.as_tensor(verts * np.float32(2.1), device=dev)
+        v = v + 2.0 / 128 * torch.tanh(torch.as_tensor(deform, device=dev))
+        t = torch.as_tensor(idx, device=dev).long()
+        uniq, emap = dmtet.edge_tables(t, v.shape[0])
+        res = dmtet.marching_tets(v, torch.as_tensor(sdf, device=dev), t,
+                                  uniq, emap, 24 * 64 * 64)
+        out[dev] = [x.cpu() for x in (uniq, emap) + tuple(res)]
+    (u0, e0, v0, f0, g0, m0, o0), (u1, e1, v1, f1, g1, m1, o1) = \
+        out['cpu'], out['cuda']
+    assert u0.shape[0] == 1872064
+    for a, b in ((u0, u1), (e0, e1), (f0, f1), (g0, g1), (m0, m1),
+                 (o0, o1)):
+        assert torch.equal(a, b)
+    assert bool(o0) and int(m0.sum()) == 24 * 64 * 64
+    assert float((v0 - v1).abs().max()) <= 1e-6
+
+
+def test_hashgrid_encode_cuda_matches_cpu():
+    """The default HashEncodingConfig (16 levels, 2^19 rows, 2 features)
+    on 65,536 points and a seeded table: features within 1e-6, the table's
+    gradient (the C = 2 scatter on the card, index_add_ on the CPU) within
+    1e-5 of its largest entry, the points' within 1e-5 of theirs."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA device')
+    from nvdiffrecmc_tpu_torch import kernels
+    from nvdiffrecmc_tpu_torch.ops import hashgrid
+    kernels.build()
+    cfg = hashgrid.HashEncodingConfig()
+    rng = np.random.RandomState(5)
+    table = rng.uniform(-1, 1, (16 << 19, 2)).astype(np.float32)
+    x = rng.rand(65536, 3).astype(np.float32)
+    g = rng.randn(65536, 32).astype(np.float32)
+    out = {}
+    for dev in ('cpu', 'cuda'):
+        tt = torch.tensor(table, device=dev, requires_grad=True)
+        xt = torch.tensor(x, device=dev, requires_grad=True)
+        f = hashgrid.encode(tt, xt, cfg)
+        (f * torch.as_tensor(g, device=dev)).sum().backward()
+        out[dev] = (f.detach().cpu(), tt.grad.cpu(), xt.grad.cpu())
+    (f0, t0, x0), (f1, t1, x1) = out['cpu'], out['cuda']
+    assert float((f0 - f1).abs().max()) <= 1e-6
+    assert float((t0 - t1).abs().max()) <= 1e-5 * float(t0.abs().max())
+    assert float((x0 - x1).abs().max()) <= 1e-5 * float(x0.abs().max())

@@ -5,7 +5,8 @@ order of batch_iterator, and train.main on the CPU at a small size (the
 octasphere at 16x16, 32x32 textures, n_samples 2, no probe, no
 validation): a run stopped after its checkpoint and resumed equals the
 uninterrupted run bit for bit, a truncated checkpoint raises with its
-path, and main without base_mesh refuses pass 1."""
+path; without base_mesh, main runs both passes (DMTet grid 8) and a run
+stopped in pass 1 and resumed equals the uninterrupted one bit for bit."""
 
 import glob
 import json
@@ -238,15 +239,76 @@ def test_main_truncated_checkpoint_raises(tmp_path):
         train.main(argv, device='cpu')
 
 
-def test_main_without_base_mesh_refuses_pass_1(tmp_path):
-    argv = program_argv(str(tmp_path), 'run')
+def _two_pass_argv(folder, *extra):
+    """program_argv without base_mesh: pass 1 on the DMTet grid 8 (24 x 8^2
+    triangle slots) with the default hash grid, then pass 2 on the baked
+    mesh."""
+    argv = program_argv(folder, 'run', *extra)
     with open(argv[1]) as f:
         cfg = json.load(f)
     del cfg['base_mesh']
+    cfg.update(dmtet_grid=8, sdf_init='sphere')
     with open(argv[1], 'w') as f:
         json.dump(cfg, f)
-    with pytest.raises(NotImplementedError, match='pass 1'):
+    return argv
+
+
+def test_main_without_base_mesh_refuses_pass_1(tmp_path):
+    """main without base_mesh no longer refuses pass 1: it runs pass 1
+    (DMTet and the neural material), the pass boundary and pass 2 on the
+    baked mesh, and writes dmtet_mesh/ and mesh/, each an OBJ with its MTL,
+    three textures and the probe; pass 2's mesh is the baked one (lock_pos)
+    and its textures are the bake's, trained further."""
+    params = train.main(_two_pass_argv(str(tmp_path)), device='cpu')
+    out = os.path.join(str(tmp_path), 'run')
+    for d in ('dmtet_mesh', 'mesh'):
+        assert sorted(os.listdir(os.path.join(out, d))) == [
+            'mesh.mtl', 'mesh.obj', 'probe.hdr', 'texture_kd.png',
+            'texture_ks.png', 'texture_n.png'], d
+    baked = t_obj.load_obj(os.path.join(out, 'dmtet_mesh', 'mesh.obj'),
+                           device='cpu')
+    final = t_obj.load_obj(os.path.join(out, 'mesh', 'mesh.obj'),
+                           device='cpu')
+    assert baked.t_pos_idx.shape[0] > 0
+    assert torch.equal(baked.t_pos_idx, final.t_pos_idx)
+    assert torch.equal(params['geo']['v_pos'], torch.as_tensor(
+        baked.v_pos))
+    assert set(params['mat']) == {'kd', 'ks', 'normal'}
+    assert sorted(f for f in os.listdir(out) if f.endswith('.pkl')) == []
+
+
+def test_main_two_pass_resume_is_bitwise(tmp_path, monkeypatch):
+    """Both passes with a checkpoint every 2 iterations, and the same run
+    stopped right after pass 1's checkpoint at iteration 2 then resumed
+    (pass 1 from iteration 3, then the boundary and pass 2): pass 2's
+    parameters and the baked OBJ equal bit for bit."""
+    whole = train.main(_two_pass_argv(str(tmp_path / 'a'),
+                                      '--checkpoint-interval', '2'),
+                       device='cpu')
+    argv = _two_pass_argv(str(tmp_path / 'b'), '--checkpoint-interval', '2')
+    save = train.save_checkpoint
+
+    def save_then_stop(path, it, **state):
+        save(path, it, **state)
+        if 'dmtet_pass1' in path:
+            raise _Stop(it)
+    monkeypatch.setattr(train, 'save_checkpoint', save_then_stop)
+    with pytest.raises(_Stop):
         train.main(argv, device='cpu')
+    monkeypatch.setattr(train, 'save_checkpoint', save)
+    resumed = train.main(argv, device='cpu')
+    for group in ('geo', 'mat'):
+        for k, v in whole[group].items():
+            assert torch.equal(v, resumed[group][k]), (group, k)
+    assert torch.equal(whole['light'], resumed['light'])
+    objs = [open(os.path.join(str(tmp_path / d), 'run', 'dmtet_mesh',
+                              'mesh.obj')).read() for d in 'ab']
+    assert objs[0] == objs[1]
+    ckpt = torch.load(os.path.join(str(tmp_path / 'b'), 'run',
+                                   'checkpoint_dmtet_pass1.pkl'),
+                      weights_only=True)
+    assert set(ckpt['params']['geo']) == {'sdf', 'deform'}
+    assert set(ckpt['params']['mat']) == {'table', 'w0', 'w1', 'w2'}
 
 
 @pytest.mark.parametrize('lr, want', [
