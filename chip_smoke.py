@@ -81,18 +81,17 @@ one):
    the initial gray.  Then `-i 12` into the same out_dir resumes from
    iteration 11 and runs that one step; the checkpoints are deleted;
 13. pass 1, the pass boundary and both passes: the program on the config
-   of phase 12 without base_mesh, validation on, in
-   chiprun_out/train_two_pass/ (pass 1 on the DMTet Kuhn grid 64, 98,304
-   triangle slots, with the default hash grid and its 32-wide MLP, 20
-   iterations and 8 dmtet_validate views; the bake at 512x512; pass 2 on
-   the baked mesh, 20 iterations, 16 views).  Relayed and printed: each
-   pass's median ms per step and launches per step (as in phase 6), the
-   surface triangles against the slots at the end of pass 1 and every
-   overflow warning, the seconds of extract, prune, unwrap and
-   bake, s per view of each validation, every probe's PSNR and seconds,
-   peak device memory.  Checks: losses and PSNRs finite, both
-   metrics.txt, dmtet_mesh/ and mesh/ read back, pass 2's mesh the baked
-   one.  Then, in this process, one recorded pass-1 step at batch 4
+   of phase 12 without base_mesh, in chiprun_out/train_two_pass/ (pass 1
+   on the DMTet Kuhn grid 64, 98,304 triangle slots, with the default
+   hash grid and its 32-wide MLP, PROGRAM_ITERS iterations; the bake at
+   512x512; pass 2 on the baked mesh, PROGRAM_ITERS iterations; no
+   validation, which phase 14's program runs after both passes).  Relayed
+   and printed: each pass's median ms per step and launches per step (as
+   in phase 6), the surface triangles against the slots at the end of
+   pass 1 and every overflow warning, the seconds of extract, prune,
+   unwrap and bake, every probe's PSNR and seconds, peak device memory.
+   Checks: losses and PSNRs finite, dmtet_mesh/ and mesh/ read back, pass
+   2's mesh the baked one.  Then, in this process, one recorded pass-1 step at batch 4
    (iteration PASS1_IT) holds every kernel of the step against its plain
    version (every row scatter launch; the hash-grid table's, 268 M rows
    of C = 2, also with the generic instance, timed against both and
@@ -100,6 +99,24 @@ one):
    step, peak memory and, per step and image, the triangles the resolve
    gives the whole screen (a vertex at w <= 1e-6); last a kernel-only
    trace of 2 more steps gives pass 1's device ms per step;
+14. the NeRF scene (users who reconstruct from photographs): the program
+   on configs/nerf_spot_synth_g64.json as shipped (data/nerf_synthetic_spot,
+   batch 8 in micro-steps of 1, 800x800, n_samples 8, 1024x1024 textures,
+   DMTet grid 64 at mesh_scale 2.4, the white background, four display
+   layers) but NERF_ITERS iterations a pass, in chiprun_out/train_nerf/
+   (cleared first).  Relayed and printed: each pass's median ms per step,
+   micro-steps and launches per step, the surface triangles against the
+   98,304 slots and every overflow warning, the boundary's seconds, s per
+   view and PSNR of dmtet_validate and validate (the 4 test views), the
+   probes, peak device memory.  Checks: losses and PSNRs finite, both
+   metrics.txt, dmtet_mesh/ and mesh/ read back, 8 micro-steps a step,
+   every kernel but the mask launched (the validation's trace at
+   800x800), peak memory under the card's.  Then, in this process: the
+   peak memory of one micro-step and of an unsplit batch of 2 (the unsplit
+   batch 8 reckoned from them); one recorded pass-1 micro-step at 800x800
+   and n2 = 64 holds each of its kernels against its plain version (every
+   row scatter launch); one step of 8 micro-steps, timed, with the
+   whole-screen triangles per image;
 7. with --profile only: torch.profiler over 4 more frames and over 4 more
    training steps; prints device time by kernel, launches and host gaps,
    and writes the full tables to chiprun_out/profile_port.txt and
@@ -113,8 +130,9 @@ replace the TPU kernels, the denoiser's two modes apart, and the sampler's
 guide kernel; each with its time, its plain version's, its bound and, for
 the two scatters, index_add_'s, for the guide torch.searchsorted's, and
 its launches in phase 12's program and per step there, in phase 13's
-program and per pass-1 step there and, for the step's kernels, its check
-at batch 4 and at pass 1's batch 4; the row scatter's
+program and per pass-1 step there, in phase 14's program, per NeRF pass-1
+step and per micro-step and, for the step's kernels, its check at batch
+4, at pass 1's batch 4 and at the NeRF micro-step; the row scatter's
 entry is its largest launch, with every launch of the step and their
 summed time and bound beside it, and pass 1's hash-grid launch with the
 generic instance's and index_add_'s times), the card line, and {"ok":
@@ -151,11 +169,15 @@ RESOLVE_MAX_LAUNCHES = 10   # kernels of one rasterize call up to the resolve
 VAL_FRAMES = 2
 VAL_N = 32              # the reference validation protocol's n_samples
 PROGRAM_ITERS = 20
-PROGRAM_VIEWS = 16      # main()'s validation views
 PROGRAM_TIMEOUT = 600   # seconds for each run of the program
-DMTET_VIEWS = 8         # main()'s validation views after pass 1
 PASS1_IT = 3            # the recorded pass-1 step's iteration
 PASS1_STEPS = 4         # pass-1 steps timed in this process
+NERF_CONFIG = os.path.join('configs', 'nerf_spot_synth_g64.json')
+NERF_TRAIN = os.path.join('data', 'nerf_synthetic_spot',
+                          'transforms_train.json')
+NERF_ITERS = 8          # iterations a pass of phase 14's program
+NERF_VIEWS = 4          # the test split's views, in both validations
+NERF_TIMEOUT = 700      # seconds for phase 14's program
 
 
 def smi_line():
@@ -764,12 +786,11 @@ def small_validation_agreement(device):
 # The pass-2 program
 # ---------------------------------------------------------------------------
 
-def program_setup(work, base_mesh=True, out_dir='spot', iters=PROGRAM_ITERS,
-                  validate=False):
+def program_setup(work, base_mesh=True, out_dir='spot', iters=PROGRAM_ITERS):
     """The scene and config of phases 12 and 13 in work/: the reference's
     MTL override and a config of configs/spot.json's keys over the spot256
-    scene, iters iterations, a probe and a checkpoint every 10, out_dir
-    under work.  base_mesh: phase 12's base mesh (spot256's geometry,
+    scene, iters iterations, a probe and a checkpoint every 10, no
+    validation, out_dir under work.  base_mesh: phase 12's base mesh (spot256's geometry,
     constant kd 0.5 and ks (0, 0.5, 0) at 512x512, written by the port's
     write_obj); without it the program runs pass 1 first.  Returns the
     config's path."""
@@ -799,7 +820,7 @@ def program_setup(work, base_mesh=True, out_dir='spot', iters=PROGRAM_ITERS,
                 % os.path.join(SPOT256_DIR, 'texture_kd.png'))
     cfg.update(ref_mesh=os.path.join(SPOT256_DIR, 'mesh.obj'),
                mtl_override=mtl, envlight=SPOT256_PROBE, iter=iters,
-               save_interval=10, checkpoint_interval=10, validate=validate,
+               save_interval=10, checkpoint_interval=10, validate=False,
                out_root=work, out_dir=out_dir)
     path = os.path.join(work, 'config_%s.json' % out_dir)
     with open(path, 'w') as f:
@@ -807,7 +828,7 @@ def program_setup(work, base_mesh=True, out_dir='spot', iters=PROGRAM_ITERS,
     return path
 
 
-def run_program(argv, log_path):
+def run_program(argv, log_path, timeout=PROGRAM_TIMEOUT):
     """python3 -m nvdiffrecmc_tpu_torch.train argv in this checkout; its
     output goes to log_path.  Returns the output's lines; raises on a
     non-zero exit."""
@@ -815,7 +836,7 @@ def run_program(argv, log_path):
     t0 = time.perf_counter()
     proc = subprocess.run(
         [sys.executable, '-m', 'nvdiffrecmc_tpu_torch.train'] + argv,
-        cwd=here, capture_output=True, text=True, timeout=PROGRAM_TIMEOUT)
+        cwd=here, capture_output=True, text=True, timeout=timeout)
     with open(log_path, 'w') as f:
         f.write(proc.stdout + proc.stderr)
     print('program %s: exit %d, %.1f s (log %s)'
@@ -885,17 +906,18 @@ def pass_summary(lines, pass_name):
     return med, json.loads(summary.split('kernel launches per step ')[1])
 
 
-def check_program_log(lines, n_passes):
-    """The program's losses and probe PSNRs, all finite, one log line and
-    one probe each 10 iterations of each pass.  Returns the PSNRs and the
-    seconds of each probe."""
+def check_program_log(lines, n_passes, iters=PROGRAM_ITERS, probe_every=10):
+    """The program's losses and probe PSNRs, all finite, one log line each
+    10 iterations and one probe each probe_every iterations of each pass.
+    Returns the PSNRs and the seconds of each probe."""
     import re
     losses = [float(x) for ln in _after(lines, 'iter=')
               for x in re.findall(r'_loss=([-+\w.]+)', ln)]
     psnrs = [float(x.split()[-2]) for x in _after(lines, '[probe] iter=')
              if 'PSNR' in x]
-    logged = n_passes * len(range(0, PROGRAM_ITERS, 10))
-    if len(losses) != 2 * logged or len(psnrs) != logged or not all(
+    logged = n_passes * len(range(0, iters, 10))
+    probed = n_passes * len(range(0, iters, probe_every))
+    if len(losses) != 2 * logged or len(psnrs) != probed or not all(
             _finite(x) for x in losses + psnrs):
         raise RuntimeError('program losses %s, probe PSNRs %s'
                            % (losses, psnrs))
@@ -904,10 +926,12 @@ def check_program_log(lines, n_passes):
     return psnrs, probe_s
 
 
-def check_step_launches(per_step, label):
+def check_step_launches(per_step, label, micro_steps=1):
+    """Each kernel launched per step as STEP_LAUNCHES says, times the
+    step's micro-steps."""
     wrong = {n: per_step[n] for n in STEP_LAUNCHES
-             if per_step[n] != STEP_LAUNCHES[n]}
-    if wrong or per_step['scatter'] < 1:
+             if per_step[n] != STEP_LAUNCHES[n] * micro_steps}
+    if wrong or per_step['scatter'] < micro_steps:
         raise RuntimeError('%s: kernel launches per step %s'
                            % (label, wrong or per_step))
 
@@ -1179,23 +1203,22 @@ def pass1_checks(device):
 def two_pass_program():
     """Phase 13, the program: configs/spot.json's keys with no base_mesh,
     PROGRAM_ITERS iterations in each pass, a probe and a checkpoint every
-    10, validation on (DMTET_VIEWS views after pass 1, PROGRAM_VIEWS after
-    pass 2), in chiprun_out/train_two_pass/.  Returns (the kernel launches
-    of the run, per pass-1 step)."""
+    10, no validation (phase 14's program validates both passes), in
+    chiprun_out/train_two_pass/.  Returns (the kernel launches of the run,
+    per pass-1 step)."""
     import re
     import torch
     here = os.path.dirname(os.path.abspath(__file__))
     work = os.path.join(here, 'chiprun_out', 'train_two_pass')
     shutil.rmtree(work, ignore_errors=True)
-    cfg = program_setup(work, base_mesh=False, validate=True)
+    cfg = program_setup(work, base_mesh=False)
     torch.cuda.empty_cache()
     lines = run_program(['--config', cfg], os.path.join(work, 'run.log'))
-    relay = ('iter=', '[probe]', 'WARNING', 'MSE', 'peak device memory',
-             'dmtet_pass1:', 'dmtet_validate:', 'prune_small', 'pass '
-             'boundary:', 'Base mesh', 'mesh_pass:', 'validation:',
-             'export:')
-    for i, ln in enumerate(lines):
-        if ln.startswith(relay) or (i and lines[i - 1].startswith('MSE')):
+    relay = ('iter=', '[probe]', 'WARNING', 'peak device memory',
+             'dmtet_pass1:', 'prune_small', 'pass boundary:', 'Base mesh',
+             'mesh_pass:', 'export:')
+    for ln in lines:
+        if ln.startswith(relay):
             print('two passes | ' + ln, flush=True)
     psnrs, probe_s = check_program_log(lines, 2)
     med1, per_step1 = pass_summary(lines, 'dmtet_pass1')
@@ -1204,19 +1227,15 @@ def two_pass_program():
     boundary = _after(lines, 'pass boundary: ')[0]
     launches = json.loads(_after(lines, 'kernel launches: ')[0])
     peak = float(_after(lines, 'peak device memory: ')[0].split()[0])
-    val1 = float(_after(lines, 'dmtet_validate: ')[0].split()[0])
-    val2 = float(_after(lines, 'validation: ')[0].split()[0])
     secs = dict(re.findall(r'(extract|prune|unwrap|bake) ([\d.]+) s',
                            boundary))
     print('two passes: pass 1 median %.3f ms per step, pass 2 %.3f ms (batch '
           '4, %d steps each); pass 1 ends with %s; boundary: extract %s s, '
-          'prune %s s, unwrap %s s, bake %s s; %.3f s per dmtet_validate '
-          'view, %.3f s per validation view; probes PSNR %s dB, %s s; peak '
+          'prune %s s, unwrap %s s, bake %s s; probes PSNR %s dB, %s s; peak '
           'device memory %.3f GiB (%s)'
           % (med1, med2, PROGRAM_ITERS, tris, secs['extract'],
-             secs['prune'], secs['unwrap'], secs['bake'], val1 / DMTET_VIEWS,
-             val2 / PROGRAM_VIEWS, psnrs, probe_s, peak, smi_line()),
-          flush=True)
+             secs['prune'], secs['unwrap'], secs['bake'], psnrs, probe_s,
+             peak, smi_line()), flush=True)
     print('two passes: kernel launches %s; per pass-1 step %s; per pass-2 '
           'step %s' % (launches, per_step1, per_step2), flush=True)
     check_step_launches(per_step1, 'pass 1')
@@ -1225,14 +1244,11 @@ def two_pass_program():
         print('two passes: WARNING, marching tets overflowed at the end of '
               'pass 1', flush=True)
     out = os.path.join(work, 'spot')
-    avg1 = check_metrics(os.path.join(out, 'dmtet_validate'), DMTET_VIEWS)
-    avg2 = check_metrics(os.path.join(out, 'validate'), PROGRAM_VIEWS)
-    files1, mesh1, _ = check_mesh_dir(os.path.join(out, 'dmtet_mesh'))
-    files2, mesh2, _ = check_mesh_dir(os.path.join(out, 'mesh'))
-    print('two passes: dmtet_validate %s; validate %s; dmtet_mesh/ %d '
-          'triangles, %d vertices; mesh/ %d triangles'
-          % (avg1, avg2, mesh1.t_pos_idx.shape[0], mesh1.v_pos.shape[0],
-             mesh2.t_pos_idx.shape[0]), flush=True)
+    _, mesh1, _ = check_mesh_dir(os.path.join(out, 'dmtet_mesh'))
+    _, mesh2, _ = check_mesh_dir(os.path.join(out, 'mesh'))
+    print('two passes: dmtet_mesh/ %d triangles, %d vertices; mesh/ %d '
+          'triangles' % (mesh1.t_pos_idx.shape[0], mesh1.v_pos.shape[0],
+                         mesh2.t_pos_idx.shape[0]), flush=True)
     if mesh1.t_pos_idx.shape[0] == 0 or \
             mesh2.t_pos_idx.shape[0] != mesh1.t_pos_idx.shape[0]:
         raise RuntimeError('the baked mesh is empty or pass 2 changed it')
@@ -1250,6 +1266,217 @@ def drop_checkpoints(folder):
             print('dropping %s (%.1f MB)'
                   % (path, os.path.getsize(path) / 2 ** 20), flush=True)
             os.remove(path)
+
+
+# ---------------------------------------------------------------------------
+# The NeRF scene: both passes at batch 8 in micro-steps of 1, 800x800
+# ---------------------------------------------------------------------------
+
+def nerf_setup(work):
+    """configs/nerf_spot_synth_g64.json as shipped, but NERF_ITERS
+    iterations a pass, out_root work and data_root this checkout, written
+    into work/.  Returns its path."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    with open(os.path.join(here, NERF_CONFIG)) as f:
+        cfg = json.load(f)
+    cfg.update(iter=NERF_ITERS, out_root=work, data_root=here)
+    os.makedirs(work, exist_ok=True)
+    path = os.path.join(work, 'config.json')
+    with open(path, 'w') as f:
+        json.dump(cfg, f, indent=1)
+    return path
+
+
+def nerf_program():
+    """Phase 14, the program: the NeRF config of nerf_setup in
+    chiprun_out/train_nerf/ (cleared first).  Relays and prints each
+    pass's median ms per step, micro-steps and launches per step, the
+    surface triangles at the end of pass 1 and every overflow warning, the
+    boundary's seconds, s per view and PSNR of both validations, the
+    probes and peak device memory; checks losses and PSNRs finite, both
+    metrics.txt, dmtet_mesh/ and mesh/ read back, pass 2's mesh the baked
+    one, every kernel but the mask launched, peak memory under the card's.
+    Returns (the config's path, the kernel launches of the run, per
+    pass-1 step, per pass-2 step)."""
+    import re
+    import torch
+    here = os.path.dirname(os.path.abspath(__file__))
+    work = os.path.join(here, 'chiprun_out', 'train_nerf')
+    shutil.rmtree(work, ignore_errors=True)
+    cfg = nerf_setup(work)
+    torch.cuda.empty_cache()
+    lines = run_program(['--config', cfg], os.path.join(work, 'run.log'),
+                        timeout=NERF_TIMEOUT)
+    relay = ('DatasetNERF', 'iter=', '[probe]', 'WARNING', 'MSE',
+             'peak device memory', 'dmtet_pass1:', 'dmtet_validate:',
+             'prune_small', 'pass boundary:', 'Base mesh', 'mesh_pass:',
+             'validation:', 'export:')
+    for i, ln in enumerate(lines):
+        if ln.startswith(relay) or (i and lines[i - 1].startswith('MSE')):
+            print('nerf | ' + ln, flush=True)
+    psnrs, probe_s = check_program_log(lines, 2, NERF_ITERS, 100)
+    med1, per_step1 = pass_summary(lines, 'dmtet_pass1')
+    med2, per_step2 = pass_summary(lines, 'mesh_pass')
+    micro = [int(x) for x in re.findall(r'of (\d+) micro-steps',
+                                        '\n'.join(lines))]
+    tris = [x for x in _after(lines, 'dmtet_pass1: ') if 'slots' in x][0]
+    overflows = len([x for x in lines if 'OVERFLOW' in x])
+    boundary = _after(lines, 'pass boundary: ')[0]
+    launches = json.loads(_after(lines, 'kernel launches: ')[0])
+    peak = float(_after(lines, 'peak device memory: ')[0].split()[0])
+    card = torch.cuda.get_device_properties(0).total_memory / 2 ** 30
+    val1 = float(_after(lines, 'dmtet_validate: ')[0].split()[0])
+    val2 = float(_after(lines, 'validation: ')[0].split()[0])
+    secs = dict(re.findall(r'(extract|prune|unwrap|bake) ([\d.]+) s',
+                           boundary))
+    out = os.path.join(work, 'nerf_spot_synth_g64')
+    avg1 = check_metrics(os.path.join(out, 'dmtet_validate'), NERF_VIEWS)
+    avg2 = check_metrics(os.path.join(out, 'validate'), NERF_VIEWS)
+    print('nerf: pass 1 median %.3f ms per step, pass 2 %.3f ms (batch 8 '
+          'in %s micro-steps, 800x800, n_samples 8, grid 64, %d steps '
+          'each); pass 1 ends with %s; %d overflow lines; boundary: extract '
+          '%s s, prune %s s, unwrap %s s, bake %s s; dmtet_validate %.3f s '
+          'per view (%s), validate %.3f s per view (%s); probes PSNR %s dB, '
+          '%s s; peak device memory %.3f GiB of the card\'s %.3f (%s)'
+          % (med1, med2, micro, NERF_ITERS, tris, overflows,
+             secs['extract'], secs['prune'], secs['unwrap'], secs['bake'],
+             val1 / NERF_VIEWS, avg1, val2 / NERF_VIEWS, avg2, psnrs,
+             probe_s, peak, card, smi_line()), flush=True)
+    print('nerf: kernel launches %s; per pass-1 step %s; per pass-2 step %s'
+          % (launches, per_step1, per_step2), flush=True)
+    if micro != [8, 8]:
+        raise RuntimeError('nerf: micro-steps per step %s, not 8' % micro)
+    check_step_launches(per_step1, 'nerf pass 1', 8)
+    check_step_launches(per_step2, 'nerf pass 2', 8)
+    idle = [n for n, c in launches.items() if c == 0 and n != 'mask']
+    if idle:
+        raise RuntimeError('nerf: kernels not launched %s' % idle)
+    if not peak < card:
+        raise RuntimeError('nerf: peak device memory %.3f GiB' % peak)
+    _, mesh1, _ = check_mesh_dir(os.path.join(out, 'dmtet_mesh'))
+    _, mesh2, _ = check_mesh_dir(os.path.join(out, 'mesh'))
+    print('nerf: dmtet_mesh/ %d triangles, %d vertices; mesh/ %d triangles'
+          % (mesh1.t_pos_idx.shape[0], mesh1.v_pos.shape[0],
+             mesh2.t_pos_idx.shape[0]), flush=True)
+    if mesh1.t_pos_idx.shape[0] == 0 or \
+            mesh2.t_pos_idx.shape[0] != mesh1.t_pos_idx.shape[0]:
+        raise RuntimeError('nerf: the baked mesh is empty or pass 2 '
+                           'changed it')
+    drop_checkpoints(out)
+    return cfg, launches, per_step1, per_step2
+
+
+def _peak_gib(run):
+    """Peak device memory (GiB) while run() runs, above what was held
+    before it."""
+    import torch
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    run()
+    torch.cuda.synchronize()
+    return (torch.cuda.max_memory_allocated() - before) / 2 ** 30
+
+
+def nerf_checks(device, cfg):
+    """Phase 14, in this process: pass 1's state at the NeRF config's
+    settings with the first 8 training views (decoded on demand).  The
+    peak memory of one micro-step and of an unsplit batch of 2, and the
+    unsplit batch 8 reckoned from them; one recorded micro-step (one view
+    at 800x800, n2 = 64, iteration PASS1_IT) holds each kernel of it
+    against its plain version (every row scatter launch among them); then
+    one whole step of 8 micro-steps, timed, counting per image the
+    triangles the resolve gives the whole screen.  Returns (the checks,
+    launches per micro-step, launches per step)."""
+    import torch
+    from nvdiffrecmc_tpu_torch import checks, config, kernels, train
+    from nvdiffrecmc_tpu_torch.dataset import DatasetNERF
+    from nvdiffrecmc_tpu_torch.geometry import DMTetGeometry
+    from nvdiffrecmc_tpu_torch.ops import envshade
+    from nvdiffrecmc_tpu_torch.render import light as light_mod
+    here = os.path.dirname(os.path.abspath(__file__))
+    FLAGS = config.parse_flags(['--config', cfg])
+    FLAGS['pre_load'] = False
+    ds = DatasetNERF(os.path.join(here, NERF_TRAIN), FLAGS, device=device)
+    geometry = DMTetGeometry(FLAGS['dmtet_grid'], FLAGS['mesh_scale'], FLAGS,
+                             max_tris=FLAGS['max_tris'], device=device)
+    mat_params, static = train.initial_guess_material(geometry, True, FLAGS,
+                                                      device=device)
+    static['no_perturbed_nrm'] = True
+    light = light_mod.create_trainable_env_rnd(FLAGS['probe_res'], 0.0, 0.5,
+                                               device=device)
+    p = train.make_params(geometry, mat_params, light)
+    opts = train.make_optimizers(p, FLAGS)
+    loss_fn = train.createLoss(FLAGS)
+    perms = envshade.make_perms(FLAGS['n_samples'], device=device)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(31)
+    batch = train.prepare_batch(ds.collate([ds[i] for i in range(8)]),
+                                FLAGS['train_res'], 'random', gen, FLAGS)
+    target = {k: batch[k] for k in ('img', 'mvp', 'campos', 'background')}
+    one = train.batch_slice(target, 0, 8)
+
+    def grads(t):
+        return train.compute_grads(geometry, p, static, t, PASS1_IT, FLAGS,
+                                   loss_fn, perms, gen)
+    peak1 = _peak_gib(lambda: grads(one))
+    peak2 = _peak_gib(lambda: grads(train.batch_slice(target, 0, 4)))
+    print('nerf memory: one micro-step (batch 1) %.3f GiB above the state, '
+          'an unsplit batch of 2 %.3f GiB; an unsplit batch of 8 reckoned '
+          'at %.3f GiB (peak(1) + 7 (peak(2) - peak(1))) (%s)'
+          % (peak1, peak2, peak1 + 7 * (peak2 - peak1), smi_line()),
+          flush=True)
+    out, bad = {}, []
+    with FullScreenCount() as full:
+        kernels.reset_launches()
+        with checks.Recorder() as rec:
+            il, rl = grads(one)
+            torch.cuda.synchronize()
+        per_micro = dict(kernels.LAUNCHES)
+        check_step(p, il, rl)
+        with torch.no_grad():
+            for name in checks.FORWARD + checks.BACKWARD:
+                if name == 'scatter':
+                    continue
+                r = checks.run(name, rec.args, reps=2)
+                print_compare(r, ' (nerf micro-step)')
+                out[name] = r
+                if not r['ok']:
+                    bad.append(name)
+            calls = rec.args['scatter_all']
+            big = max(range(len(calls)), key=lambda i: calls[i][1].numel())
+            for i, a in enumerate(calls):
+                r = checks.check_scatter(*a, reps=2)
+                print_compare(r, ' (nerf micro-step, launch %d of %d)'
+                              % (i + 1, len(calls)))
+                if i == big:
+                    out['scatter'] = r
+                if not r['ok']:
+                    bad.append('scatter launch %d' % (i + 1))
+        del rec, calls
+        if bad:
+            raise RuntimeError('kernels disagree with their plain versions '
+                               'at the NeRF micro-step: %s' % bad)
+        kernels.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        il, rl = train.train_step(geometry, p, opts, static, target,
+                                  PASS1_IT + 1, FLAGS, loss_fn, perms, gen)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        per_step = dict(kernels.LAUNCHES)
+    check_step(p, il, rl)
+    check_step_launches(per_micro, 'nerf micro-step')
+    check_step_launches(per_step, 'nerf step (in this process)', 8)
+    print('nerf: triangles with a vertex at w <= 1e-6 (whole-screen '
+          'rectangles) per image %s' % full.counts, flush=True)
+    n, cap = geometry.tri_count(p['geo'])
+    print('nerf pass 1 in this process: one step of 8 micro-steps %.2f ms '
+          '(800x800, n_samples 8, grid 64), img_loss %.5f, reg_loss %.5f, '
+          '%d surface triangles of %d slots; launches per micro-step %s '
+          '(%s)' % (ms, float(il), float(rl), n, cap, per_micro, smi_line()),
+          flush=True)
+    return out, per_micro, per_step
 
 
 def device_ms_per_step(run, steps):
@@ -1564,6 +1791,25 @@ def main():
           '%.3f ms wall in the trace (%s)' % (dev_ms, wall, smi_line()),
           flush=True)
     del st1, targets1
+
+    # 14. the NeRF scene: both passes through the program at
+    # configs/nerf_spot_synth_g64.json's width (batch 8 in micro-steps of
+    # 1, 800x800, n_samples 8); then one micro-step's kernels in this
+    # process
+    torch.cuda.empty_cache()
+    nerf_cfg, nerf_launches, nerf_per1, _ = nerf_program()
+    at_nerf, nerf_micro, _ = nerf_checks(device, nerf_cfg)
+    for row in rows:
+        name = row['name']
+        row['launches_in_nerf_program'] = nerf_launches[name]
+        row['launches_per_nerf_pass1_step'] = nerf_per1[name]
+        row['launches_per_nerf_micro_step'] = nerf_micro[name]
+        if name in at_nerf:
+            r = at_nerf[name]
+            row['at_nerf_micro_step'] = dict(
+                ms=r['ms'], plain_ms=r['plain_ms'],
+                max_abs_err=r['max_abs_err'],
+                compared_on=r.get('compared_on'))
 
     # 7. optional profile: every profiler session after every timed phase
     if args.profile:

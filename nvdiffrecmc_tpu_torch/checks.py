@@ -19,11 +19,12 @@ Tolerances, with their reasons:
 - trace_shade: visibility bits equal on >= 99.9% of rays; shading within
   1e-4 + 1e-4 |x| on pixels whose rays all agree.  The plain tracer runs
   on an evenly spaced subset of the covered pixels, against the full mesh.
-- denoise: within 1e-4 |x| + 1e-6 (exp and pow of two libraries, summed
-  over 529 taps).
+- denoise: within 1e-4 |x| + 1e-6 (the exp of two libraries, summed
+  over 529 taps; both take x^128 by the same 7 squarings).
 - denoise_grad: each entry is a sum of n = 529 taps whose weights both
-  versions compute in float32 (exp and pow of two libraries) and add in
-  another order: within (1e-5 + n 2^-24) times the sum of the absolute
+  versions compute in float32 (the exp of two libraries; x^128 by the
+  same 7 squarings, since below 2^-126 a pow and a chain of squarings
+  round apart by far more than this bound) and add in another order: within (1e-5 + n 2^-24) times the sum of the absolute
   values of its terms, the rounding bound of a float32 sum in any order,
   widened by 1e-5 for the weights.
 - scatter, light_scatter: the kernel adds the same float32 terms as the

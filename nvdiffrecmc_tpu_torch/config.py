@@ -1,8 +1,8 @@
 """Flags of the port: the command line and JSON configs of
 nvdiffrecmc_tpu/config.py, as a plain dict.  Every key of DEFAULTS is one
 the port reads; the keys of UNREAD (the reference configs'
-random_textures, the NeRF / LLFF datasets' pre_load, the TPU BVH's
-leaf_size) are accepted and ignored; any other key is refused.  A key
+random_textures, the TPU BVH's leaf_size) are accepted and ignored; any
+other key is refused.  A key
 whose value changes what the program computes in a way the port does not
 honour (HONOURED) raises NotImplementedError."""
 
@@ -70,7 +70,11 @@ DEFAULTS = dict(
     # scale the lr decay (and pass 1's shadow ramp) with iter / 5000, as
     # the JAX package does; at iter 5000 the reference's constants
     scale_schedules=True,
+    # split each step into batch / micro_batch slices whose gradients are
+    # averaged (0: one slice), which bounds the step's device memory
     micro_batch=0,
+    # the NeRF / LLFF datasets decode every image once, at start-up
+    pre_load=True,
     # pass 1 (DMTet + hash-grid material): the JAX package's values
     dmtet_grid=64,
     mesh_scale=2.1,
@@ -82,12 +86,12 @@ DEFAULTS = dict(
     prune_components=0.01,
 )
 
-# read only by the NeRF / LLFF datasets, or nothing
-UNREAD = frozenset(('random_textures', 'pre_load', 'leaf_size'))
+# read by nothing
+UNREAD = frozenset(('random_textures', 'leaf_size'))
 
 # the only value (by truth) of each key that the port honours
 HONOURED = dict(transparency=False, decorrelated=False,
-                denoiser_demodulate=True, custom_mip=False, micro_batch=0)
+                denoiser_demodulate=True, custom_mip=False)
 
 REFERENCE_BUDGET = 5000         # the iteration count the schedules assume
 REFERENCE_SHADOW_RAMP = 1750.0
@@ -189,10 +193,21 @@ def _refuse_unknown(keys, known):
         raise KeyError('keys the port does not read: %s' % unknown)
 
 
+def micro_slices(FLAGS):
+    """The slices a step's batch is split into: batch / micro_batch when
+    micro_batch is set and below batch, else 1."""
+    micro, batch = int(FLAGS.get('micro_batch') or 0), FLAGS['batch']
+    return batch // micro if 0 < micro < batch else 1
+
+
 def _derive(FLAGS):
     for k, v in HONOURED.items():
         if bool(FLAGS.get(k)) != bool(v):
             raise NotImplementedError('%s=%r is not ported' % (k, FLAGS[k]))
+    micro = int(FLAGS['micro_batch'] or 0)
+    if 0 < micro < FLAGS['batch'] and FLAGS['batch'] % micro:
+        raise ValueError('micro_batch %d does not divide batch %d'
+                         % (micro, FLAGS['batch']))
     apply_schedule_scaling(FLAGS)
     if FLAGS['display_res'] is None:
         FLAGS['display_res'] = FLAGS['train_res']

@@ -22,8 +22,8 @@ def set_rng_state(rng, state):
 
 class Dataset:
     """An indexable source of samples and the collation of a list of them
-    into one batch (DatasetMesh's; the numpy collation of the JAX package's
-    NeRF and LLFF datasets is not ported)."""
+    into one batch.  The image datasets' items hold tensors on the
+    dataset's device, and their collation keeps them there."""
 
     def __len__(self):
         raise NotImplementedError
@@ -32,7 +32,22 @@ class Dataset:
         raise NotImplementedError
 
     def collate(self, batch):
-        raise NotImplementedError
+        """The cameras and images of the items concatenated; resolution,
+        spp and light from the first."""
+        out = {k: torch.cat([b[k] for b in batch])
+               for k in ('mv', 'mvp', 'campos', 'img') if k in batch[0]}
+        out.update(resolution=batch[0]['resolution'], spp=batch[0]['spp'])
+        if 'light' in batch[0]:
+            out['light'] = batch[0]['light']
+        return out
+
+    def state_dict(self):
+        """What a checkpoint holds of the dataset: nothing for a dataset
+        that draws no randoms."""
+        return {}
+
+    def load_state_dict(self, state):
+        pass
 
 
 class BatchIterator:

@@ -6,7 +6,12 @@ caller (pallas_denoise.bilateral_denoiser_pair).  Taps outside the image
 enter through a zero `valid` plane.  In grad mode the input is the output
 gradient and the depth denominator takes the tap's dz instead of the
 center's (the transpose of the forward weights, denoising.cu:114-118 of
-the reference); the weights themselves carry no gradient."""
+the reference); the weights themselves carry no gradient.
+
+The normal weight's 128th power is taken by 7 squarings, as the TPU kernel
+(`_pow128`) and csrc/denoise.cu take it: below 2^-126 a float32 keeps
+only an absolute precision of 2^-149, and there a pow and a chain of
+squarings round differently by far more than any relative bound."""
 
 import math
 
@@ -57,7 +62,9 @@ def _taps(col, nrm, zdz, sigma, grad_mode=False):
         t_nrm, t_zdz = tap(nrmp), tap(zdzp)
         ndot = (t_nrm[..., 0:1] * c_n[0] + t_nrm[..., 1:2] * c_n[1]
                 + t_nrm[..., 2:3] * c_n[2])
-        w_normal = torch.pow(torch.clamp(ndot, FLT_EPS, 1.0), 128.0)
+        w_normal = torch.clamp(ndot, FLT_EPS, 1.0)
+        for _ in range(7):
+            w_normal = w_normal * w_normal
         dz = t_zdz[..., 1:2] if grad_mode else c_dz
         denom = torch.clamp(dz * dist, min=FLT_EPS)
         w_depth = torch.exp(-torch.abs(t_zdz[..., 0:1] - c_z) / denom)

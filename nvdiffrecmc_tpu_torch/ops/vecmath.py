@@ -124,11 +124,30 @@ def bilinear_at(x, ys, xs):
             + cc * fy * (1 - fx) + d * fy * fx)
 
 
+def _overlap_matrix(out_n, in_n, device):
+    """[out_n, in_n] fractional-overlap weights of output cell i with input
+    cell j (each row sums to 1): exact area averaging for any ratio."""
+    scale = in_n / out_n
+    lo = torch.arange(out_n, device=device)[:, None] * scale
+    hi = lo + scale
+    j0 = torch.arange(in_n, device=device)[None, :]
+    ov = torch.minimum(hi, j0 + 1.0) - torch.maximum(lo, j0)
+    return torch.clamp(ov, min=0.0) / scale
+
+
+def _area_resize(x, H, W):
+    """Area-average resize by any ratio: Wy @ x @ Wx^T with the per-axis
+    overlap weights."""
+    wy = _overlap_matrix(H, x.shape[1], x.device)          # [H, h]
+    wx = _overlap_matrix(W, x.shape[2], x.device)          # [W, w]
+    y = torch.einsum('Hh,nhwc->nHwc', wy, x)
+    return torch.einsum('Ww,nHwc->nHWc', wx, y)
+
+
 def scale_img_nhwc(x, size, mag='bilinear', min='area'):
     """Resize an NHWC image to `size` = (H, W): magnification bilinear
-    (align corners) or nearest, minification nearest or, for integer
-    ratios, area (average pooling).  Area minification by other ratios is
-    not ported yet and raises."""
+    (align corners) or nearest, minification nearest or area (average
+    pooling for integer ratios, overlap weights for others)."""
     n, h, w, c = x.shape
     H, W = int(size[0]), int(size[1])
     if h == H and w == W:
@@ -138,8 +157,7 @@ def scale_img_nhwc(x, size, mag='bilinear', min='area'):
             return _nearest_resize(x, H, W)
         if h % H == 0 and w % W == 0:
             return avg_pool_nhwc(x, (h // H, w // W))
-        raise NotImplementedError('scale_img_nhwc: area minification by a '
-                                  'non-integer ratio is not ported')
+        return _area_resize(x, H, W)
     if mag == 'nearest':
         return _nearest_resize(x, H, W)
     return bilinear_at(x, torch.linspace(0.0, h - 1.0, H, device=x.device),
@@ -175,6 +193,14 @@ def dilate(x, x_avg, mask, N):
     x_flt = torch.where(mask_flt > epsilon,
                         x_flt / torch.clamp(mask_flt, min=epsilon), x_avg)
     return x_flt * (1 - mask) + x * mask
+
+
+def fovx_to_fovy(fovx, aspect):
+    return np.arctan(np.tan(fovx / 2) / aspect) * 2.0
+
+
+def focal_length_to_fovy(focal_length, sensor_height):
+    return 2 * np.arctan(0.5 * sensor_height / focal_length)
 
 
 def perspective(fovy=0.7854, aspect=1.0, n=0.1, f=1000.0):
@@ -213,6 +239,17 @@ def random_rotation_translation(t, rng=None):
     m[3, 3] = 1.0
     m[:3, 3] = rng.uniform(-t, t, size=[3])
     return m.astype(np.float32)
+
+
+def lines_focal(o, d):
+    """Least-squares focal point of the lines o + t d ([N, 3] each): where
+    the views of an LLFF rig look (reference util.py:261-266)."""
+    d = d / np.linalg.norm(d, axis=-1, keepdims=True)
+    I = np.eye(3, dtype=o.dtype)
+    outer = d[..., :, None] @ d[..., None, :] - I[None]
+    S = outer.sum(axis=0)
+    C = (outer @ o[..., :, None]).sum(axis=0)[:, 0]
+    return np.linalg.pinv(S) @ C
 
 
 def checkerboard(res, checker_size):

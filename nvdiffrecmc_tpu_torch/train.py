@@ -10,10 +10,11 @@ Parameters are a dict {'geo', 'mat', 'light'} of leaf tensors: 'geo' is
 {'v_pos'} (DLMesh) or {'sdf', 'deform'} (DMTetGeometry); 'mat' is {'kd',
 'ks', 'normal'} or, for the neural material, {'table', 'w0', 'w1', ...}
 (the flat hash-grid table and the MLP's weights).  `train_step` renders
-one batch through the geometry's `tick`, runs `backward()`, and updates
-them in place.  `validate` renders the validation views with
-`render_eval` and writes their PSNR.  `main` runs the JAX program: pass 1
-(DMTet) when the config sets no base_mesh, then the pass boundary (extract,
+one batch (or, with micro_batch, each of its slices in turn) through the
+geometry's `tick`, runs `backward()`, and updates them in place.
+`validate` renders the validation views with `render_eval` and writes
+their PSNR.  `main` runs the JAX program on a reference mesh or a NeRF /
+LLFF folder of images: pass 1 (DMTet) when the config sets no base_mesh, then the pass boundary (extract,
 prune, unwrap, bake) and pass 2 on the baked mesh; or pass 2 alone on a
 given base mesh.
 
@@ -31,7 +32,7 @@ import numpy as np
 import torch
 
 from . import config, kernels
-from .dataset import BatchIterator, DatasetMesh
+from .dataset import BatchIterator, DatasetLLFF, DatasetMesh, DatasetNERF
 from .dataset.dataset_mesh import load_env_or_procedural
 from .device import resolve
 from .geometry import DLMesh, DMTetGeometry
@@ -93,8 +94,8 @@ def prepare_batch(target, train_res, bg_type, generator, FLAGS):
                             alpha), dim=-1)
     out['background'] = background
     out['resolution'] = tuple(train_res)
-    out['mvp'] = torch.as_tensor(np.asarray(target['mvp']), device=dev)
-    out['campos'] = torch.as_tensor(np.asarray(target['campos']), device=dev)
+    out['mvp'] = torch.as_tensor(target['mvp'], device=dev)
+    out['campos'] = torch.as_tensor(target['campos'], device=dev)
     return out
 
 
@@ -265,13 +266,20 @@ def denoiser_sigma(it, FLAGS):
                             np.float32(1e-4)))
 
 
+def _leaves(params):
+    return _group(params['geo']) + _group(params['mat']) + [params['light']]
+
+
 def compute_grads(geometry, params, mat_static, target, it, FLAGS, loss_fn,
-                  perms, generator, uniforms=None, offsets=None):
+                  perms, generator, uniforms=None, offsets=None,
+                  accumulate=False):
     """Render target's view with the current parameters and backpropagate
-    img_loss + reg_loss into their .grad.  Returns (img_loss, reg_loss),
+    img_loss + reg_loss into their .grad (added to what .grad holds when
+    accumulate, else in its place).  Returns (img_loss, reg_loss),
     detached."""
-    for p in _group(params['geo']) + _group(params['mat']) + [params['light']]:
-        p.grad = None
+    if not accumulate:
+        for p in _leaves(params):
+            p.grad = None
     tables = light_mod.update_pdf(params['light'])
     lgt = {'base': params['light'], 'pdf': tables.pdf, 'rows': tables.rows,
            'cols': tables.cols}
@@ -321,12 +329,50 @@ def apply_grads(params, optimizers, mat_static, FLAGS):
     params['light'].clamp_(min=0.01)
 
 
+def batch_slice(target, i, n):
+    """Slice i of n of target: every tensor whose first axis is the
+    batch's cut to that slice's images, anything else as it is."""
+    B = target['img'].shape[0]
+    m = B // n
+    return {k: (v[i * m:(i + 1) * m]
+                if torch.is_tensor(v) and v.dim() > 0 and v.shape[0] == B
+                else v) for k, v in target.items()}
+
+
+def micro_grads(geometry, params, mat_static, target, it, FLAGS, loss_fn,
+                perms, generator, uniforms=None, offsets=None):
+    """The JAX package's micro-batched gradient: compute_grads on each of
+    config.micro_slices(FLAGS) slices of the batch in turn (each slice
+    builds its own mesh and draws its uniforms from generator), the
+    gradients summed in .grad and divided by the slice count, the losses
+    averaged.  uniforms and offsets: None, or one entry per slice.
+    Returns (img_loss, reg_loss)."""
+    n = config.micro_slices(FLAGS)
+    il = rl = 0.0
+    for i in range(n):
+        a, b = compute_grads(
+            geometry, params, mat_static, batch_slice(target, i, n), it,
+            FLAGS, loss_fn, perms, generator,
+            uniforms=None if uniforms is None else uniforms[i],
+            offsets=None if offsets is None else offsets[i],
+            accumulate=i > 0)
+        il, rl = il + a, rl + b
+    with torch.no_grad():
+        for p in _leaves(params):
+            if p.grad is not None:
+                p.grad.div_(n)
+    return il / n, rl / n
+
+
 def train_step(geometry, params, optimizers, mat_static, target, it, FLAGS,
                loss_fn, perms, generator, **kw):
-    """One optimizer step: compute_grads (kw: uniforms, offsets), then
-    apply_grads.  Returns (img_loss, reg_loss)."""
-    losses = compute_grads(geometry, params, mat_static, target, it, FLAGS,
-                           loss_fn, perms, generator, **kw)
+    """One optimizer step: compute_grads (kw: uniforms, offsets), or
+    micro_grads when micro_batch splits the batch (kw: one entry per
+    slice), then apply_grads.  Returns (img_loss, reg_loss)."""
+    grads = (micro_grads if config.micro_slices(FLAGS) > 1
+             else compute_grads)
+    losses = grads(geometry, params, mat_static, target, it, FLAGS, loss_fn,
+                   perms, generator, **kw)
     apply_grads(params, optimizers, mat_static, FLAGS)
     return losses
 
@@ -690,10 +736,11 @@ def optimize_mesh(geometry, mat_params, mat_static, light_base, dataset_train,
 
     n = len(iter_dur_vec)
     if n:
-        print('%s: %d steps from iteration %d, median %.3f ms per step; '
-              'kernel launches per step %s'
+        print('%s: %d steps from iteration %d, median %.3f ms per step of '
+              '%d micro-steps; kernel launches per step %s'
               % (pass_name, n, start_it,
                  statistics.median(iter_dur_vec) * 1000,
+                 config.micro_slices(F),
                  json.dumps({k: v / n for k, v in step_launches.items()})),
               flush=True)
     return params
@@ -818,10 +865,39 @@ def dmtet_pass(FLAGS, light_base, dataset_train, dataset_validate, device):
     return base_mesh, mat_params, mat_static, light_base
 
 
+def make_datasets(FLAGS, device):
+    """(training, validation) datasets of FLAGS['ref_mesh'], as the JAX
+    main() picks them: an .obj rendered by DatasetMesh; a folder with
+    poses_bounds.npy (DatasetLLFF) or transforms_train.json (DatasetNERF,
+    validated on transforms_test.json), whose training set is
+    (iter + 1) * batch examples long.  Anything else raises
+    AssertionError."""
+    path = config.resolve_path(FLAGS, FLAGS['ref_mesh'])
+    if os.path.splitext(path)[1] == '.obj':
+        ref_mesh = mesh_mod.load_mesh(
+            path, config.resolve_path(FLAGS, FLAGS['mtl_override']),
+            device=device)
+        return (DatasetMesh(ref_mesh, RADIUS, FLAGS, validate=False),
+                DatasetMesh(ref_mesh, RADIUS, FLAGS, validate=True, seed=1))
+    if not os.path.isdir(path):
+        raise AssertionError('Invalid dataset format %s' % path)
+    examples = (FLAGS['iter'] + 1) * FLAGS['batch']
+    if os.path.isfile(os.path.join(path, 'poses_bounds.npy')):
+        return (DatasetLLFF(path, FLAGS, examples=examples, device=device),
+                DatasetLLFF(path, FLAGS, device=device))
+    if os.path.isfile(os.path.join(path, 'transforms_train.json')):
+        return (DatasetNERF(os.path.join(path, 'transforms_train.json'),
+                            FLAGS, examples=examples, device=device),
+                DatasetNERF(os.path.join(path, 'transforms_test.json'),
+                            FLAGS, device=device))
+    raise AssertionError('Invalid dataset format')
+
+
 def main(argv=None, device=None):
-    """Parse the flags (config.parse_flags), build the reference dataset
-    from FLAGS['ref_mesh'] (an .obj rendered by DatasetMesh) and the light
-    (trainable, or FLAGS['envlight']).  Without base_mesh: pass 1 and the
+    """Parse the flags (config.parse_flags), build the datasets of
+    FLAGS['ref_mesh'] (make_datasets: a mesh rendered by DatasetMesh, or a
+    NeRF or LLFF folder of images) and the light (trainable, or
+    FLAGS['envlight']).  Without base_mesh: pass 1 and the
     pass boundary (dmtet_pass), then pass 2 on the baked mesh (warm-up 100
     steps); with it: pass 2 on the base mesh and its material.  Pass 2
     trains the material, the light unless lock_light and the vertices
@@ -838,16 +914,7 @@ def main(argv=None, device=None):
     print("---------")
     os.makedirs(FLAGS['out_dir'], exist_ok=True)
 
-    ref_mesh_path = config.resolve_path(FLAGS, FLAGS['ref_mesh'])
-    if os.path.splitext(ref_mesh_path)[1] != '.obj':
-        raise NotImplementedError('reference %s: only .obj meshes '
-                                  '(DatasetMesh) are ported' % ref_mesh_path)
-    ref_mesh = mesh_mod.load_mesh(
-        ref_mesh_path, config.resolve_path(FLAGS, FLAGS['mtl_override']),
-        device=device)
-    dataset_train = DatasetMesh(ref_mesh, RADIUS, FLAGS, validate=False)
-    dataset_validate = DatasetMesh(ref_mesh, RADIUS, FLAGS, validate=True,
-                                   seed=1)
+    dataset_train, dataset_validate = make_datasets(FLAGS, device)
 
     if FLAGS['learn_lighting']:
         light_base = light_mod.create_trainable_env_rnd(

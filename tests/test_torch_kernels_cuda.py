@@ -23,7 +23,8 @@ strata on a pixel count that is not a multiple of 32; pass 1: the C = 2
 instance and the generic one on a hash-grid table's cotangent of a million
 rows in both row orders, marching tets on the card against the CPU at
 grid 64, and the hash-grid encode on the card against the CPU at the
-default config).
+default config; the NeRF dataset on the card against the CPU, and a
+micro-batched pass-2 step at 64x64 against the unsplit one).
 Marked `gpu`; skipped where torch.cuda.is_available() is false.  On a machine with a GPU and no JAX:
 
     python -m pytest --noconftest -m gpu tests/test_torch_kernels_cuda.py
@@ -962,3 +963,99 @@ def test_hashgrid_encode_cuda_matches_cpu():
     assert float((f0 - f1).abs().max()) <= 1e-6
     assert float((t0 - t1).abs().max()) <= 1e-5 * float(t0.abs().max())
     assert float((x0 - x1).abs().max()) <= 1e-5 * float(x0.abs().max())
+
+
+def test_nerf_batch_on_card_equals_cpu():
+    """DatasetNERF (the repo's test split, pre_load) on the card: its
+    images and cameras live there, and a collated batch equals the CPU
+    dataset's."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA device')
+    import os
+    from nvdiffrecmc_tpu_torch.dataset import DatasetNERF
+    path = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
+        __file__))), 'data', 'nerf_synthetic_spot', 'transforms_test.json')
+    F = {'pre_load': True, 'cam_near_far': [0.1, 1000.0],
+         'train_res': [800, 800], 'spp': 1}
+    dev = torch.device('cuda', 0)
+    card = DatasetNERF(path, F, examples=8, device=dev)
+    host = DatasetNERF(path, dict(F, pre_load=False), examples=8,
+                       device='cpu')
+    got = card.collate([card[0], card[7]])
+    want = host.collate([host[0], host[7]])
+    for k in ('mv', 'mvp', 'campos', 'img'):
+        assert got[k].device == dev, k
+        assert torch.equal(got[k].cpu(), want[k]), k
+
+
+def test_micro_batched_step_matches_unsplit():
+    """A pass-2 step at batch 2 and 64x64 (spot256 under two NeRF views of
+    the repo's scene, minified from 800x800 by the area path) on the card:
+    micro-batches of 1 against the unsplit batch from the same uniforms and
+    jitter, within the step tests' tolerance (losses 1e-4 relative;
+    gradients with cosine >= 0.999 and >= 99% of entries within 1e-3
+    max|g|); each micro-step launches every kernel of a step once."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA device')
+    import os
+    from nvdiffrecmc_tpu_torch import config, kernels, train
+    from nvdiffrecmc_tpu_torch.dataset import DatasetNERF
+    from nvdiffrecmc_tpu_torch.dataset.dataset_mesh import (
+        SPOT256_PROBE, DatasetMesh, spot256_scene)
+    from nvdiffrecmc_tpu_torch.geometry import DLMesh
+    from nvdiffrecmc_tpu_torch.ops import pallas_shade
+    from nvdiffrecmc_tpu_torch.render import light as light_mod
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device('cuda', 0)
+    kernels.build()
+    res, n = 64, 2
+    path = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
+        __file__))), 'data', 'nerf_synthetic_spot', 'transforms_train.json')
+    FLAGS = config.make_flags(train_res=[res, res], n_samples=n, batch=2,
+                              micro_batch=1, texture_res=[256, 256],
+                              envlight=SPOT256_PROBE, pre_load=False)
+    nerf = DatasetNERF(path, FLAGS, device=dev)
+    target = train.prepare_batch(nerf.collate([nerf[4], nerf[21]]),
+                                 [res, res], 'white', None, FLAGS)
+    target = {k: target[k] for k in ('img', 'mvp', 'campos', 'background')}
+    ds = DatasetMesh(spot256_scene(dev), 3.0, FLAGS, seed=2)
+    geometry = DLMesh(ds.ref_mesh, FLAGS)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(5)
+    u = [pallas_shade.make_uniforms(gen, n * n, res * res, n, device=dev)
+         for _ in range(2)]
+    jit = [torch.randn((1, res, res, 2), generator=gen, device=dev) * 0.005
+           for _ in range(2)]
+    out = []
+    for micro in (1, 0):
+        mat, static = train.initial_guess_material(geometry, False, FLAGS,
+                                                   device=dev)
+        light = light_mod.create_trainable_env_rnd(64, 0.0, 0.5, device=dev)
+        params = train.make_params(geometry, mat, light)
+        F = dict(FLAGS, micro_batch=micro)
+        kernels.reset_launches()
+        if micro:
+            il, rl = train.micro_grads(
+                geometry, params, static, target, 0, F, train.createLoss(F),
+                ds.perms, None, uniforms=[[x] for x in u],
+                offsets=[[x] for x in jit])
+            assert kernels.LAUNCHES['trace_shade'] == 2
+            assert kernels.LAUNCHES['shade_bwd'] == 2
+        else:
+            il, rl = train.compute_grads(
+                geometry, params, static, target, 0, F, train.createLoss(F),
+                ds.perms, None, uniforms=[torch.cat(u, dim=2)],
+                offsets=[torch.cat(jit)])
+        out.append((float(il), float(rl), {
+            'v_pos': params['geo']['v_pos'].grad, 'light': params['light'].grad,
+            **{k: params['mat'][k].grad for k in ('kd', 'ks', 'normal')}}))
+    (il1, rl1, g1), (il0, rl0, g0) = out
+    assert abs(il1 - il0) <= 1e-4 * abs(il0)
+    assert abs(rl1 - rl0) <= 1e-4 * abs(rl0)
+    for k in g0:
+        g, w = g1[k].reshape(-1).double(), g0[k].reshape(-1).double()
+        assert torch.isfinite(g).all() and g.abs().max() > 0, k
+        cos = float((g * w).sum() / (g.norm() * w.norm()))
+        close = float(((g - w).abs() <= 1e-3 * w.abs().max()).double().mean())
+        assert cos >= 0.999 and close >= 0.99, (k, cos, close)

@@ -16,7 +16,10 @@ max|g|.  Then apply_grads on a pass-1 parameter tree against the JAX
 package's rule (train.py:499-535): the light gradient times 64, the
 table's times 128 / 8, the global-norm clip of geometry and material when
 clip_max_norm > 0, Adam, the light's clamp; two steps on seeded
-gradients, within 1e-5.
+gradients, within 1e-5.  And a step at batch 2 in micro-batches of 1 on
+two views of the repo's NeRF scene (taken to 48x48 by the non-integer
+area path) against the mean of JAX's per-slice gradients, and against the
+port's unsplit step.
 
 Why 256 cells at the finest level: the two packages' G-buffer positions
 differ in their last ulps, and the trilinear weights scale a position's
@@ -25,6 +28,8 @@ default's) the step's gradients still agree with cosine >= 0.9995, but up
 to 10% of the first MLP layer's entries then differ by more than 1e-3
 max|g|; test_torch_hashgrid.py holds the encoding at 4096 cells on
 identical points."""
+
+import os
 
 import jax
 import jax.numpy as jnp
@@ -283,3 +288,125 @@ def test_apply_grads_pass1_matches_jax(tmp_path, monkeypatch, clip):
     for k, p in _flat(params).items():
         np.testing.assert_allclose(p.detach().numpy(), np.asarray(want[k]),
                                    rtol=0, atol=1e-5, err_msg=k)
+
+
+NERF = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))), 'data', 'nerf_synthetic_spot', 'transforms_train.json')
+MICRO_RES, MICRO_FRAMES = 48, (3, 17)
+
+
+def _nerf_targets(jflags):
+    """Two views of the repo's NeRF scene, 800x800 taken to 48x48 by the
+    area path at a non-integer ratio, over a white background: the JAX
+    package's (its DatasetNERF, collate and prepare_batch) and the port's
+    (the same through the port's)."""
+    from nvdiffrecmc_tpu.dataset import DatasetNERF as JNERF
+    from nvdiffrecmc_tpu_torch.dataset import DatasetNERF as TNERF
+    dflags = {'pre_load': False, 'cam_near_far': [0.1, 1000.0],
+              'train_res': [800, 800], 'spp': 1}
+    res = (MICRO_RES, MICRO_RES)
+    jds = JNERF(NERF, dflags)
+    jt = j_train.prepare_batch(jds.collate([jds[i] for i in MICRO_FRAMES]),
+                               res, 'white', None, jflags)
+    tds = TNERF(NERF, dflags, device='cpu')
+    tt = t_train.prepare_batch(tds.collate([tds[i] for i in MICRO_FRAMES]),
+                               res, 'white', None, None)
+    for k in ('img', 'background', 'mvp', 'campos'):
+        np.testing.assert_allclose(tt[k].numpy(), np.asarray(jt[k]),
+                                   rtol=0, atol=1e-6, err_msg=k)
+    return jt, tt
+
+
+def test_pass1_micro_batch_matches_jax(tmp_path, monkeypatch):
+    """A pass-1 step at batch 2 split into micro-batches of 1, on two views
+    of the NeRF scene at 48x48: the port's micro_grads against the mean of
+    JAX's per-slice gradients (DMTetGeometry.tick under jax.grad on each
+    slice with its own key; the same uniforms, jitter and position noise
+    fed to the port), within the tolerances of
+    test_pass1_step_matches_jax; then the port's unsplit batch-2 gradient
+    from the slices' uniforms and offsets concatenated, against its
+    micro-batched one: the losses within 1e-5 relative, each gradient with
+    cosine >= 0.99999 and every entry within 5e-3 max|g| (the two differ
+    only in the order of float32 sums, over 2,304 pixels a slice against
+    4,608 at once, and the MLP's and the light's gradients cancel: up to
+    1.9e-3 max|g| was seen)."""
+    tb = j_light.update_pdf(j_light.create_trainable_env_rnd(16, 0.0, 0.5))
+    tables = (_bf16(tb.pdf), _bf16(tb.rows), _bf16(tb.cols))
+    monkeypatch.setattr(j_envshade, 'env_shade', j_ps.env_shade_fused_jnp)
+    jflags, jgeo, jparams, jstatic = _jax_scene(tmp_path, monkeypatch, 2)
+    jflags.update(train_res=[MICRO_RES, MICRO_RES], micro_batch=1)
+    jt, tt = _nerf_targets(jflags)
+    perms = ge._make_scene(res=MICRO_RES, n_samples=N)[2]
+    loss_obj = j_train.createLoss(jflags)
+    ramp = jnp.minimum(jnp.float32(IT) / jflags['shadow_ramp_iters'], 1.0)
+    sigma = jnp.maximum(2.0 * ramp, 1e-4)
+    P = MICRO_RES * MICRO_RES
+    u8 = j_ps.make_uniforms(jax.random.PRNGKey(IT), N * N, P, N, perms)
+
+    jgrads, jil, jrl, offsets = None, 0.0, 0.0, []
+    for i in range(2):
+        sl = {k: jnp.asarray(jt[k])[i:i + 1]
+              for k in ('img', 'background', 'mvp', 'campos')}
+        sl.update(resolution=(MICRO_RES, MICRO_RES), spp=1)
+        key = jax.random.PRNGKey(11 + i)
+
+        def loss_fn(p):
+            lgt = {'base': p['light'], 'pdf': jnp.asarray(tables[0]),
+                   'rows': jnp.asarray(tables[1]),
+                   'cols': jnp.asarray(tables[2])}
+            material = j_train.make_material(p['mat'], jstatic)
+            il, rl = jgeo.tick(p['geo'], material, lgt, sl, loss_obj,
+                               jnp.float32(IT), jflags, sigma, perms, key,
+                               rnd_seed=jnp.int32(IT))
+            return il + rl, (il, rl)
+        g, (il, rl) = jax.grad(loss_fn, has_aux=True)(jparams)
+        jgrads = g if jgrads is None else jax.tree.map(jnp.add, jgrads, g)
+        jil, jrl = jil + il, jrl + rl
+        kj, km, _ = jax.random.split(jax.random.split(key, 1)[0], 3)
+        offsets.append((
+            convert.tensor(jax.random.normal(
+                kj, (1, MICRO_RES, MICRO_RES, 2)) * 0.005, device='cpu'),
+            convert.tensor(jax.random.normal(
+                km, (1, MICRO_RES, MICRO_RES, 3)) * 0.01, device='cpu')))
+    jgrads = jax.tree.map(lambda x: x / 2.0, jgrads)
+
+    FLAGS, geo, params, static = _port_scene(jflags, jparams, 2)
+    FLAGS.update(train_res=[MICRO_RES, MICRO_RES], micro_batch=1)
+    assert t_config.micro_slices(FLAGS) == 2
+    port_tables = t_light.LightTables(*(torch.as_tensor(np.array(x))
+                                        for x in tables))
+    monkeypatch.setattr(t_train.light_mod, 'update_pdf',
+                        lambda base: port_tables)
+    tu = convert.tensor(u8, device='cpu')
+    target = {k: tt[k] for k in ('img', 'background', 'mvp', 'campos')}
+    tperms = convert.tensor(perms, device='cpu')
+    il, rl = t_train.micro_grads(
+        geo, params, static, target, IT, FLAGS, t_train.createLoss(FLAGS),
+        tperms, None, uniforms=[[tu], [tu]],
+        offsets=[[o] for o in offsets])
+    np.testing.assert_allclose(float(il), float(jil) / 2, rtol=1e-4)
+    np.testing.assert_allclose(float(rl), float(jrl) / 2, rtol=1e-4)
+    want = _flat_jax(jgrads)
+    micro = {}
+    for k, p in _flat(params).items():
+        g, w = p.grad.numpy().ravel(), np.asarray(want[k]).ravel()
+        assert np.isfinite(g).all() and np.abs(g).max() > 0.0, k
+        cos = np.dot(g, w) / (np.linalg.norm(g) * np.linalg.norm(w))
+        close = (np.abs(g - w) <= 1e-3 * np.abs(w).max()).mean()
+        assert cos >= 0.999 and close >= 0.99, (k, cos, close)
+        micro[k] = g
+
+    FLAGS.update(micro_batch=0)
+    assert t_config.micro_slices(FLAGS) == 1
+    il0, rl0 = t_train.compute_grads(
+        geo, params, static, target, IT, FLAGS, t_train.createLoss(FLAGS),
+        tperms, None, uniforms=[torch.cat([tu, tu], dim=2)],
+        offsets=[tuple(torch.cat(x) for x in zip(*offsets))])
+    np.testing.assert_allclose(float(il0), float(il), rtol=1e-5)
+    np.testing.assert_allclose(float(rl0), float(rl), rtol=1e-5)
+    for k, p in _flat(params).items():
+        g, w = p.grad.numpy().ravel(), micro[k]
+        cos = np.dot(g, w) / (np.linalg.norm(g) * np.linalg.norm(w))
+        err = np.abs(g - w).max()
+        assert cos >= 0.99999 and err <= 5e-3 * np.abs(w).max(), \
+            (k, cos, err)

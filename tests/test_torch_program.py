@@ -29,9 +29,8 @@ CONFIGS = sorted(glob.glob(os.path.join(
     os.path.dirname(os.path.dirname(os.path.abspath(__file__))), 'configs',
     '*.json')))
 # configs whose values the port refuses: transparency (nerfactor drums and
-# ficus) and micro_batch (the nerf_spot_synth configs)
-REFUSED = {'nerfactor_drums', 'nerfactor_ficus', 'nerf_spot_synth',
-           'nerf_spot_synth_g64', 'nerf_spot_synth_g128'}
+# ficus)
+REFUSED = {'nerfactor_drums', 'nerfactor_ficus'}
 
 
 @pytest.fixture(autouse=True)
@@ -59,7 +58,9 @@ def test_parse_flags_matches_jax(path):
     """Each reference config with explicit overrides: -i 20, and --validate
     true over the configs that say false; every key the port reads (the
     derived schedule constants among them) as JAX parses it, apart from
-    data_root.  The configs the port refuses raise NotImplementedError."""
+    data_root.  The configs the port refuses raise NotImplementedError;
+    the nerf_spot_synth configs (micro_batch 1 of batch 8, pre_load) parse
+    and split each step into 8 micro-steps."""
     argv = ['--config', path, '-i', '20', '--validate', 'true']
     want = j_config.parse_flags(argv)
     if _name(path) in REFUSED:
@@ -70,6 +71,10 @@ def test_parse_flags_matches_jax(path):
     assert got['iter'] == 20 and got['validate'] is True
     assert set(got) >= set(config.DEFAULTS)
     _agree(got, want)
+    if _name(path).startswith('nerf_spot_synth'):
+        assert (got['micro_batch'], got['batch'], got['pre_load']) == \
+            (1, 8, True)
+        assert config.micro_slices(got) == 8
 
 
 @pytest.mark.parametrize('argv', [
@@ -96,13 +101,15 @@ def test_strtobool_matches_jax():
     ({'transparency': True}, NotImplementedError),
     ({'decorrelated': True}, NotImplementedError),
     ({'denoiser_demodulate': False}, NotImplementedError),
-    ({'micro_batch': 2}, NotImplementedError),
+    ({'batch': 4, 'micro_batch': 3}, ValueError),
     ({'custom_mip': True}, NotImplementedError),
     ({'lock_geometry': True}, KeyError),
 ])
 def test_parse_flags_refuses(tmp_path, extra, error):
     """A key whose value the port does not honour raises, and so does a
-    key it does not know; the pass-1 keys and random_textures pass."""
+    key it does not know, and a micro_batch that does not divide batch;
+    the pass-1 keys and random_textures pass, and micro_batch is honoured
+    from the config and from the command line."""
     fn = str(tmp_path / 'c.json')
     with open(fn, 'w') as f:
         json.dump(dict({'dmtet_grid': 32, 'sdf_init': 'sphere',
@@ -112,8 +119,19 @@ def test_parse_flags_refuses(tmp_path, extra, error):
     with open(fn, 'w') as f:
         json.dump({'dmtet_grid': 32, 'random_textures': True}, f)
     assert config.parse_flags(['--config', fn])['dmtet_grid'] == 32
-    with pytest.raises(NotImplementedError):
-        config.parse_flags(['--micro-batch', '1'])
+    got = config.parse_flags(['--micro-batch', '1', '-b', '4'])
+    assert got['micro_batch'] == 1 and config.micro_slices(got) == 4
+
+
+@pytest.mark.parametrize('batch, micro, slices', [
+    (8, 1, 8), (8, 2, 4), (4, 4, 1), (2, 4, 1), (4, 0, 1), (1, 1, 1)])
+def test_micro_batch_is_honoured(batch, micro, slices):
+    """micro_batch splits a step into batch / micro_batch slices when it is
+    set and below batch, as the JAX package's use_micro does; otherwise
+    one slice."""
+    got = config.make_flags(batch=batch, micro_batch=micro)
+    assert got['micro_batch'] == micro
+    assert config.micro_slices(got) == slices
 
 
 class _Indices:
