@@ -81,17 +81,18 @@ one):
    the initial gray.  Then `-i 12` into the same out_dir resumes from
    iteration 11 and runs that one step; the checkpoints are deleted;
 13. pass 1, the pass boundary and both passes: the program on the config
-   of phase 12 without base_mesh, in chiprun_out/train_two_pass/ (pass 1
-   on the DMTet Kuhn grid 64, 98,304 triangle slots, with the default
-   hash grid and its 32-wide MLP, PROGRAM_ITERS iterations; the bake at
-   512x512; pass 2 on the baked mesh, PROGRAM_ITERS iterations; no
-   validation, which phase 14's program runs after both passes).  Relayed
-   and printed: each pass's median ms per step and launches per step (as
-   in phase 6), the surface triangles against the slots at the end of
-   pass 1 and every overflow warning, the seconds of extract, prune,
-   unwrap and bake, every probe's PSNR and seconds, peak device memory.
-   Checks: losses and PSNRs finite, dmtet_mesh/ and mesh/ read back, pass
-   2's mesh the baked one.  Then, in this process, one recorded pass-1 step at batch 4
+   of phase 12 without base_mesh, validation on, in
+   chiprun_out/train_two_pass/ (pass 1 on the DMTet Kuhn grid 64, 98,304
+   triangle slots, with the default hash grid and its 32-wide MLP, 20
+   iterations and 8 dmtet_validate views; the bake at 512x512; pass 2 on
+   the baked mesh, 20 iterations, 16 views).  Relayed and printed: each
+   pass's median ms per step and launches per step (as in phase 6), the
+   surface triangles against the slots at the end of pass 1 and every
+   overflow warning, the seconds of extract, prune, unwrap and
+   bake, s per view of each validation, every probe's PSNR and seconds,
+   peak device memory.  Checks: losses and PSNRs finite, both
+   metrics.txt, dmtet_mesh/ and mesh/ read back, pass 2's mesh the baked
+   one.  Then, in this process, one recorded pass-1 step at batch 4
    (iteration PASS1_IT) holds every kernel of the step against its plain
    version (every row scatter launch; the hash-grid table's, 268 M rows
    of C = 2, also with the generic instance, timed against both and
@@ -116,7 +117,9 @@ one):
    batch 8 reckoned from them); one recorded pass-1 micro-step at 800x800
    and n2 = 64 holds each of its kernels against its plain version (every
    row scatter launch); one step of 8 micro-steps, timed, with the
-   whole-screen triangles per image;
+   whole-screen triangles per image; then one validation view (the first
+   test view, 800x800, n_samples 32) on that pass-1 state, whose first
+   stratum holds sample and trace against their plain versions;
 7. with --profile only: torch.profiler over 4 more frames and over 4 more
    training steps; prints device time by kernel, launches and host gaps,
    and writes the full tables to chiprun_out/profile_port.txt and
@@ -169,12 +172,16 @@ RESOLVE_MAX_LAUNCHES = 10   # kernels of one rasterize call up to the resolve
 VAL_FRAMES = 2
 VAL_N = 32              # the reference validation protocol's n_samples
 PROGRAM_ITERS = 20
+PROGRAM_VIEWS = 16      # main()'s validation views
 PROGRAM_TIMEOUT = 600   # seconds for each run of the program
+DMTET_VIEWS = 8         # main()'s validation views after pass 1
 PASS1_IT = 3            # the recorded pass-1 step's iteration
 PASS1_STEPS = 4         # pass-1 steps timed in this process
 NERF_CONFIG = os.path.join('configs', 'nerf_spot_synth_g64.json')
 NERF_TRAIN = os.path.join('data', 'nerf_synthetic_spot',
                           'transforms_train.json')
+NERF_TEST = os.path.join('data', 'nerf_synthetic_spot',
+                         'transforms_test.json')
 NERF_ITERS = 8          # iterations a pass of phase 14's program
 NERF_VIEWS = 4          # the test split's views, in both validations
 NERF_TIMEOUT = 700      # seconds for phase 14's program
@@ -786,11 +793,12 @@ def small_validation_agreement(device):
 # The pass-2 program
 # ---------------------------------------------------------------------------
 
-def program_setup(work, base_mesh=True, out_dir='spot', iters=PROGRAM_ITERS):
+def program_setup(work, base_mesh=True, out_dir='spot', iters=PROGRAM_ITERS,
+                  validate=False):
     """The scene and config of phases 12 and 13 in work/: the reference's
     MTL override and a config of configs/spot.json's keys over the spot256
-    scene, iters iterations, a probe and a checkpoint every 10, no
-    validation, out_dir under work.  base_mesh: phase 12's base mesh (spot256's geometry,
+    scene, iters iterations, a probe and a checkpoint every 10, out_dir
+    under work.  base_mesh: phase 12's base mesh (spot256's geometry,
     constant kd 0.5 and ks (0, 0.5, 0) at 512x512, written by the port's
     write_obj); without it the program runs pass 1 first.  Returns the
     config's path."""
@@ -820,7 +828,7 @@ def program_setup(work, base_mesh=True, out_dir='spot', iters=PROGRAM_ITERS):
                 % os.path.join(SPOT256_DIR, 'texture_kd.png'))
     cfg.update(ref_mesh=os.path.join(SPOT256_DIR, 'mesh.obj'),
                mtl_override=mtl, envlight=SPOT256_PROBE, iter=iters,
-               save_interval=10, checkpoint_interval=10, validate=False,
+               save_interval=10, checkpoint_interval=10, validate=validate,
                out_root=work, out_dir=out_dir)
     path = os.path.join(work, 'config_%s.json' % out_dir)
     with open(path, 'w') as f:
@@ -1203,22 +1211,23 @@ def pass1_checks(device):
 def two_pass_program():
     """Phase 13, the program: configs/spot.json's keys with no base_mesh,
     PROGRAM_ITERS iterations in each pass, a probe and a checkpoint every
-    10, no validation (phase 14's program validates both passes), in
-    chiprun_out/train_two_pass/.  Returns (the kernel launches of the run,
-    per pass-1 step)."""
+    10, validation on (DMTET_VIEWS views after pass 1, PROGRAM_VIEWS after
+    pass 2), in chiprun_out/train_two_pass/.  Returns (the kernel launches
+    of the run, per pass-1 step)."""
     import re
     import torch
     here = os.path.dirname(os.path.abspath(__file__))
     work = os.path.join(here, 'chiprun_out', 'train_two_pass')
     shutil.rmtree(work, ignore_errors=True)
-    cfg = program_setup(work, base_mesh=False)
+    cfg = program_setup(work, base_mesh=False, validate=True)
     torch.cuda.empty_cache()
     lines = run_program(['--config', cfg], os.path.join(work, 'run.log'))
-    relay = ('iter=', '[probe]', 'WARNING', 'peak device memory',
-             'dmtet_pass1:', 'prune_small', 'pass boundary:', 'Base mesh',
-             'mesh_pass:', 'export:')
-    for ln in lines:
-        if ln.startswith(relay):
+    relay = ('iter=', '[probe]', 'WARNING', 'MSE', 'peak device memory',
+             'dmtet_pass1:', 'dmtet_validate:', 'prune_small', 'pass '
+             'boundary:', 'Base mesh', 'mesh_pass:', 'validation:',
+             'export:')
+    for i, ln in enumerate(lines):
+        if ln.startswith(relay) or (i and lines[i - 1].startswith('MSE')):
             print('two passes | ' + ln, flush=True)
     psnrs, probe_s = check_program_log(lines, 2)
     med1, per_step1 = pass_summary(lines, 'dmtet_pass1')
@@ -1227,15 +1236,19 @@ def two_pass_program():
     boundary = _after(lines, 'pass boundary: ')[0]
     launches = json.loads(_after(lines, 'kernel launches: ')[0])
     peak = float(_after(lines, 'peak device memory: ')[0].split()[0])
+    val1 = float(_after(lines, 'dmtet_validate: ')[0].split()[0])
+    val2 = float(_after(lines, 'validation: ')[0].split()[0])
     secs = dict(re.findall(r'(extract|prune|unwrap|bake) ([\d.]+) s',
                            boundary))
     print('two passes: pass 1 median %.3f ms per step, pass 2 %.3f ms (batch '
           '4, %d steps each); pass 1 ends with %s; boundary: extract %s s, '
-          'prune %s s, unwrap %s s, bake %s s; probes PSNR %s dB, %s s; peak '
+          'prune %s s, unwrap %s s, bake %s s; %.3f s per dmtet_validate '
+          'view, %.3f s per validation view; probes PSNR %s dB, %s s; peak '
           'device memory %.3f GiB (%s)'
           % (med1, med2, PROGRAM_ITERS, tris, secs['extract'],
-             secs['prune'], secs['unwrap'], secs['bake'], psnrs, probe_s,
-             peak, smi_line()), flush=True)
+             secs['prune'], secs['unwrap'], secs['bake'], val1 / DMTET_VIEWS,
+             val2 / PROGRAM_VIEWS, psnrs, probe_s, peak, smi_line()),
+          flush=True)
     print('two passes: kernel launches %s; per pass-1 step %s; per pass-2 '
           'step %s' % (launches, per_step1, per_step2), flush=True)
     check_step_launches(per_step1, 'pass 1')
@@ -1244,11 +1257,14 @@ def two_pass_program():
         print('two passes: WARNING, marching tets overflowed at the end of '
               'pass 1', flush=True)
     out = os.path.join(work, 'spot')
+    avg1 = check_metrics(os.path.join(out, 'dmtet_validate'), DMTET_VIEWS)
+    avg2 = check_metrics(os.path.join(out, 'validate'), PROGRAM_VIEWS)
     _, mesh1, _ = check_mesh_dir(os.path.join(out, 'dmtet_mesh'))
     _, mesh2, _ = check_mesh_dir(os.path.join(out, 'mesh'))
-    print('two passes: dmtet_mesh/ %d triangles, %d vertices; mesh/ %d '
-          'triangles' % (mesh1.t_pos_idx.shape[0], mesh1.v_pos.shape[0],
-                         mesh2.t_pos_idx.shape[0]), flush=True)
+    print('two passes: dmtet_validate %s; validate %s; dmtet_mesh/ %d '
+          'triangles, %d vertices; mesh/ %d triangles'
+          % (avg1, avg2, mesh1.t_pos_idx.shape[0], mesh1.v_pos.shape[0],
+             mesh2.t_pos_idx.shape[0]), flush=True)
     if mesh1.t_pos_idx.shape[0] == 0 or \
             mesh2.t_pos_idx.shape[0] != mesh1.t_pos_idx.shape[0]:
         raise RuntimeError('the baked mesh is empty or pass 2 changed it')
@@ -1386,8 +1402,9 @@ def nerf_checks(device, cfg):
     at 800x800, n2 = 64, iteration PASS1_IT) holds each kernel of it
     against its plain version (every row scatter launch among them); then
     one whole step of 8 micro-steps, timed, counting per image the
-    triangles the resolve gives the whole screen.  Returns (the checks,
-    launches per micro-step, launches per step)."""
+    triangles the resolve gives the whole screen; last nerf_view_checks on
+    that state.  Returns (the checks, launches per micro-step, launches
+    per step, nerf_view_checks' checks)."""
     import torch
     from nvdiffrecmc_tpu_torch import checks, config, kernels, train
     from nvdiffrecmc_tpu_torch.dataset import DatasetNERF
@@ -1417,6 +1434,7 @@ def nerf_checks(device, cfg):
     one = train.batch_slice(target, 0, 8)
 
     def grads(t):
+        train.clear_grads(p)
         return train.compute_grads(geometry, p, static, t, PASS1_IT, FLAGS,
                                    loss_fn, perms, gen)
     peak1 = _peak_gib(lambda: grads(one))
@@ -1476,7 +1494,56 @@ def nerf_checks(device, cfg):
           '%d surface triangles of %d slots; launches per micro-step %s '
           '(%s)' % (ms, float(il), float(rl), n, cap, per_micro, smi_line()),
           flush=True)
-    return out, per_micro, per_step
+    return out, per_micro, per_step, nerf_view_checks(
+        device, FLAGS, geometry, p, static)
+
+
+def nerf_view_checks(device, FLAGS, geometry, p, static):
+    """train.render_eval of the first NeRF test view (800x800, n_samples
+    32) on the pass-1 state p: its seconds and launches (sample and trace
+    once a stratum), finite buffers, and sample and trace on the first
+    stratum's inputs (the DMTet mesh with its padded triangle slots)
+    against their plain versions.  Returns {'sample': check, 'trace':
+    check}."""
+    import torch
+    from nvdiffrecmc_tpu_torch import checks, kernels, train
+    from nvdiffrecmc_tpu_torch.dataset import DatasetNERF
+    here = os.path.dirname(os.path.abspath(__file__))
+    ds = DatasetNERF(os.path.join(here, NERF_TEST), FLAGS, device=device)
+    batch = ds.collate([ds[0]])
+    target = train.prepare_batch(batch, tuple(batch['img'].shape[1:3]),
+                                 FLAGS['background'], None, FLAGS)
+    kernels.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.no_grad(), checks.Recorder() as rec:
+        buf = train.render_eval(geometry, p['geo'], p['mat'], static,
+                                p['light'], target, FLAGS)
+        torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    counts = dict(kernels.LAUNCHES)
+    for k, v in buf.items():
+        if not bool(torch.isfinite(v).all()):
+            raise RuntimeError('nerf validation buffer %s is not finite' % k)
+    if counts['sample'] != VAL_N * VAL_N or counts['trace'] != VAL_N * VAL_N:
+        raise RuntimeError('nerf validation view launched %s' % counts)
+    ro, rd, bvh, tmin = rec.args['trace']
+    u8 = rec.args['sample'][0]
+    # covered pixels: the loop starts the rays of the others at BIG
+    covered = ro[:u8.shape[2], 0] < 1e37
+    with torch.no_grad():
+        rs = checks.check_sample(*rec.args['sample'], mask=covered)
+        print_compare(rs, ' (nerf validation stratum 0)')
+        r = checks.check_trace(ro, rd, bvh, tmin)
+        print_compare(r, ' (nerf validation stratum 0)')
+    n, cap = geometry.tri_count(p['geo'])
+    print('nerf validation view on the pass-1 state: %.3f s (800x800, '
+          'n_samples 32, %d surface triangles of %d slots); launches %s (%s)'
+          % (sec, n, cap, counts, smi_line()), flush=True)
+    if not (rs['ok'] and r['ok']):
+        raise RuntimeError('sample or trace disagrees with its plain version '
+                           'on the NeRF validation stratum 0')
+    return {'sample': rs, 'trace': r}
 
 
 def device_ms_per_step(run, steps):
@@ -1798,7 +1865,7 @@ def main():
     # process
     torch.cuda.empty_cache()
     nerf_cfg, nerf_launches, nerf_per1, _ = nerf_program()
-    at_nerf, nerf_micro, _ = nerf_checks(device, nerf_cfg)
+    at_nerf, nerf_micro, _, at_nerf_val = nerf_checks(device, nerf_cfg)
     for row in rows:
         name = row['name']
         row['launches_in_nerf_program'] = nerf_launches[name]
@@ -1807,6 +1874,12 @@ def main():
         if name in at_nerf:
             r = at_nerf[name]
             row['at_nerf_micro_step'] = dict(
+                ms=r['ms'], plain_ms=r['plain_ms'],
+                max_abs_err=r['max_abs_err'],
+                compared_on=r.get('compared_on'))
+        if name in at_nerf_val:
+            r = at_nerf_val[name]
+            row['at_nerf_validation_stratum'] = dict(
                 ms=r['ms'], plain_ms=r['plain_ms'],
                 max_abs_err=r['max_abs_err'],
                 compared_on=r.get('compared_on'))

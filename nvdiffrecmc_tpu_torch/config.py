@@ -195,19 +195,22 @@ def _refuse_unknown(keys, known):
 
 def micro_slices(FLAGS):
     """The slices a step's batch is split into: batch / micro_batch when
-    micro_batch is set and below batch, else 1."""
+    micro_batch is set and below batch, else 1.  Raises ValueError when
+    such a micro_batch does not divide batch."""
     micro, batch = int(FLAGS.get('micro_batch') or 0), FLAGS['batch']
-    return batch // micro if 0 < micro < batch else 1
+    if not 0 < micro < batch:
+        return 1
+    if batch % micro:
+        raise ValueError('micro_batch %d does not divide batch %d'
+                         % (micro, batch))
+    return batch // micro
 
 
 def _derive(FLAGS):
     for k, v in HONOURED.items():
         if bool(FLAGS.get(k)) != bool(v):
             raise NotImplementedError('%s=%r is not ported' % (k, FLAGS[k]))
-    micro = int(FLAGS['micro_batch'] or 0)
-    if 0 < micro < FLAGS['batch'] and FLAGS['batch'] % micro:
-        raise ValueError('micro_batch %d does not divide batch %d'
-                         % (micro, FLAGS['batch']))
+    micro_slices(FLAGS)
     apply_schedule_scaling(FLAGS)
     if FLAGS['display_res'] is None:
         FLAGS['display_res'] = FLAGS['train_res']

@@ -270,16 +270,17 @@ def _leaves(params):
     return _group(params['geo']) + _group(params['mat']) + [params['light']]
 
 
+def clear_grads(params):
+    """Drop the .grad of every parameter leaf."""
+    for p in _leaves(params):
+        p.grad = None
+
+
 def compute_grads(geometry, params, mat_static, target, it, FLAGS, loss_fn,
-                  perms, generator, uniforms=None, offsets=None,
-                  accumulate=False):
+                  perms, generator, uniforms=None, offsets=None):
     """Render target's view with the current parameters and backpropagate
-    img_loss + reg_loss into their .grad (added to what .grad holds when
-    accumulate, else in its place).  Returns (img_loss, reg_loss),
-    detached."""
-    if not accumulate:
-        for p in _leaves(params):
-            p.grad = None
+    img_loss + reg_loss into their .grad, added to what .grad holds (see
+    clear_grads).  Returns (img_loss, reg_loss), detached."""
     tables = light_mod.update_pdf(params['light'])
     lgt = {'base': params['light'], 'pdf': tables.pdf, 'rows': tables.rows,
            'cols': tables.cols}
@@ -341,38 +342,36 @@ def batch_slice(target, i, n):
 
 def micro_grads(geometry, params, mat_static, target, it, FLAGS, loss_fn,
                 perms, generator, uniforms=None, offsets=None):
-    """The JAX package's micro-batched gradient: compute_grads on each of
-    config.micro_slices(FLAGS) slices of the batch in turn (each slice
-    builds its own mesh and draws its uniforms from generator), the
-    gradients summed in .grad and divided by the slice count, the losses
-    averaged.  uniforms and offsets: None, or one entry per slice.
-    Returns (img_loss, reg_loss)."""
+    """The JAX package's step gradient: .grad cleared, then compute_grads
+    on each of config.micro_slices(FLAGS) slices of the batch in turn
+    (each slice builds its own mesh and draws its uniforms from
+    generator), the gradients summed in .grad and divided by the slice
+    count, the losses averaged.  uniforms and offsets: None, or one entry
+    per slice.  Returns (img_loss, reg_loss)."""
     n = config.micro_slices(FLAGS)
+    clear_grads(params)
     il = rl = 0.0
     for i in range(n):
         a, b = compute_grads(
             geometry, params, mat_static, batch_slice(target, i, n), it,
             FLAGS, loss_fn, perms, generator,
             uniforms=None if uniforms is None else uniforms[i],
-            offsets=None if offsets is None else offsets[i],
-            accumulate=i > 0)
+            offsets=None if offsets is None else offsets[i])
         il, rl = il + a, rl + b
-    with torch.no_grad():
-        for p in _leaves(params):
-            if p.grad is not None:
-                p.grad.div_(n)
+    if n > 1:
+        with torch.no_grad():
+            for p in _leaves(params):
+                if p.grad is not None:
+                    p.grad.div_(n)
     return il / n, rl / n
 
 
 def train_step(geometry, params, optimizers, mat_static, target, it, FLAGS,
                loss_fn, perms, generator, **kw):
-    """One optimizer step: compute_grads (kw: uniforms, offsets), or
-    micro_grads when micro_batch splits the batch (kw: one entry per
-    slice), then apply_grads.  Returns (img_loss, reg_loss)."""
-    grads = (micro_grads if config.micro_slices(FLAGS) > 1
-             else compute_grads)
-    losses = grads(geometry, params, mat_static, target, it, FLAGS, loss_fn,
-                   perms, generator, **kw)
+    """One optimizer step: micro_grads (kw: uniforms, offsets, one entry
+    per slice), then apply_grads.  Returns (img_loss, reg_loss)."""
+    losses = micro_grads(geometry, params, mat_static, target, it, FLAGS,
+                         loss_fn, perms, generator, **kw)
     apply_grads(params, optimizers, mat_static, FLAGS)
     return losses
 

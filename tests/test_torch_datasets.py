@@ -232,7 +232,7 @@ def write_nerf(folder, n_train=6, n_test=2, res=24, seed=4):
     disc = ((yy - res / 2 + 0.5) ** 2 + (xx - res / 2 + 0.5) ** 2
             <= (res / 3) ** 2)
     for split, n in (('train', n_train), ('test', n_test)):
-        os.makedirs(os.path.join(folder, split))
+        os.makedirs(os.path.join(folder, split), exist_ok=True)
         frames = []
         for i in range(n):
             img = np.zeros((res, res, 4), np.uint8)

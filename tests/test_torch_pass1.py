@@ -322,8 +322,8 @@ def test_pass1_micro_batch_matches_jax(tmp_path, monkeypatch):
     of the NeRF scene at 48x48: the port's micro_grads against the mean of
     JAX's per-slice gradients (DMTetGeometry.tick under jax.grad on each
     slice with its own key; the same uniforms, jitter and position noise
-    fed to the port), within the tolerances of
-    test_pass1_step_matches_jax; then the port's unsplit batch-2 gradient
+    fed to the port; each slice's uniforms its own, from rnd_seed IT + i),
+    within the tolerances of test_pass1_step_matches_jax; then the port's unsplit batch-2 gradient
     from the slices' uniforms and offsets concatenated, against its
     micro-batched one: the losses within 1e-5 relative, each gradient with
     cosine >= 0.99999 and every entry within 5e-3 max|g| (the two differ
@@ -341,7 +341,8 @@ def test_pass1_micro_batch_matches_jax(tmp_path, monkeypatch):
     ramp = jnp.minimum(jnp.float32(IT) / jflags['shadow_ramp_iters'], 1.0)
     sigma = jnp.maximum(2.0 * ramp, 1e-4)
     P = MICRO_RES * MICRO_RES
-    u8 = j_ps.make_uniforms(jax.random.PRNGKey(IT), N * N, P, N, perms)
+    u8 = [j_ps.make_uniforms(jax.random.PRNGKey(IT + i), N * N, P, N, perms)
+          for i in range(2)]
 
     jgrads, jil, jrl, offsets = None, 0.0, 0.0, []
     for i in range(2):
@@ -357,7 +358,7 @@ def test_pass1_micro_batch_matches_jax(tmp_path, monkeypatch):
             material = j_train.make_material(p['mat'], jstatic)
             il, rl = jgeo.tick(p['geo'], material, lgt, sl, loss_obj,
                                jnp.float32(IT), jflags, sigma, perms, key,
-                               rnd_seed=jnp.int32(IT))
+                               rnd_seed=jnp.int32(IT + i))
             return il + rl, (il, rl)
         g, (il, rl) = jax.grad(loss_fn, has_aux=True)(jparams)
         jgrads = g if jgrads is None else jax.tree.map(jnp.add, jgrads, g)
@@ -377,12 +378,13 @@ def test_pass1_micro_batch_matches_jax(tmp_path, monkeypatch):
                                         for x in tables))
     monkeypatch.setattr(t_train.light_mod, 'update_pdf',
                         lambda base: port_tables)
-    tu = convert.tensor(u8, device='cpu')
+    tu = [convert.tensor(u, device='cpu') for u in u8]
+    assert not torch.equal(tu[0], tu[1])
     target = {k: tt[k] for k in ('img', 'background', 'mvp', 'campos')}
     tperms = convert.tensor(perms, device='cpu')
     il, rl = t_train.micro_grads(
         geo, params, static, target, IT, FLAGS, t_train.createLoss(FLAGS),
-        tperms, None, uniforms=[[tu], [tu]],
+        tperms, None, uniforms=[[u] for u in tu],
         offsets=[[o] for o in offsets])
     np.testing.assert_allclose(float(il), float(jil) / 2, rtol=1e-4)
     np.testing.assert_allclose(float(rl), float(jrl) / 2, rtol=1e-4)
@@ -398,9 +400,10 @@ def test_pass1_micro_batch_matches_jax(tmp_path, monkeypatch):
 
     FLAGS.update(micro_batch=0)
     assert t_config.micro_slices(FLAGS) == 1
+    t_train.clear_grads(params)
     il0, rl0 = t_train.compute_grads(
         geo, params, static, target, IT, FLAGS, t_train.createLoss(FLAGS),
-        tperms, None, uniforms=[torch.cat([tu, tu], dim=2)],
+        tperms, None, uniforms=[torch.cat(tu, dim=2)],
         offsets=[tuple(torch.cat(x) for x in zip(*offsets))])
     np.testing.assert_allclose(float(il0), float(il), rtol=1e-5)
     np.testing.assert_allclose(float(rl0), float(rl), rtol=1e-5)
