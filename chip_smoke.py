@@ -54,8 +54,9 @@ one):
    mask against their plain versions (the sample line gives the kernel's
    time at one stratum, as the stratum loop launches it), and give the
    triangle tests per covered ray as in phase 8;
-10. a 32x32 validation frame at n_samples 32 with the kernels on the card
-   and with the plain versions on the CPU from the same uniforms;
+10. a 32x32 validation frame at n_samples SMALL_VAL_N (17: 289 strata, the
+   stratum loop) with the kernels on the card and with the plain versions
+   on the CPU from the same uniforms;
 11. count the kernels (PyTorch's and ours) that one rasterize call of
    phase 3's frame launches, under torch.profiler: at most
    RESOLVE_MAX_LAUNCHES up to the resolve's output;
@@ -88,38 +89,53 @@ one):
    the baked mesh, 20 iterations, 16 views).  Relayed and printed: each
    pass's median ms per step and launches per step (as in phase 6), the
    surface triangles against the slots at the end of pass 1 and every
-   overflow warning, the seconds of extract, prune, unwrap and
-   bake, s per view of each validation, every probe's PSNR and seconds,
-   peak device memory.  Checks: losses and PSNRs finite, both
-   metrics.txt, dmtet_mesh/ and mesh/ read back, pass 2's mesh the baked
-   one.  Then, in this process, one recorded pass-1 step at batch 4
-   (iteration PASS1_IT) holds every kernel of the step against its plain
-   version (every row scatter launch; the hash-grid table's, 268 M rows
-   of C = 2, also with the generic instance, timed against both and
-   index_add_); PASS1_STEPS more steps give ms per step, launches per
+   overflow warning, the boundary (check_boundary, as in phase 14), s per
+   view of each validation, every probe's PSNR and seconds, peak device
+   memory.  Checks: losses and PSNRs finite, both metrics.txt,
+   dmtet_mesh/ and mesh/ read back, pass 2's mesh the baked one.  Then, in this process, one
+   recorded pass-1 step at batch 4 (iteration PASS1_IT) holds every
+   kernel of the step against its plain version (every row scatter
+   launch; the hash-grid table's, 268 M rows of C = 2, also with the
+   generic instance, timed against both and index_add_); PASS1_STEPS
+   more steps give ms per step, launches per
    step, peak memory and, per step and image, the triangles the resolve
    gives the whole screen (a vertex at w <= 1e-6); last a kernel-only
    trace of 2 more steps gives pass 1's device ms per step;
-14. the NeRF scene (users who reconstruct from photographs): the program
-   on configs/nerf_spot_synth_g64.json as shipped (data/nerf_synthetic_spot,
-   batch 8 in micro-steps of 1, 800x800, n_samples 8, 1024x1024 textures,
-   DMTet grid 64 at mesh_scale 2.4, the white background, four display
-   layers) but NERF_ITERS iterations a pass, in chiprun_out/train_nerf/
-   (cleared first).  Relayed and printed: each pass's median ms per step,
+14. the NeRF scene (users who reconstruct from photographs) at grid 64:
+   the program on configs/nerf_spot_synth_g64.json as shipped
+   (data/nerf_synthetic_spot, batch 8 in micro-steps of 1, 800x800,
+   n_samples 8, 1024x1024 textures, DMTet grid 64 at mesh_scale 2.4, the
+   white background, four display layers) but NERF_ITERS iterations a
+   pass and no validation, in chiprun_out/train_nerf_grid_64/ (cleared
+   first).  Relayed and printed: each pass's median ms per step,
    micro-steps and launches per step, the surface triangles against the
-   98,304 slots and every overflow warning, the boundary's seconds, s per
-   view and PSNR of dmtet_validate and validate (the 4 test views), the
-   probes, peak device memory.  Checks: losses and PSNRs finite, both
-   metrics.txt, dmtet_mesh/ and mesh/ read back, 8 micro-steps a step,
-   every kernel but the mask launched (the validation's trace at
-   800x800), peak memory under the card's.  Then, in this process: the
-   peak memory of one micro-step and of an unsplit batch of 2 (the unsplit
+   98,304 slots and every overflow warning, the boundary, the probes,
+   peak device memory.  Checks: losses and PSNRs finite, 8 micro-steps a
+   step, every kernel but the mask and the trace launched, peak memory
+   under the card's, and the boundary (check_boundary): the bake holds
+   every surface triangle pass 1 ends with less the prune's drops, read
+   back from dmtet_mesh/, no face of zero area, covered kd and ks texels,
+   and mesh/ exports that many triangles;
+15. the NeRF scene at grid 128: the program on configs/nerf_spot_synth.json
+   as shipped (grid 128: 12,582,912 tets, 393,216 triangle slots) but
+   NERF_G128_ITERS iterations a pass, both validations (the 4 test
+   views), in chiprun_out/train_nerf_grid_128/, with phase 14's lines and
+   checks and s per view and PSNR of both validations (both metrics.txt
+   read).  Then, in this process: the grid's set-up seconds and resident
+   bytes and the init's surface triangles against the slots; the peak
+   memory of one micro-step and of an unsplit batch of 2 (the unsplit
    batch 8 reckoned from them); one recorded pass-1 micro-step at 800x800
    and n2 = 64 holds each of its kernels against its plain version (every
-   row scatter launch); one step of 8 micro-steps, timed, with the
-   whole-screen triangles per image; then one validation view (the first
-   test view, 800x800, n_samples 32) on that pass-1 state, whose first
-   stratum holds sample and trace against their plain versions;
+   row scatter launch), with trace + shade's time, the walk's shared
+   memory and its triangle tests per ray on 65,536 of stratum 0's shadow
+   rays; the whole unpruned surface (marching tets in buffers sized to
+   it, as the pass boundary extracts, 4.9 M triangles at leaf 1024) holds
+   the trace against its plain version on those rays; one validation view
+   (the first test view, 800x800, n_samples 32) on that pass-1 state,
+   whose first stratum holds sample and trace against their plain
+   versions (the DMTet mesh with its padded slots); last one pass-2
+   micro-step on the program's bake, read back, whose trace + shade is
+   held against its plain version at the leaf size the program chose;
 7. with --profile only: torch.profiler over 4 more frames and over 4 more
    training steps; prints device time by kernel, launches and host gaps,
    and writes the full tables to chiprun_out/profile_port.txt and
@@ -127,15 +143,19 @@ one):
    each gives the device's idle share within one run; then a kernel-only
    trace of one more validation view (chiprun_out/profile_validate.txt).
 
-Any failure raises and exits non-zero before the last line.  The last
+Each phase prints its seconds ('phase N: ... s').  Any failure raises and
+exits non-zero before the last line.  The last
 three lines are the kernels JSON (all eleven entries: the ten kernels that
 replace the TPU kernels, the denoiser's two modes apart, and the sampler's
 guide kernel; each with its time, its plain version's, its bound and, for
 the two scatters, index_add_'s, for the guide torch.searchsorted's, and
 its launches in phase 12's program and per step there, in phase 13's
-program and per pass-1 step there, in phase 14's program, per NeRF pass-1
-step and per micro-step and, for the step's kernels, its check at batch
-4, at pass 1's batch 4 and at the NeRF micro-step; the row scatter's
+program and per pass-1 step there, in phase 14's and phase 15's programs
+and per pass-1 step there, per grid-128 micro-step and, for the step's
+kernels, its check at batch 4, at pass 1's batch 4 and at the grid-128
+micro-step, for sample and trace at the grid-128 validation stratum, for
+the trace on the whole grid-128 surface, and for trace + shade at the
+grid-128 bake; the row scatter's
 entry is its largest launch, with every launch of the step and their
 summed time and bound beside it, and pass 1's hash-grid launch with the
 generic instance's and index_add_'s times), the card line, and {"ok":
@@ -171,6 +191,8 @@ TRACER_RAYS = 2 ** 21   # bench.py's bench_tracer
 RESOLVE_MAX_LAUNCHES = 10   # kernels of one rasterize call up to the resolve
 VAL_FRAMES = 2
 VAL_N = 32              # the reference validation protocol's n_samples
+SMALL_VAL_N = 17        # phase 10's: 289 strata, past the fused path's 256,
+                        # so the stratum loop runs
 PROGRAM_ITERS = 20
 PROGRAM_VIEWS = 16      # main()'s validation views
 PROGRAM_TIMEOUT = 600   # seconds for each run of the program
@@ -182,9 +204,13 @@ NERF_TRAIN = os.path.join('data', 'nerf_synthetic_spot',
                           'transforms_train.json')
 NERF_TEST = os.path.join('data', 'nerf_synthetic_spot',
                          'transforms_test.json')
-NERF_ITERS = 8          # iterations a pass of phase 14's program
+NERF_ITERS = 2          # iterations a pass of phase 14's program
+NERF_G128_CONFIG = os.path.join('configs', 'nerf_spot_synth.json')
+NERF_G128_ITERS = 2     # iterations a pass of phase 15's program
 NERF_VIEWS = 4          # the test split's views, in both validations
-NERF_TIMEOUT = 700      # seconds for phase 14's program
+NERF_TIMEOUT = 700      # seconds for the program of phase 14 or 15
+SMEM_PER_SM = 233472    # shared memory of an H100 SM (1 KB of it per block
+                        # is reserved)
 
 
 def smi_line():
@@ -746,15 +772,16 @@ def validation_phase(st, device, results):
 
 
 def small_validation_agreement(device):
-    """A 32x32 validation frame of the spot scene at n_samples 32: kernels
-    on the card vs plain versions on the CPU, the same uniforms."""
+    """A 32x32 validation frame of the spot scene at n_samples
+    SMALL_VAL_N, through the stratum loop: kernels on the card vs plain
+    versions on the CPU, the same uniforms."""
     import torch
     from nvdiffrecmc_tpu_torch import config, train
     from nvdiffrecmc_tpu_torch.dataset.dataset_mesh import (
         SPOT256_PROBE, DatasetMesh, spot256_scene)
     from nvdiffrecmc_tpu_torch.geometry import DLMesh
     from nvdiffrecmc_tpu_torch.ops import pallas_shade, vecmath
-    res, n = 32, VAL_N
+    res, n = 32, SMALL_VAL_N
     gen = torch.Generator()
     gen.manual_seed(9)
     uniforms = pallas_shade.make_uniforms(gen, n * n, res * res, n,
@@ -958,6 +985,63 @@ def check_mesh_dir(mesh_dir):
     if probe.shape != (512, 1024, 3):
         raise RuntimeError('%s/probe.hdr is %s' % (mesh_dir, probe.shape))
     return files, back, probe.shape
+
+
+def check_boundary(lines, out, label):
+    """The pass boundary of a two-pass program, from its log and
+    out/dmtet_mesh/ read back: the bake holds every surface
+    triangle pass 1 ends with, less the prune's drops, covers texels of kd
+    and ks, and has no face of zero area (float64 areas of the read-back
+    float32 vertices); raises otherwise.  Returns (the baked mesh, its
+    pass-2 BVH leaf size)."""
+    import re
+    import torch
+    end = [x for x in _after(lines, 'dmtet_pass1: ') if 'slots' in x][0]
+    n1 = int(end.split()[0])
+    dropped = sum(int(x.split()[0]) for x in
+                  _after(lines, 'prune_small_components: dropped '))
+    b = _after(lines, 'pass boundary: ')[0]
+    T, V = (int(x) for x in re.match(r'(\d+) triangles, (\d+) vertices',
+                                     b).groups())
+    covered, texels, leaf = (int(x) for x in re.search(
+        r'(\d+) of (\d+) texels covered; pass 2 BVH leaf size (\d+)',
+        b).groups())
+    _, mesh, _ = check_mesh_dir(os.path.join(out, 'dmtet_mesh'))
+    v = mesh.v_pos.double()
+    f = mesh.t_pos_idx.long()
+    area = torch.linalg.cross(v[f[:, 1]] - v[f[:, 0]],
+                              v[f[:, 2]] - v[f[:, 0]]).norm(dim=1)
+    zero = int((area == 0).sum())
+    print('%s boundary: pass 1 ends with %d surface triangles, the prune '
+          'drops %d; the bake %d triangles (%d read back), %d vertices, %d '
+          'of zero area (smallest area %.3e); %d of %d texels covered; pass '
+          '2 BVH leaf size %d; %s (%s)'
+          % (label, n1, dropped, T, f.shape[0], V, zero, float(area.min()),
+             covered, texels, leaf, b.split('; ')[1], smi_line()),
+          flush=True)
+    if T != n1 - dropped or f.shape[0] != T:
+        raise RuntimeError('%s: the bake has %d triangles (%d read back), '
+                           'not the %d - %d pass 1 ends with'
+                           % (label, T, f.shape[0], n1, dropped))
+    if zero:
+        raise RuntimeError('%s: the bake has %d faces of zero area'
+                           % (label, zero))
+    if covered == 0:
+        raise RuntimeError('%s: the bake covers no texel of kd and ks'
+                           % label)
+    return mesh, leaf
+
+
+def drop_checkpoints(folder):
+    """Delete the program's checkpoints in folder once read (pass 1's
+    holds the 2^23-row table and its Adam moments, ~200 MB), so that
+    chiprun_out/ stays small enough to come back."""
+    for name in sorted(os.listdir(folder)):
+        if name.endswith('.pkl'):
+            path = os.path.join(folder, name)
+            print('dropping %s (%.1f MB)'
+                  % (path, os.path.getsize(path) / 2 ** 20), flush=True)
+            os.remove(path)
 
 
 def check_metrics(folder, views):
@@ -1259,7 +1343,7 @@ def two_pass_program():
     out = os.path.join(work, 'spot')
     avg1 = check_metrics(os.path.join(out, 'dmtet_validate'), DMTET_VIEWS)
     avg2 = check_metrics(os.path.join(out, 'validate'), PROGRAM_VIEWS)
-    _, mesh1, _ = check_mesh_dir(os.path.join(out, 'dmtet_mesh'))
+    mesh1, _ = check_boundary(lines, out, 'two passes')
     _, mesh2, _ = check_mesh_dir(os.path.join(out, 'mesh'))
     print('two passes: dmtet_validate %s; validate %s; dmtet_mesh/ %d '
           'triangles, %d vertices; mesh/ %d triangles'
@@ -1272,30 +1356,18 @@ def two_pass_program():
     return launches, per_step1
 
 
-def drop_checkpoints(folder):
-    """Delete the program's checkpoints in folder once read (pass 1's
-    holds the 2^23-row table and its Adam moments, ~200 MB), so that
-    chiprun_out/ stays small enough to come back."""
-    for name in sorted(os.listdir(folder)):
-        if name.endswith('.pkl'):
-            path = os.path.join(folder, name)
-            print('dropping %s (%.1f MB)'
-                  % (path, os.path.getsize(path) / 2 ** 20), flush=True)
-            os.remove(path)
-
-
 # ---------------------------------------------------------------------------
 # The NeRF scene: both passes at batch 8 in micro-steps of 1, 800x800
 # ---------------------------------------------------------------------------
 
-def nerf_setup(work):
-    """configs/nerf_spot_synth_g64.json as shipped, but NERF_ITERS
-    iterations a pass, out_root work and data_root this checkout, written
-    into work/.  Returns its path."""
+def nerf_setup(work, config, iters, validate):
+    """config as shipped, but iters iterations a pass, validate, out_root
+    work and data_root this checkout, written into work/.  Returns its
+    path."""
     here = os.path.dirname(os.path.abspath(__file__))
-    with open(os.path.join(here, NERF_CONFIG)) as f:
+    with open(os.path.join(here, config)) as f:
         cfg = json.load(f)
-    cfg.update(iter=NERF_ITERS, out_root=work, data_root=here)
+    cfg.update(iter=iters, validate=validate, out_root=work, data_root=here)
     os.makedirs(work, exist_ok=True)
     path = os.path.join(work, 'config.json')
     with open(path, 'w') as f:
@@ -1303,23 +1375,28 @@ def nerf_setup(work):
     return path
 
 
-def nerf_program():
-    """Phase 14, the program: the NeRF config of nerf_setup in
-    chiprun_out/train_nerf/ (cleared first).  Relays and prints each
+def nerf_program(config, iters, validate, label):
+    """Phases 14 and 15, the program: config (a NeRF config of the
+    spot scene) as nerf_setup writes it, in chiprun_out/train_<label>/
+    (spaces as underscores; cleared first).  Relays and prints each
     pass's median ms per step, micro-steps and launches per step, the
-    surface triangles at the end of pass 1 and every overflow warning, the
-    boundary's seconds, s per view and PSNR of both validations, the
-    probes and peak device memory; checks losses and PSNRs finite, both
-    metrics.txt, dmtet_mesh/ and mesh/ read back, pass 2's mesh the baked
-    one, every kernel but the mask launched, peak memory under the card's.
-    Returns (the config's path, the kernel launches of the run, per
-    pass-1 step, per pass-2 step)."""
+    surface triangles at the end of pass 1 and every overflow warning,
+    the boundary (check_boundary), s per view and PSNR of both
+    validations when validate, the probes and peak device memory; checks
+    losses and PSNRs finite, both metrics.txt, mesh/ read back with the
+    bake's triangles, every kernel but the mask launched (the trace only
+    in validation), peak memory under the card's.  Returns a dict: the
+    config's path, the kernel launches of the run, per pass-1 step and
+    per pass-2 step, the bake's OBJ and its pass-2 leaf size."""
     import re
     import torch
     here = os.path.dirname(os.path.abspath(__file__))
-    work = os.path.join(here, 'chiprun_out', 'train_nerf')
+    work = os.path.join(here, 'chiprun_out',
+                        'train_' + label.replace(' ', '_'))
     shutil.rmtree(work, ignore_errors=True)
-    cfg = nerf_setup(work)
+    cfg = nerf_setup(work, config, iters, validate)
+    with open(cfg) as f:
+        grid = json.load(f)['dmtet_grid']
     torch.cuda.empty_cache()
     lines = run_program(['--config', cfg], os.path.join(work, 'run.log'),
                         timeout=NERF_TIMEOUT)
@@ -1329,57 +1406,60 @@ def nerf_program():
              'validation:', 'export:')
     for i, ln in enumerate(lines):
         if ln.startswith(relay) or (i and lines[i - 1].startswith('MSE')):
-            print('nerf | ' + ln, flush=True)
-    psnrs, probe_s = check_program_log(lines, 2, NERF_ITERS, 100)
+            print(label + ' | ' + ln, flush=True)
+    psnrs, probe_s = check_program_log(lines, 2, iters, 100)
     med1, per_step1 = pass_summary(lines, 'dmtet_pass1')
     med2, per_step2 = pass_summary(lines, 'mesh_pass')
     micro = [int(x) for x in re.findall(r'of (\d+) micro-steps',
                                         '\n'.join(lines))]
     tris = [x for x in _after(lines, 'dmtet_pass1: ') if 'slots' in x][0]
     overflows = len([x for x in lines if 'OVERFLOW' in x])
-    boundary = _after(lines, 'pass boundary: ')[0]
     launches = json.loads(_after(lines, 'kernel launches: ')[0])
     peak = float(_after(lines, 'peak device memory: ')[0].split()[0])
     card = torch.cuda.get_device_properties(0).total_memory / 2 ** 30
-    val1 = float(_after(lines, 'dmtet_validate: ')[0].split()[0])
-    val2 = float(_after(lines, 'validation: ')[0].split()[0])
-    secs = dict(re.findall(r'(extract|prune|unwrap|bake) ([\d.]+) s',
-                           boundary))
-    out = os.path.join(work, 'nerf_spot_synth_g64')
-    avg1 = check_metrics(os.path.join(out, 'dmtet_validate'), NERF_VIEWS)
-    avg2 = check_metrics(os.path.join(out, 'validate'), NERF_VIEWS)
-    print('nerf: pass 1 median %.3f ms per step, pass 2 %.3f ms (batch 8 '
-          'in %s micro-steps, 800x800, n_samples 8, grid 64, %d steps '
-          'each); pass 1 ends with %s; %d overflow lines; boundary: extract '
-          '%s s, prune %s s, unwrap %s s, bake %s s; dmtet_validate %.3f s '
-          'per view (%s), validate %.3f s per view (%s); probes PSNR %s dB, '
-          '%s s; peak device memory %.3f GiB of the card\'s %.3f (%s)'
-          % (med1, med2, micro, NERF_ITERS, tris, overflows,
-             secs['extract'], secs['prune'], secs['unwrap'], secs['bake'],
-             val1 / NERF_VIEWS, avg1, val2 / NERF_VIEWS, avg2, psnrs,
-             probe_s, peak, card, smi_line()), flush=True)
-    print('nerf: kernel launches %s; per pass-1 step %s; per pass-2 step %s'
-          % (launches, per_step1, per_step2), flush=True)
+    out = os.path.join(work, os.path.splitext(os.path.basename(config))[0])
+    views = 'no validation'
+    if validate:
+        val1 = float(_after(lines, 'dmtet_validate: ')[0].split()[0])
+        val2 = float(_after(lines, 'validation: ')[0].split()[0])
+        views = ('dmtet_validate %.3f s per view (%s), validate %.3f s per '
+                 'view (%s)' % (
+                     val1 / NERF_VIEWS,
+                     check_metrics(os.path.join(out, 'dmtet_validate'),
+                                   NERF_VIEWS),
+                     val2 / NERF_VIEWS,
+                     check_metrics(os.path.join(out, 'validate'),
+                                   NERF_VIEWS)))
+    print('%s: pass 1 median %.3f ms per step, pass 2 %.3f ms (batch 8 in '
+          '%s micro-steps, 800x800, n_samples 8, grid %d, %d steps each); '
+          'pass 1 ends with %s; %d overflow lines; %s; probes PSNR %s dB, %s '
+          's; peak device memory %.3f GiB of the card\'s %.3f (%s)'
+          % (label, med1, med2, micro, grid, iters, tris, overflows, views,
+             psnrs, probe_s, peak, card, smi_line()), flush=True)
+    print('%s: kernel launches %s; per pass-1 step %s; per pass-2 step %s'
+          % (label, launches, per_step1, per_step2), flush=True)
     if micro != [8, 8]:
-        raise RuntimeError('nerf: micro-steps per step %s, not 8' % micro)
-    check_step_launches(per_step1, 'nerf pass 1', 8)
-    check_step_launches(per_step2, 'nerf pass 2', 8)
-    idle = [n for n, c in launches.items() if c == 0 and n != 'mask']
+        raise RuntimeError('%s: micro-steps per step %s, not 8'
+                           % (label, micro))
+    check_step_launches(per_step1, label + ' pass 1', 8)
+    check_step_launches(per_step2, label + ' pass 2', 8)
+    unused = ('mask',) if validate else ('mask', 'trace')
+    idle = [n for n, c in launches.items() if c == 0 and n not in unused]
     if idle:
-        raise RuntimeError('nerf: kernels not launched %s' % idle)
+        raise RuntimeError('%s: kernels not launched %s' % (label, idle))
     if not peak < card:
-        raise RuntimeError('nerf: peak device memory %.3f GiB' % peak)
-    _, mesh1, _ = check_mesh_dir(os.path.join(out, 'dmtet_mesh'))
+        raise RuntimeError('%s: peak device memory %.3f GiB' % (label, peak))
+    mesh1, leaf = check_boundary(lines, out, label)
     _, mesh2, _ = check_mesh_dir(os.path.join(out, 'mesh'))
-    print('nerf: dmtet_mesh/ %d triangles, %d vertices; mesh/ %d triangles'
-          % (mesh1.t_pos_idx.shape[0], mesh1.v_pos.shape[0],
+    print('%s: dmtet_mesh/ %d triangles, %d vertices; mesh/ %d triangles'
+          % (label, mesh1.t_pos_idx.shape[0], mesh1.v_pos.shape[0],
              mesh2.t_pos_idx.shape[0]), flush=True)
-    if mesh1.t_pos_idx.shape[0] == 0 or \
-            mesh2.t_pos_idx.shape[0] != mesh1.t_pos_idx.shape[0]:
-        raise RuntimeError('nerf: the baked mesh is empty or pass 2 '
-                           'changed it')
+    if mesh2.t_pos_idx.shape[0] != mesh1.t_pos_idx.shape[0]:
+        raise RuntimeError('%s: pass 2 changed the baked mesh' % label)
     drop_checkpoints(out)
-    return cfg, launches, per_step1, per_step2
+    return dict(cfg=cfg, launches=launches, per_step1=per_step1,
+                per_step2=per_step2,
+                bake=os.path.join(out, 'dmtet_mesh', 'mesh.obj'), leaf=leaf)
 
 
 def _peak_gib(run):
@@ -1394,111 +1474,210 @@ def _peak_gib(run):
     return (torch.cuda.max_memory_allocated() - before) / 2 ** 30
 
 
-def nerf_checks(device, cfg):
-    """Phase 14, in this process: pass 1's state at the NeRF config's
-    settings with the first 8 training views (decoded on demand).  The
-    peak memory of one micro-step and of an unsplit batch of 2, and the
-    unsplit batch 8 reckoned from them; one recorded micro-step (one view
-    at 800x800, n2 = 64, iteration PASS1_IT) holds each kernel of it
-    against its plain version (every row scatter launch among them); then
-    one whole step of 8 micro-steps, timed, counting per image the
-    triangles the resolve gives the whole screen; last nerf_view_checks on
-    that state.  Returns (the checks, launches per micro-step, launches
-    per step, nerf_view_checks' checks)."""
+def micro_step_checks(rec, label):
+    """Each kernel of a recorded micro-step against its plain version,
+    every row scatter launch among them.  Returns the checks (the row
+    scatter's is its largest launch); raises on a disagreement."""
+    import torch
+    from nvdiffrecmc_tpu_torch import checks
+    out, bad = {}, []
+    with torch.no_grad():
+        for name in checks.FORWARD + checks.BACKWARD:
+            if name == 'scatter':
+                continue
+            r = checks.run(name, rec.args, reps=2)
+            print_compare(r, ' (%s)' % label)
+            out[name] = r
+            if not r['ok']:
+                bad.append(name)
+        calls = rec.args['scatter_all']
+        big = max(range(len(calls)), key=lambda i: calls[i][1].numel())
+        for i, a in enumerate(calls):
+            r = checks.check_scatter(*a, reps=2)
+            print_compare(r, ' (%s, launch %d of %d)'
+                          % (label, i + 1, len(calls)))
+            if i == big:
+                out['scatter'] = r
+            if not r['ok']:
+                bad.append('scatter launch %d' % (i + 1))
+    if bad:
+        raise RuntimeError('kernels disagree with their plain versions at '
+                           'the %s: %s' % (label, bad))
+    return out
+
+
+def stratum0_rays(samp, gb, n_rays):
+    """Up to n_rays of stratum 0's shadow rays (light and BSDF
+    directions) from the covered pixels of a recorded trace + shade,
+    evenly strided: (ro, rd) [R, 3]."""
+    import torch
+    from nvdiffrecmc_tpu_torch.ops import pallas_shade
+    covered = gb[pallas_shade.GB_MASK] > 0
+    ro = gb[0:3].T[covered]
+    rd = torch.cat([samp[0, k:k + 3].T[covered]
+                    for k in (pallas_shade.S_LDIR, pallas_shade.S_BDIR)])
+    ro = torch.cat([ro, ro])
+    idx = torch.arange(0, ro.shape[0], max(1, ro.shape[0] // n_rays),
+                       device=ro.device)[:n_rays]
+    return ro[idx].contiguous(), rd[idx].contiguous()
+
+
+def nerf_g128_checks(device, cfg, bake_obj, leaf):
+    """Phase 15, in this process: configs/nerf_spot_synth.json's pass-1
+    state (DMTet grid 128) with the first 8 training views.  Prints the
+    grid's set-up seconds and resident bytes and the init's surface
+    triangles against the 393,216 slots; the peak memory of one
+    micro-step and of an unsplit batch of 2 (the unsplit batch 8 reckoned
+    from them); one recorded micro-step (one view at 800x800, n2 = 64,
+    iteration PASS1_IT) holds each of its kernels against its plain
+    version (every row scatter launch among them), with trace + shade's
+    time, the walk's shared memory and its triangle tests per ray; the
+    whole unpruned surface, extracted as the boundary extracts it, holds
+    the trace against its plain version on 65,536 of stratum 0's shadow
+    rays at the leaf size bvh.build picks; nerf_view_checks on that
+    state; last one pass-2 micro-step on the program's count-sized bake
+    (bake_obj, read back) holds trace + shade against its plain version
+    at the leaf size the program chose (leaf).  Returns (the checks,
+    launches per micro-step, the whole surface's trace check,
+    nerf_view_checks' checks, the pass-2 trace + shade check)."""
     import torch
     from nvdiffrecmc_tpu_torch import checks, config, kernels, train
     from nvdiffrecmc_tpu_torch.dataset import DatasetNERF
-    from nvdiffrecmc_tpu_torch.geometry import DMTetGeometry
-    from nvdiffrecmc_tpu_torch.ops import envshade
+    from nvdiffrecmc_tpu_torch.geometry import DLMesh, DMTetGeometry
+    from nvdiffrecmc_tpu_torch.ops import bvh as bvh_mod
+    from nvdiffrecmc_tpu_torch.ops import envshade, pallas_tracer
     from nvdiffrecmc_tpu_torch.render import light as light_mod
+    from nvdiffrecmc_tpu_torch.render import obj as obj_mod
     here = os.path.dirname(os.path.abspath(__file__))
     FLAGS = config.parse_flags(['--config', cfg])
     FLAGS['pre_load'] = False
     ds = DatasetNERF(os.path.join(here, NERF_TRAIN), FLAGS, device=device)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
     geometry = DMTetGeometry(FLAGS['dmtet_grid'], FLAGS['mesh_scale'], FLAGS,
                              max_tris=FLAGS['max_tris'], device=device)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    resident = torch.cuda.memory_allocated() - before
+    n0, cap = geometry.tri_count(geometry.parameters())
+    print('nerf grid 128 set-up: %.3f s (the Kuhn grid: %d tets, %d '
+          'vertices, %d unique edges); the geometry holds %.3f GiB on the '
+          'card (indices %.3f, edge_map %.3f, edge_uniq %.3f); the init\'s '
+          'surface %d triangles in %d slots (%.2fx) (%s)'
+          % (setup_s, geometry.num_tets, geometry.verts.shape[0],
+             geometry.edge_uniq.shape[0], resident / 2 ** 30,
+             *(t.numel() * t.element_size() / 2 ** 30 for t in (
+                 geometry.indices, geometry.edge_map, geometry.edge_uniq)),
+             n0, cap, n0 / cap, smi_line()), flush=True)
     mat_params, static = train.initial_guess_material(geometry, True, FLAGS,
                                                       device=device)
     static['no_perturbed_nrm'] = True
     light = light_mod.create_trainable_env_rnd(FLAGS['probe_res'], 0.0, 0.5,
                                                device=device)
     p = train.make_params(geometry, mat_params, light)
-    opts = train.make_optimizers(p, FLAGS)
     loss_fn = train.createLoss(FLAGS)
     perms = envshade.make_perms(FLAGS['n_samples'], device=device)
     gen = torch.Generator(device=device)
-    gen.manual_seed(31)
+    gen.manual_seed(37)
     batch = train.prepare_batch(ds.collate([ds[i] for i in range(8)]),
                                 FLAGS['train_res'], 'random', gen, FLAGS)
     target = {k: batch[k] for k in ('img', 'mvp', 'campos', 'background')}
     one = train.batch_slice(target, 0, 8)
 
-    def grads(t):
-        train.clear_grads(p)
-        return train.compute_grads(geometry, p, static, t, PASS1_IT, FLAGS,
+    def grads(geo, params, st, t):
+        train.clear_grads(params)
+        return train.compute_grads(geo, params, st, t, PASS1_IT, FLAGS,
                                    loss_fn, perms, gen)
-    peak1 = _peak_gib(lambda: grads(one))
-    peak2 = _peak_gib(lambda: grads(train.batch_slice(target, 0, 4)))
-    print('nerf memory: one micro-step (batch 1) %.3f GiB above the state, '
-          'an unsplit batch of 2 %.3f GiB; an unsplit batch of 8 reckoned '
-          'at %.3f GiB (peak(1) + 7 (peak(2) - peak(1))) (%s)'
+    peak1 = _peak_gib(lambda: grads(geometry, p, static, one))
+    peak2 = _peak_gib(lambda: grads(geometry, p, static,
+                                    train.batch_slice(target, 0, 4)))
+    print('nerf grid 128 memory: one micro-step (batch 1) %.3f GiB above '
+          'the state, an unsplit batch of 2 %.3f GiB; an unsplit batch of 8 '
+          'reckoned at %.3f GiB (peak(1) + 7 (peak(2) - peak(1))) (%s)'
           % (peak1, peak2, peak1 + 7 * (peak2 - peak1), smi_line()),
           flush=True)
-    out, bad = {}, []
-    with FullScreenCount() as full:
-        kernels.reset_launches()
-        with checks.Recorder() as rec:
-            il, rl = grads(one)
-            torch.cuda.synchronize()
-        per_micro = dict(kernels.LAUNCHES)
-        check_step(p, il, rl)
-        with torch.no_grad():
-            for name in checks.FORWARD + checks.BACKWARD:
-                if name == 'scatter':
-                    continue
-                r = checks.run(name, rec.args, reps=2)
-                print_compare(r, ' (nerf micro-step)')
-                out[name] = r
-                if not r['ok']:
-                    bad.append(name)
-            calls = rec.args['scatter_all']
-            big = max(range(len(calls)), key=lambda i: calls[i][1].numel())
-            for i, a in enumerate(calls):
-                r = checks.check_scatter(*a, reps=2)
-                print_compare(r, ' (nerf micro-step, launch %d of %d)'
-                              % (i + 1, len(calls)))
-                if i == big:
-                    out['scatter'] = r
-                if not r['ok']:
-                    bad.append('scatter launch %d' % (i + 1))
-        del rec, calls
-        if bad:
-            raise RuntimeError('kernels disagree with their plain versions '
-                               'at the NeRF micro-step: %s' % bad)
-        kernels.reset_launches()
+    kernels.reset_launches()
+    with checks.Recorder() as rec:
+        il, rl = grads(geometry, p, static, one)
         torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        il, rl = train.train_step(geometry, p, opts, static, target,
-                                  PASS1_IT + 1, FLAGS, loss_fn, perms, gen)
-        torch.cuda.synchronize()
-        ms = (time.perf_counter() - t0) * 1e3
-        per_step = dict(kernels.LAUNCHES)
+    per_micro = dict(kernels.LAUNCHES)
     check_step(p, il, rl)
-    check_step_launches(per_micro, 'nerf micro-step')
-    check_step_launches(per_step, 'nerf step (in this process)', 8)
-    print('nerf: triangles with a vertex at w <= 1e-6 (whole-screen '
-          'rectangles) per image %s' % full.counts, flush=True)
-    n, cap = geometry.tri_count(p['geo'])
-    print('nerf pass 1 in this process: one step of 8 micro-steps %.2f ms '
-          '(800x800, n_samples 8, grid 64), img_loss %.5f, reg_loss %.5f, '
-          '%d surface triangles of %d slots; launches per micro-step %s '
-          '(%s)' % (ms, float(il), float(rl), n, cap, per_micro, smi_line()),
+    check_step_launches(per_micro, 'nerf grid 128 micro-step')
+    out = micro_step_checks(rec, 'nerf grid 128 micro-step')
+    samp, gb, bvh = rec.args['trace_shade'][:3]
+    smem = pallas_tracer.walk_smem_bytes(bvh)
+    print('nerf grid 128 micro-step: trace + shade %.3f ms (kernel, CUDA '
+          'events) on %d pixels, n2 = %d; the walk over %d slots (%d leaves '
+          'of %d, %d supernodes) holds %d bytes of shared memory a block, so '
+          'at most %d blocks fit on an SM (%s)'
+          % (out['trace_shade']['ms'], gb.shape[1], samp.shape[0],
+             bvh.tri.shape[0], bvh.n_leaves, bvh.leaf_size,
+             bvh.super_lo.shape[0], smem, SMEM_PER_SM // (smem + 1024),
+             smi_line()), flush=True)
+    tmin = rec.args['trace_shade'][4]
+    with torch.no_grad():
+        ro, rd = stratum0_rays(samp, gb, 1 << 16)
+        print_tests(checks.trace_work(ro, rd, bvh, tmin), ro.shape[0],
+                    bvh.sub_size, 'nerf grid 128 micro-step, stratum 0')
+    del rec, samp, gb, bvh
+
+    # the whole unpruned surface, as the pass boundary extracts it
+    with torch.no_grad():
+        whole, bvh_w = geometry.getMesh(p['geo'], None, whole=True)
+        T_w = whole.t_pos_idx.shape[0]
+        r_w = checks.check_trace(ro, rd, bvh_w, tmin, reps=2)
+        r_w['leaf_size'] = bvh_w.leaf_size
+    print_compare(r_w, ' (nerf grid 128, stratum 0 rays, the whole surface: '
+                  '%d triangles, leaf %d)' % (T_w, bvh_w.leaf_size))
+    print('nerf grid 128 whole surface: %d triangles (%d counted), %d '
+          'vertices; its BVH %d leaves of %d (%d bytes of the walk\'s shared '
+          'memory) (%s)' % (T_w, n0, whole.v_pos.shape[0], bvh_w.n_leaves,
+                            bvh_w.leaf_size,
+                            pallas_tracer.walk_smem_bytes(bvh_w), smi_line()),
           flush=True)
-    return out, per_micro, per_step, nerf_view_checks(
-        device, FLAGS, geometry, p, static)
+    if T_w != n0 or bvh_w.leaf_size != bvh_mod.leaf_size_for(T_w):
+        raise RuntimeError('the whole surface: %d triangles of the %d '
+                           'counted, leaf %d' % (T_w, n0, bvh_w.leaf_size))
+    if not r_w['ok']:
+        raise RuntimeError('trace disagrees with its plain version on the '
+                           'whole grid-128 surface')
+    del whole, bvh_w, ro, rd
+    at_view = nerf_view_checks(device, FLAGS, geometry, p, static,
+                               'nerf grid 128')
+
+    # pass 2 on the program's count-sized bake
+    bake = obj_mod.load_obj(bake_obj, device=device)
+    mat2, static2 = train.initial_guess_material(
+        None, False, FLAGS, init_mat=bake.material, device=device)
+    geometry2 = DLMesh(bake, FLAGS)
+    p2 = train.make_params(geometry2, mat2, light)
+    with checks.Recorder() as rec:
+        il, rl = grads(geometry2, p2, static2, one)
+        torch.cuda.synchronize()
+    check_step(p2, il, rl)
+    bvh2 = rec.args['trace_shade'][2]
+    T = bake.t_pos_idx.shape[0]
+    with torch.no_grad():
+        r2 = checks.run('trace_shade', rec.args, reps=2)
+    print_compare(r2, ' (nerf grid 128 pass 2 on the bake, %d triangles, '
+                  'leaf %d)' % (T, bvh2.leaf_size))
+    print('nerf grid 128 pass 2 on the bake: img_loss %.5f, reg_loss %.5f; '
+          'its BVH %d leaves of %d (%d bytes of the walk\'s shared memory) '
+          '(%s)' % (float(il), float(rl), bvh2.n_leaves, bvh2.leaf_size,
+                    pallas_tracer.walk_smem_bytes(bvh2), smi_line()),
+          flush=True)
+    if bvh2.leaf_size != leaf or leaf != bvh_mod.leaf_size_for(T):
+        raise RuntimeError('pass 2 BVH leaf size %d, the program said %d, '
+                           'leaf_size_for gives %d'
+                           % (bvh2.leaf_size, leaf, bvh_mod.leaf_size_for(T)))
+    if not r2['ok']:
+        raise RuntimeError('trace + shade disagrees with its plain version '
+                           'on the grid-128 bake')
+    return out, per_micro, r_w, at_view, r2
 
 
-def nerf_view_checks(device, FLAGS, geometry, p, static):
+def nerf_view_checks(device, FLAGS, geometry, p, static, label):
     """train.render_eval of the first NeRF test view (800x800, n_samples
     32) on the pass-1 state p: its seconds and launches (sample and trace
     once a stratum), finite buffers, and sample and trace on the first
@@ -1524,25 +1703,26 @@ def nerf_view_checks(device, FLAGS, geometry, p, static):
     counts = dict(kernels.LAUNCHES)
     for k, v in buf.items():
         if not bool(torch.isfinite(v).all()):
-            raise RuntimeError('nerf validation buffer %s is not finite' % k)
+            raise RuntimeError('%s validation buffer %s is not finite'
+                               % (label, k))
     if counts['sample'] != VAL_N * VAL_N or counts['trace'] != VAL_N * VAL_N:
-        raise RuntimeError('nerf validation view launched %s' % counts)
+        raise RuntimeError('%s validation view launched %s' % (label, counts))
     ro, rd, bvh, tmin = rec.args['trace']
     u8 = rec.args['sample'][0]
     # covered pixels: the loop starts the rays of the others at BIG
     covered = ro[:u8.shape[2], 0] < 1e37
     with torch.no_grad():
         rs = checks.check_sample(*rec.args['sample'], mask=covered)
-        print_compare(rs, ' (nerf validation stratum 0)')
+        print_compare(rs, ' (%s validation stratum 0)' % label)
         r = checks.check_trace(ro, rd, bvh, tmin)
-        print_compare(r, ' (nerf validation stratum 0)')
+        print_compare(r, ' (%s validation stratum 0)' % label)
     n, cap = geometry.tri_count(p['geo'])
-    print('nerf validation view on the pass-1 state: %.3f s (800x800, '
+    print('%s validation view on the pass-1 state: %.3f s (800x800, '
           'n_samples 32, %d surface triangles of %d slots); launches %s (%s)'
-          % (sec, n, cap, counts, smi_line()), flush=True)
+          % (label, sec, n, cap, counts, smi_line()), flush=True)
     if not (rs['ok'] and r['ok']):
         raise RuntimeError('sample or trace disagrees with its plain version '
-                           'on the NeRF validation stratum 0')
+                           'on the %s validation stratum 0' % label)
     return {'sample': rs, 'trace': r}
 
 
@@ -1580,6 +1760,24 @@ def print_tests(work, rays, G, label):
              work['walk_tris_two_level'] / rays, work['tris'] / rays,
              work['tris_two_level'] / rays, work['slabs'] / rays),
           flush=True)
+
+
+def brief(r):
+    """A check's numbers for the kernels JSON."""
+    return dict(ms=r['ms'], plain_ms=r['plain_ms'],
+                max_abs_err=r['max_abs_err'], compared_on=r.get('compared_on'))
+
+
+def phase_timer():
+    """A function of a phase's name that prints the seconds since its
+    last call, or since phase_timer's."""
+    last = [time.perf_counter()]
+
+    def done(name):
+        now = time.perf_counter()
+        print('phase %s: %.1f s' % (name, now - last[0]), flush=True)
+        last[0] = now
+    return done
 
 
 def print_compare(r, label=''):
@@ -1648,6 +1846,7 @@ def main():
                         help='also profile 4 frames and 4 training steps '
                              'with torch.profiler')
     args = parser.parse_args()
+    phase_seconds = phase_timer()
     import torch
     if not torch.cuda.is_available():
         raise SystemExit('chip_smoke: torch.cuda.is_available() is false')
@@ -1676,6 +1875,7 @@ def main():
     print('build: %.1f s (nvcc %.1f s)' % (time.perf_counter() - t0, built),
           flush=True)
     print_occupancy()
+    phase_seconds('1-2 (device, build)')
 
     # 3. scene, one recorded frame, kernel vs plain
     t0 = time.perf_counter()
@@ -1717,6 +1917,8 @@ def main():
         raise RuntimeError('kernels disagree with their plain versions: %s'
                            % bad)
 
+    phase_seconds('3 (one recorded frame)')
+
     # 4. the main path: 4 frames, counted launches
     times = []
     kernels.reset_launches()
@@ -1744,6 +1946,7 @@ def main():
     share, worst = small_agreement(device)
     print('64x64 render vs plain CPU render: %.4f of pixels within 1e-3 '
           '(max %.3e)' % (share, worst), flush=True)
+    phase_seconds('4-5 (frames, 64x64 render)')
 
     # 6. the training step
     step_launches, st, targets = train_phase(device, results)
@@ -1754,16 +1957,23 @@ def main():
              {k: v for k, v in report.items() if 'loss' not in k}),
           flush=True)
 
+    phase_seconds('6 (training step)')
+
     # 8. the standalone tracer on the bench rays
     tracer_phase(mesh, device, results)
+    phase_seconds('8 (tracer)')
 
     # 9. validation at the reference protocol
     val_launches = validation_phase(st, device, results)
 
+    phase_seconds('9 (validation)')
+
     # 10. a small validation frame against the plain versions on the CPU
     share, worst = small_validation_agreement(device)
-    print('32x32 validation frame (n_samples 32) vs plain CPU render: %.4f '
-          'of pixels within 1e-3 (max %.3e)' % (share, worst), flush=True)
+    print('32x32 validation frame (n_samples %d) vs plain CPU render: %.4f '
+          'of pixels within 1e-3 (max %.3e)' % (SMALL_VAL_N, share, worst),
+          flush=True)
+    phase_seconds('10 (32x32 validation frame)')
 
     # the kernels' rows (library_ms is timed here, before any profiler)
     rows = []
@@ -1811,6 +2021,8 @@ def main():
                 name, b['rays_needed'], kargs[0].shape[0]), flush=True)
         rows.append(row)
 
+    phase_seconds('the kernels\' rows (bounds, library calls)')
+
     # 11. the launches of one rasterize call
     v_clip, tri, H, W = results['resolve']['args'][:4]
     with torch.no_grad():
@@ -1823,9 +2035,9 @@ def main():
         row['launches_in_program'] = program_launches[row['name']]
         row['launches_per_program_step'] = program_per_step[row['name']]
         if row['name'] in at_batch_4:
-            r = at_batch_4[row['name']]
-            row['at_batch_4'] = dict(ms=r['ms'], plain_ms=r['plain_ms'],
-                                     max_abs_err=r['max_abs_err'])
+            row['at_batch_4'] = brief(at_batch_4[row['name']])
+
+    phase_seconds('11-12 (rasterize launches, pass-2 program)')
 
     # 13. pass 1, the pass boundary and pass 2 through the program at
     # spot.json's settings; then pass 1's kernels at batch 4 in this process
@@ -1836,11 +2048,7 @@ def main():
         row['launches_in_two_pass_program'] = two_launches[name]
         row['launches_per_pass1_step'] = pass1_per_step[name]
         if name in at_pass1:
-            r = at_pass1[name]
-            row['at_pass1_batch_4'] = dict(
-                ms=r['ms'], plain_ms=r['plain_ms'],
-                max_abs_err=r['max_abs_err'],
-                compared_on=r.get('compared_on'))
+            row['at_pass1_batch_4'] = brief(at_pass1[name])
         if name == 'scatter':
             r = at_pass1[name]
             row['pass1_hashgrid'] = {k: r[k] for k in (
@@ -1858,31 +2066,46 @@ def main():
           '%.3f ms wall in the trace (%s)' % (dev_ms, wall, smi_line()),
           flush=True)
     del st1, targets1
+    phase_seconds('13 (two passes, spot)')
 
-    # 14. the NeRF scene: both passes through the program at
+    # 14. the NeRF scene at grid 64: both passes through the program at
     # configs/nerf_spot_synth_g64.json's width (batch 8 in micro-steps of
-    # 1, 800x800, n_samples 8); then one micro-step's kernels in this
-    # process
+    # 1, 800x800, n_samples 8), NERF_ITERS iterations a pass, no
+    # validation
     torch.cuda.empty_cache()
-    nerf_cfg, nerf_launches, nerf_per1, _ = nerf_program()
-    at_nerf, nerf_micro, _, at_nerf_val = nerf_checks(device, nerf_cfg)
+    g64 = nerf_program(NERF_CONFIG, NERF_ITERS, False, 'nerf grid 64')
+    for row in rows:
+        row['launches_in_nerf_program'] = g64['launches'][row['name']]
+        row['launches_per_nerf_pass1_step'] = g64['per_step1'][row['name']]
+    del g64
+    phase_seconds('14 (NeRF, grid 64)')
+
+    # 15. the NeRF scene at grid 128: configs/nerf_spot_synth.json as
+    # shipped through the program, NERF_G128_ITERS iterations a pass, both
+    # validations; then in this process one micro-step's kernels, the trace
+    # over the whole unpruned surface, a validation view's first stratum
+    # and a pass-2 micro-step on the program's count-sized bake
+    torch.cuda.empty_cache()
+    g128 = nerf_program(NERF_G128_CONFIG, NERF_G128_ITERS, True,
+                        'nerf grid 128')
+    at_g128, g128_micro, g128_whole, at_nerf_val, g128_bake = \
+        nerf_g128_checks(device, g128['cfg'], g128['bake'], g128['leaf'])
     for row in rows:
         name = row['name']
-        row['launches_in_nerf_program'] = nerf_launches[name]
-        row['launches_per_nerf_pass1_step'] = nerf_per1[name]
-        row['launches_per_nerf_micro_step'] = nerf_micro[name]
-        if name in at_nerf:
-            r = at_nerf[name]
-            row['at_nerf_micro_step'] = dict(
-                ms=r['ms'], plain_ms=r['plain_ms'],
-                max_abs_err=r['max_abs_err'],
-                compared_on=r.get('compared_on'))
+        row['launches_in_nerf_g128_program'] = g128['launches'][name]
+        row['launches_per_nerf_g128_pass1_step'] = g128['per_step1'][name]
+        row['launches_per_nerf_g128_micro_step'] = g128_micro[name]
+        if name in at_g128:
+            row['at_nerf_g128_micro_step'] = brief(at_g128[name])
         if name in at_nerf_val:
-            r = at_nerf_val[name]
-            row['at_nerf_validation_stratum'] = dict(
-                ms=r['ms'], plain_ms=r['plain_ms'],
-                max_abs_err=r['max_abs_err'],
-                compared_on=r.get('compared_on'))
+            row['at_nerf_validation_stratum'] = brief(at_nerf_val[name])
+        if name == 'trace':
+            row['at_nerf_g128_whole_surface'] = dict(
+                brief(g128_whole), leaf_size=g128_whole['leaf_size'])
+        if name == 'trace_shade':
+            row['at_nerf_g128_pass2_bake'] = dict(brief(g128_bake),
+                                                  leaf_size=g128['leaf'])
+    phase_seconds('15 (NeRF, grid 128)')
 
     # 7. optional profile: every profiler session after every timed phase
     if args.profile:

@@ -97,8 +97,7 @@ class DatasetMesh(Dataset):
         if ref_mesh.v_tng is None:
             ref_mesh = mesh_mod.compute_tangents(ref_mesh)
         self.ref_mesh = ref_mesh
-        self.bvh = bvh_mod.build(ref_mesh.v_pos, ref_mesh.t_pos_idx,
-                                 leaf_size=128)
+        self.bvh = bvh_mod.build(ref_mesh.v_pos, ref_mesh.t_pos_idx)
         env_path = FLAGS.get('envlight')
         if env_path is not None and not os.path.isabs(env_path):
             env_path = os.path.join(FLAGS.get('data_root', '.'), env_path)

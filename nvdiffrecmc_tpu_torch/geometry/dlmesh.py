@@ -27,13 +27,12 @@ class DLMesh:
     def parameters(self):
         return self.init_params
 
-    def getMesh(self, params, material, build_bvh=True, leaf_size=128):
+    def getMesh(self, params, material, build_bvh=True):
         m = dataclasses.replace(self.base_mesh, v_pos=params['v_pos'],
                                 material=material)
         m = mesh_mod.auto_normals(m)
         m = mesh_mod.compute_tangents(m)
-        bvh = (bvh_mod.build(m.v_pos, m.t_pos_idx, leaf_size=leaf_size)
-               if build_bvh else None)
+        bvh = bvh_mod.build(m.v_pos, m.t_pos_idx) if build_bvh else None
         return m, bvh
 
     def tick(self, params, material, lgt, target, loss_fn, iteration, FLAGS,

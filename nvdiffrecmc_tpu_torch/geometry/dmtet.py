@@ -149,9 +149,9 @@ def marching_tets(v_deformed, sdf, tet_idx, edge_uniq, edge_map, max_tris,
     [max_tris, 3] int32 into verts; face_gidx [max_tris] int32, slot-major
     (tet = gidx % Nt, its triangle = gidx // Nt); tri_mask [max_tris]
     float32; overflow, a bool tensor: true when either buffer truncated).
-    max_verts defaults to max_tris."""
-    if max_verts is None:
-        max_verts = max_tris
+    max_verts defaults to max_tris; max_tris None sizes both buffers to
+    the surface's triangles and sign-crossing edges (one host sync), so
+    nothing is truncated."""
     dev = sdf.device
     Nt = tet_idx.shape[0]
     occ = sdf > 0
@@ -159,8 +159,17 @@ def marching_tets(v_deformed, sdf, tet_idx, edge_uniq, edge_map, max_tris,
 
     e0, e1 = edge_uniq[:, 0], edge_uniq[:, 1]
     active_edge = occ[e0] != occ[e1]
-    sel_e, cpos = _compact(active_edge, max_verts, 0)
     n_active = torch.sum(active_edge.long())
+    ntt = torch.as_tensor(NUM_TRIANGLES_TABLE, device=dev).long()
+    n_tri = ntt[tetindex]
+    flat_valid = torch.cat([n_tri >= 1, n_tri >= 2])           # [2 Nt]
+    n_flat = torch.sum(flat_valid.long())
+    if max_tris is None:
+        max_tris, max_verts = (max(n, 1) for n in
+                               torch.stack([n_flat, n_active]).tolist())
+    elif max_verts is None:
+        max_verts = max_tris
+    sel_e, cpos = _compact(active_edge, max_verts, 0)
     remap = torch.clamp(cpos, 0, max_verts - 1)
 
     # zero-crossing interpolation on the selected edges (reference
@@ -178,16 +187,12 @@ def marching_tets(v_deformed, sdf, tet_idx, edge_uniq, edge_map, max_tris,
     verts = torch.where(vmask[:, None], verts, (p0 + p1) * 0.5)
 
     tt = torch.as_tensor(TRIANGLE_TABLE, device=dev).long()
-    ntt = torch.as_tensor(NUM_TRIANGLES_TABLE, device=dev).long()
-    n_tri = ntt[tetindex]
     local = tt[tetindex]                                       # [Nt, 6]
     gathered = torch.gather(edge_map, 1, torch.clamp(local, min=0))
     slot_faces = torch.cat([gathered[:, 0:3], gathered[:, 3:6]], dim=0)
-    flat_valid = torch.cat([n_tri >= 1, n_tri >= 2])           # [2 Nt]
 
     sel, _ = _compact(flat_valid, max_tris, 2 * Nt)
-    overflow = ((torch.sum(flat_valid.long()) > max_tris)
-                | (n_active > max_verts))
+    overflow = (n_flat > max_tris) | (n_active > max_verts)
     live = sel < 2 * Nt
     tri_mask = live.float()
     sel_c = torch.clamp(sel, 0, 2 * Nt - 1)
@@ -303,20 +308,23 @@ class DMTetGeometry:
         n = ntt.long()[tet_index(params['sdf'], self.indices)].sum()
         return int(n), self.max_tris
 
-    def getMesh(self, params, material, build_bvh=True, leaf_size=128):
+    def getMesh(self, params, material, build_bvh=True, whole=False):
+        """The surface in training's fixed max_tris slots or, when whole,
+        in buffers sized to it (every triangle; one host sync), and its
+        BVH."""
         v_deformed = (self.verts + 2.0 / (self.grid_res * 2)
                       * torch.tanh(params['deform']))
         verts, faces, face_gidx, tri_mask, _ = marching_tets(
             v_deformed, params['sdf'], self.indices, self.edge_uniq,
-            self.edge_map, self.max_tris)
+            self.edge_map, None if whole else self.max_tris)
         v_tex, t_tex_idx = face_uvs(face_gidx, self.num_tets, self.uv_N)
         m = mesh_mod.Mesh(v_pos=verts, t_pos_idx=faces, v_tex=v_tex,
                           t_tex_idx=t_tex_idx, tri_mask=tri_mask,
                           material=material)
         m = mesh_mod.auto_normals(m)
         m = mesh_mod.compute_tangents(m)
-        bvh = (bvh_mod.build(m.v_pos, m.t_pos_idx, tri_mask=tri_mask > 0,
-                             leaf_size=leaf_size) if build_bvh else None)
+        bvh = (bvh_mod.build(m.v_pos, m.t_pos_idx, tri_mask=tri_mask > 0)
+               if build_bvh else None)
         return m, bvh
 
     def tick(self, params, material, lgt, target, loss_fn, iteration, FLAGS,

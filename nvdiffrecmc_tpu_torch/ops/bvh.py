@@ -29,6 +29,9 @@ SUPER = 8          # leaves per supernode
 SUB = 8            # triangles per sub-box (at most; see build)
 TRI_STRIDE = 24    # floats per triangle row
 AABB_PAD = 1e-6    # relative AABB growth: culling stays conservative
+LEAF_MIN = 128     # the smallest leaf size leaf_size_for picks
+WALK_BOX_BYTES = 32    # the walk's shared memory per supernode or leaf box
+SMEM_MAX = 232448      # the dynamic shared memory an H100 block can use
 
 
 @dataclasses.dataclass
@@ -79,8 +82,27 @@ def tri_rows(v0, v1, v2, valid):
     return rows * valid[:, None]
 
 
-def build(v_pos, tri, tri_mask=None, leaf_size=128):
-    """Build the structure on v_pos's device.  C = ceil(T/L) leaves,
+def walk_boxes(n_tris, leaf_size):
+    """Supernode and leaf boxes, S + C, of a structure over n_tris
+    triangle slots at leaf_size."""
+    C = -(-n_tris // leaf_size)
+    return -(-C // SUPER) + C
+
+
+def leaf_size_for(n_tris):
+    """The leaf size of a structure over n_tris triangle slots: the
+    smallest power of two >= LEAF_MIN whose supernode and leaf boxes fit
+    the walk's shared memory (trace.cuh), 128 up to 826,368 slots and 256
+    up to 1,652,736."""
+    L = LEAF_MIN
+    while WALK_BOX_BYTES * walk_boxes(n_tris, L) > SMEM_MAX:
+        L *= 2
+    return L
+
+
+def build(v_pos, tri, tri_mask=None, leaf_size=None):
+    """Build the structure on v_pos's device, at leaf_size or, when None,
+    at leaf_size_for(T).  C = ceil(T/L) leaves,
     S = ceil(C/SUPER) supernodes, C*L/G sub-boxes of G = gcd(SUB, L)
     triangles (SUB for the power-of-two leaves used, min(SUB, L) below it);
     invalid and degenerate triangles sort to the end and are zeroed; empty
@@ -90,7 +112,7 @@ def build(v_pos, tri, tri_mask=None, leaf_size=128):
     entering its leaf."""
     v_pos = v_pos.detach()
     T = tri.shape[0]
-    L = leaf_size
+    L = leaf_size or leaf_size_for(T)
     t = tri.long()
     v0, v1, v2 = v_pos[t[:, 0]], v_pos[t[:, 1]], v_pos[t[:, 2]]
     valid = (torch.ones(T, dtype=torch.bool, device=v_pos.device)

@@ -28,13 +28,11 @@ import torch
 
 from .. import kernels
 from . import tracer
-from .bvh import LeafBVH
+from .bvh import SMEM_MAX, WALK_BOX_BYTES, LeafBVH
 
 BIG = 3e37
 TMAX_INF = 1e16
 _MASK_BUDGET = 1 << 24      # floats live per block group of the plain mask
-WALK_BOX_BYTES = 32         # shared memory per supernode or leaf box
-SMEM_MAX = 232448           # the dynamic shared memory an H100 block can use
 
 
 def _check_tmax(tmax):
@@ -53,7 +51,7 @@ def walk_smem_bytes(bvh: LeafBVH):
     if n > SMEM_MAX:
         raise ValueError('BVH walk: %d supernode and %d leaf boxes need %d '
                          'bytes of shared memory, past the %d a block can '
-                         'use (build with a larger leaf_size)'
+                         'use (build at bvh.leaf_size_for(T))'
                          % (S, C, n, SMEM_MAX))
     return n
 

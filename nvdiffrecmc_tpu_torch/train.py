@@ -37,6 +37,7 @@ from .dataset.dataset_mesh import load_env_or_procedural
 from .device import resolve
 from .geometry import DLMesh, DMTetGeometry
 from .geometry.dmtet import ramps
+from .ops import bvh as bvh_mod
 from .ops import envshade, hashgrid
 from .ops import loss as loss_ops
 from .ops import vecmath
@@ -421,9 +422,14 @@ def extract_static_mesh(geometry, params, FLAGS, times=None):
     """The DMTet mesh on the host without its padding slots and small
     components (FLAGS['prune_components']), its vertices and texture
     coordinates compacted to those the faces use; a Mesh on the
-    geometry's device.  times: a dict that receives the seconds of
+    geometry's device.  Marching tets runs again in buffers sized to the
+    surface (getMesh's whole), so every triangle is extracted where
+    training's fixed slots truncate (the JAX package bakes the truncated
+    buffers); the compaction keeps order, so a surface that fits the slots
+    gives the same mesh.  times: a dict that receives the seconds of
     'prune'."""
-    m, _ = geometry.getMesh(params, material=None, build_bvh=False)
+    m, _ = geometry.getMesh(params, material=None, build_bvh=False,
+                            whole=True)
     dev = m.v_pos.device
     v = m.v_pos.cpu().numpy()
     f = m.t_pos_idx.cpu().numpy()
@@ -475,7 +481,7 @@ def bake_textures(geometry, params, mat_params, mat_static, FLAGS,
     its seams dilated over 7x7.  Returns (the base mesh, {'kd', 'ks',
     'normal'} [1, H, W, 3] textures, the normal map flat).  times: a dict
     that receives the seconds of 'extract' (prune apart), 'prune',
-    'unwrap' and 'bake'."""
+    'unwrap' and 'bake', and the texels the mesh covers, 'covered'."""
     times = {} if times is None else times
     dev = mat_params['table'].device
 
@@ -502,6 +508,7 @@ def bake_textures(geometry, params, mat_params, mat_static, FLAGS,
     kd, ks = dilate_tex(kd), dilate_tex(ks)
     normal = torch.tensor([0.0, 0.0, 1.0], device=dev).expand(
         kd.shape).contiguous()
+    times['covered'] = int(mask.sum())
     lap('bake', t0)
     return base, {'kd': kd, 'ks': ks, 'normal': normal}
 
@@ -845,11 +852,14 @@ def dmtet_pass(FLAGS, light_base, dataset_train, dataset_validate, device):
     times = {}
     base_mesh, baked = bake_textures(geometry, params['geo'], params['mat'],
                                      mat_static, FLAGS, times)
+    T = base_mesh.t_pos_idx.shape[0]
     print('pass boundary: %d triangles, %d vertices; extract %.3f s, '
-          'prune %.3f s, unwrap %.3f s, bake %.3f s'
-          % (base_mesh.t_pos_idx.shape[0], base_mesh.v_pos.shape[0],
-             times['extract'], times['prune'], times['unwrap'],
-             times['bake']), flush=True)
+          'prune %.3f s, unwrap %.3f s, bake %.3f s; %d of %d texels '
+          'covered; pass 2 BVH leaf size %d'
+          % (T, base_mesh.v_pos.shape[0], times['extract'], times['prune'],
+             times['unwrap'], times['bake'], times['covered'],
+             baked['kd'].shape[1] * baked['kd'].shape[2],
+             bvh_mod.leaf_size_for(T)), flush=True)
     light_base = params['light'].detach()
     mat_params, mat_static = initial_guess_material(
         None, False, FLAGS, device=device,

@@ -13,9 +13,14 @@ render_uv and the baked textures: coverage equal on >= 99.9% of texels
 and kd, ks within 1e-5 on texels covered in both (the two packages'
 rasterizers may split a texel centre on a shared UV edge differently).
 
-One departure, decided in the port: where every component is smaller
+Two departures, decided in the port: where every component is smaller
 than min_frac of the faces, the JAX package drops them all (an empty
-mesh, on which the bake fails); the port keeps the largest."""
+mesh, on which the bake fails), the port keeps the largest; and where
+training's fixed triangle slots truncate the surface, the JAX package
+bakes the truncated buffers (mostly zero-area faces on a few vertices),
+the port extracts the whole surface, as JAX does from slots that hold
+it (held here against JAX's extract from such slots, and through main()
+on an overflowed two-pass run)."""
 
 import jax
 import jax.numpy as jnp
@@ -140,6 +145,92 @@ def test_extract_static_mesh_matches_jax(scene):
     assert tm.t_pos_idx.shape[0] > 100
 
 
+def test_extract_static_mesh_of_an_overflowed_buffer_matches_jax(scene):
+    """Training's buffers at 1,000 slots truncate the grid-10 surface
+    (2,422 triangles); the boundary extracts it whole, in buffers sized to
+    the count: faces and texture indices equal to JAX's extract from 4,800
+    slots, which hold the surface, vertices within 1e-6."""
+    tg = t_dmtet.DMTetGeometry(10, 2.1, scene['tflags'], max_tris=1000,
+                               device='cpu')
+    n_tris, cap = tg.tri_count(scene['tparams'])
+    occ = scene['tparams']['sdf'] > 0
+    n_edges = int((occ[tg.edge_uniq[:, 0]] != occ[tg.edge_uniq[:, 1]]).sum())
+    assert cap == 1000 and 1000 < n_tris <= 4800 and n_edges <= 4800
+    assert scene['jg'].tri_count(scene['jparams']) == (n_tris, 4800)
+    m, _ = tg.getMesh(scene['tparams'], None, build_bvh=False)
+    assert int(m.tri_mask.sum()) == 1000
+    whole, _ = tg.getMesh(scene['tparams'], None, build_bvh=False,
+                          whole=True)
+    assert int(whole.tri_mask.sum()) == whole.t_pos_idx.shape[0] == n_tris
+    assert whole.v_pos.shape[0] == n_edges
+    jm = j_train.extract_static_mesh(scene['jg'], scene['jparams'],
+                                     scene['jflags'])
+    tm = train.extract_static_mesh(tg, scene['tparams'], scene['tflags'])
+    for k in ('t_pos_idx', 'v_tex', 't_tex_idx'):
+        np.testing.assert_array_equal(getattr(tm, k).numpy(),
+                                      np.asarray(getattr(jm, k)), err_msg=k)
+    np.testing.assert_allclose(tm.v_pos.numpy(), np.asarray(jm.v_pos),
+                               rtol=0, atol=1e-6)
+    assert tm.t_pos_idx.shape[0] > 1000
+
+
+def _face_areas(v, f):
+    v = np.asarray(v, np.float64)
+    f = np.asarray(f, np.int64)
+    return np.linalg.norm(np.cross(v[f[:, 1]] - v[f[:, 0]],
+                                   v[f[:, 2]] - v[f[:, 0]]), axis=1)
+
+
+def test_main_bakes_the_whole_surface_of_an_overflowed_pass1(
+        tmp_path, monkeypatch, capsys):
+    """Both passes of the synthetic NeRF folder (grid 8, a sphere init of
+    1,344 triangles) with 400 triangle slots, so pass 1 trains and ends
+    truncated: the boundary bakes every surface triangle pass 1 ends with
+    (less the prune's drops), no face of zero area, covered kd and ks
+    texels, and pass 2's losses are finite."""
+    import json
+    import re
+    from test_torch_datasets import nerf_argv
+    from nvdiffrecmc_tpu_torch.geometry import DLMesh
+    from nvdiffrecmc_tpu_torch.render import mesh as t_mesh
+    argv = nerf_argv(str(tmp_path))
+    with open(argv[1]) as f:
+        cfg = json.load(f)
+    cfg['max_tris'] = 400
+    with open(argv[1], 'w') as f:
+        json.dump(cfg, f)
+    losses = []
+    step = train.train_step
+
+    def record(geometry, *args, **kw):
+        il, rl = step(geometry, *args, **kw)
+        if isinstance(geometry, DLMesh):
+            losses.append((float(il), float(rl)))
+        return il, rl
+    monkeypatch.setattr(train, 'train_step', record)
+    train.main(argv, device='cpu')
+    out = capsys.readouterr().out
+    n1 = int(re.search(r'dmtet_pass1: (\d+) surface triangles of 400 slots, '
+                       r'OVERFLOW', out).group(1))
+    assert n1 > 400
+    m = re.search(r'dropped (\d+) floater', out)
+    dropped = int(m.group(1)) if m else 0
+    b = re.search(r'pass boundary: (\d+) triangles, (\d+) vertices;.* '
+                  r'(\d+) of (\d+) texels covered; pass 2 BVH leaf size '
+                  r'(\d+)', out)
+    assert b is not None, out
+    T, covered, texels = int(b.group(1)), int(b.group(3)), int(b.group(4))
+    assert T == n1 - dropped
+    assert 0 < covered <= texels == 32 * 32
+    assert int(b.group(5)) == 128
+    base = t_mesh.load_mesh(str(tmp_path / 'run' / 'dmtet_mesh' /
+                                'mesh.obj'), device='cpu')
+    assert base.t_pos_idx.shape[0] == T
+    assert _face_areas(base.v_pos.numpy(), base.t_pos_idx.numpy()).min() > 0
+    assert len(losses) == cfg['iter']
+    assert np.isfinite(losses).all()
+
+
 def test_uv_unwrap_build_matches_jax_native(scene):
     """The port's g++ build of its copy of uv_unwrap.cpp against the JAX
     package's native build, on the extracted mesh."""
@@ -220,7 +311,8 @@ def test_bake_textures_matches_jax(scene, monkeypatch):
     tbase, ttex = train.bake_textures(scene['tg'], scene['tparams'],
                                       scene['tmat'], scene['tstatic'],
                                       scene['tflags'], times)
-    assert set(times) == {'extract', 'prune', 'unwrap', 'bake'}
+    assert set(times) == {'extract', 'prune', 'unwrap', 'bake', 'covered'}
+    assert 0 < times['covered'] <= TEX[0] * TEX[1]
     for k in ('t_pos_idx', 'v_tex', 't_tex_idx'):
         np.testing.assert_array_equal(getattr(tbase, k).numpy(),
                                       np.asarray(getattr(jbase, k)),

@@ -14,8 +14,10 @@ port's entry points (nvdiffrecmc_tpu_torch.device).
 - checks.trace_work counts fewer triangle tests with sub-boxes than with
   whole leaves, both in the walk's order and as the least any walk needs;
   the walk's count equals a ray-by-ray count of the walk.
-- The walk's shared memory is refused past the card's 227 KB, and
-  device=None means the card."""
+- The walk's shared memory is refused past the card's 227 KB; build's
+  default leaf size (bvh.leaf_size_for) is the smallest power of two >=
+  128 whose boxes fit it, and the any-hit answer does not depend on the
+  leaf size; device=None means the card."""
 
 import os
 
@@ -201,6 +203,37 @@ def test_walk_shared_memory_bound():
     assert big.sub_size == 1
     with pytest.raises(ValueError, match='shared memory'):
         t_pt.walk_smem_bytes(big)
+
+
+@pytest.mark.parametrize('n_tris,leaf', [
+    (1, 128), (826368, 128), (826369, 256), (1652736, 256), (1652737, 512)])
+def test_leaf_size_for_fits_the_walk(n_tris, leaf):
+    """build's default leaf size: the smallest power of two >= 128 whose
+    C + ceil(C / 8) boxes fit the walk's shared memory (7,264 boxes);
+    arithmetic only, no mesh built."""
+    assert t_bvh.leaf_size_for(n_tris) == leaf
+    assert 32 * t_bvh.walk_boxes(n_tris, leaf) <= t_bvh.SMEM_MAX
+    if leaf > 128:
+        assert 32 * t_bvh.walk_boxes(n_tris, leaf // 2) > t_bvh.SMEM_MAX
+
+
+def test_any_hit_does_not_depend_on_the_leaf_size():
+    """The plain tracer on 4,096 rays against a 3,000-triangle soup (24
+    leaves of 128, 12 of 256): the same any-hit booleans at both leaf
+    sizes, equal to brute force; build's default takes 128 there."""
+    v, tri = (torch.as_tensor(x) for x in icosphere_like(3000, 11))
+    ro, rd = (torch.as_tensor(x) for x in _rays(4096, 12))
+    hits = {}
+    for L in (128, 256):
+        bvh = t_bvh.build(v, tri, leaf_size=L)
+        assert bvh.leaf_size == L and bvh.n_leaves == -(-3000 // L)
+        hits[L] = t_tracer.any_hit(ro, rd, bvh)
+    assert torch.equal(hits[128], hits[256])
+    assert 0 < int(hits[128].sum()) < 4096
+    rows = t_bvh.build(v, tri, leaf_size=128).tri
+    brute = t_tracer.tri_hits(ro, rd, rows, 0.0).any(1)
+    assert torch.equal(hits[128], brute)
+    assert t_bvh.build(v, tri).leaf_size == 128
 
 
 def test_device_default_is_the_card(monkeypatch):

@@ -12,8 +12,10 @@ unaligned values; the sample kernel on one stratum, as the stratum loop
 launches it; the launches of a validation render past 256 strata; the BVH
 walk of trace and trace + shade at the main path's full size, on rays
 that graze sub-box and leaf faces and on rays aimed at the mesh's edges
-and vertices, and its refusal of a structure whose boxes do not fit in
-shared memory; the resolve at 500x333 on every pixel, on a full-screen
+and vertices, its refusal of a structure whose boxes do not fit in
+shared memory, and the trace at the leaf sizes bvh.build picks past
+826,368, 1,652,736 and 3,305,472 triangles (256, 512, 1024); the resolve
+at 500x333 on every pixel, on a full-screen
 triangle, exact and signed-zero depth ties, the spot mesh and its second peel layer, and its setup kernel's
 fields bit for bit; the denoiser in both modes at 500x333 and sigma 2 and
 0.6, a refused launch, and 20 launches equal to the first at 1x1, 33x9
@@ -22,7 +24,8 @@ and 511x257; the guide and sample kernels at odd light sizes, 37x75 and
 strata on a pixel count that is not a multiple of 32; pass 1: the C = 2
 instance and the generic one on a hash-grid table's cotangent of a million
 rows in both row orders, marching tets on the card against the CPU at
-grid 64, and the hash-grid encode on the card against the CPU at the
+grids 64 and 128 (training's slots and the boundary's count-sized
+buffers), and the hash-grid encode on the card against the CPU at the
 default config; the NeRF dataset on the card against the CPU, and a
 micro-batched pass-2 step at 64x64 against the unsplit one).
 Marked `gpu`; skipped where torch.cuda.is_available() is false.  On a machine with a GPU and no JAX:
@@ -763,6 +766,38 @@ def test_walk_refuses_too_many_boxes():
                                        bvh, 0, 0.0)
 
 
+@pytest.mark.parametrize('n_tris,leaf', [(900000, 256), (1700000, 512),
+                                         (3400000, 1024)])
+def test_walk_at_the_chosen_leaf_size(n_tris, leaf):
+    """Soups past 826,368, 1,652,736 and 3,305,472 triangles (small
+    triangles about a unit sphere): bvh.build's default leaf size is 256,
+    512 and 1024, its boxes fit the walk's shared memory, and the trace
+    kernel equals the plain tracer on 2^16 rays from a box around the
+    sphere."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA device')
+    from nvdiffrecmc_tpu_torch import checks, kernels
+    from nvdiffrecmc_tpu_torch.ops import bvh as bvh_mod
+    kernels.build()
+    dev = torch.device('cuda', 0)
+    rng = np.random.RandomState(n_tris % 97)
+    c = rng.randn(n_tris, 3)
+    c /= np.linalg.norm(c, axis=-1, keepdims=True)
+    v = np.concatenate([c + 0.01 * rng.randn(n_tris, 3) for _ in range(3)])
+    tri = np.arange(3 * n_tris).reshape(3, n_tris).T
+    bvh = bvh_mod.build(torch.as_tensor(v.astype(np.float32), device=dev),
+                        torch.as_tensor(tri.astype(np.int32), device=dev))
+    assert bvh.leaf_size == leaf == bvh_mod.leaf_size_for(n_tris)
+    ro = torch.as_tensor(rng.uniform(-2, 2, (1 << 16, 3)).astype(np.float32),
+                         device=dev)
+    rd = torch.as_tensor(rng.randn(1 << 16, 3).astype(np.float32),
+                         device=dev)
+    rd = rd / rd.norm(dim=-1, keepdim=True)
+    r = checks.check_trace(ro, rd, bvh, reps=1)
+    assert r['ok'] and r['agree'] == 1.0, r
+    assert 0.05 < float(r['compared_on'].split(', ')[1].split()[0]) < 0.95
+
+
 def _sample_inputs(Hl, Wl, S, P, seed):
     """Seeded sample-kernel inputs: S strata of uniforms and cell ids at
     n_samples 4, G-buffer lobes (unit normals, view directions in their
@@ -905,35 +940,57 @@ def test_hashgrid_scatter_c2_matches_plain(order):
         assert r['ok'], (generic, r)
 
 
-def test_marching_tets_cuda_matches_cpu():
-    """The Kuhn grid 64 (274,625 vertices, 1,572,864 tets) under the
-    reference's random SDF init and a seeded deformation, into 98,304
-    slots (24 x 64^2; the init overflows them, so both truncate): the
-    edge table, faces, face_gidx, tri_mask and the overflow flag equal on
-    the card and on the CPU, vertices within 1e-6."""
+@pytest.mark.parametrize('grid,n_edges', [(64, 1872064), (128, 14827904)])
+def test_marching_tets_cuda_matches_cpu(grid, n_edges):
+    """The Kuhn grid 64 (274,625 vertices, 1,572,864 tets) and 128
+    (2,146,689 vertices, 12,582,912 tets) under the reference's random SDF
+    init and a seeded deformation, into 24 grid^2 slots (98,304 and
+    393,216; the init overflows them, so both truncate), then into
+    buffers sized to the count (surface triangles and sign-crossing
+    edges, as the pass boundary extracts): the edge table, faces,
+    face_gidx, tri_mask and the overflow flag equal on the card and on
+    the CPU, vertices within 1e-6; the sized buffers hold every triangle
+    and do not overflow."""
     if not torch.cuda.is_available():
         pytest.skip('needs a CUDA device')
     from nvdiffrecmc_tpu_torch.geometry import dmtet
-    verts, idx = dmtet.kuhn_tet_grid(64)
+    verts, idx = dmtet.kuhn_tet_grid(grid)
     rng = np.random.RandomState(0)
     sdf = rng.rand(verts.shape[0]).astype(np.float32) - 0.1
     deform = rng.randn(*verts.shape).astype(np.float32)
-    out = {}
+    slots = 24 * grid * grid
+    out, sized = {}, {}
     for dev in ('cpu', 'cuda'):
         v = torch.as_tensor(verts * np.float32(2.1), device=dev)
-        v = v + 2.0 / 128 * torch.tanh(torch.as_tensor(deform, device=dev))
+        v = v + 2.0 / (2 * grid) * torch.tanh(torch.as_tensor(deform,
+                                                              device=dev))
         t = torch.as_tensor(idx, device=dev).long()
+        s = torch.as_tensor(sdf, device=dev)
         uniq, emap = dmtet.edge_tables(t, v.shape[0])
-        res = dmtet.marching_tets(v, torch.as_tensor(sdf, device=dev), t,
-                                  uniq, emap, 24 * 64 * 64)
+        res = dmtet.marching_tets(v, s, t, uniq, emap, slots)
         out[dev] = [x.cpu() for x in (uniq, emap) + tuple(res)]
+        n_tris = int(torch.as_tensor(dmtet.NUM_TRIANGLES_TABLE, device=dev)
+                     .long()[dmtet.tet_index(s, t)].sum())
+        occ = s > 0
+        n_act = int((occ[uniq[:, 0]] != occ[uniq[:, 1]]).sum())
+        sized[dev] = [x.cpu() for x in dmtet.marching_tets(
+            v, s, t, uniq, emap, None)] + [n_tris]
+        assert sized[dev][0].shape[0] == n_act
+        del v, t, s, uniq, emap, res
     (u0, e0, v0, f0, g0, m0, o0), (u1, e1, v1, f1, g1, m1, o1) = \
         out['cpu'], out['cuda']
-    assert u0.shape[0] == 1872064
+    assert u0.shape[0] == n_edges
     for a, b in ((u0, u1), (e0, e1), (f0, f1), (g0, g1), (m0, m1),
                  (o0, o1)):
         assert torch.equal(a, b)
-    assert bool(o0) and int(m0.sum()) == 24 * 64 * 64
+    assert bool(o0) and int(m0.sum()) == slots
+    assert float((v0 - v1).abs().max()) <= 1e-6
+    (v0, f0, g0, m0, o0, n0), (v1, f1, g1, m1, o1, n1) = \
+        sized['cpu'], sized['cuda']
+    assert n0 == n1 > slots
+    for a, b in ((f0, f1), (g0, g1), (m0, m1), (o0, o1)):
+        assert torch.equal(a, b)
+    assert not bool(o0) and int(m0.sum()) == n0
     assert float((v0 - v1).abs().max()) <= 1e-6
 
 
