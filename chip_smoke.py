@@ -118,8 +118,9 @@ one):
    and mesh/ exports that many triangles;
 15. the NeRF scene at grid 128: the program on configs/nerf_spot_synth.json
    as shipped (grid 128: 12,582,912 tets, 393,216 triangle slots) but
-   NERF_G128_ITERS iterations a pass, both validations (the 4 test
-   views), in chiprun_out/train_nerf_grid_128/, with phase 14's lines and
+   NERF_G128_ITERS iterations a pass, both validations (on a copy of the
+   scene whose test split holds its first view, nerf_one_test_view), in
+   chiprun_out/train_nerf_grid_128/, with phase 14's lines and
    checks and s per view and PSNR of both validations (both metrics.txt
    read).  Then, in this process: the grid's set-up seconds and resident
    bytes and the init's surface triangles against the slots; the peak
@@ -136,6 +137,28 @@ one):
    versions (the DMTet mesh with its padded slots); last one pass-2
    micro-step on the program's bake, read back, whose trace + shade is
    held against its plain version at the leaf size the program chose;
+16. transparency: the program on configs/nerfactor_drums.json with
+   --ref_mesh data/nerf_synthetic_spot (the nerfactor scenes are not in
+   the repo): batch 8 in micro-steps of TRANSPARENCY_MICRO_BATCH, 512x512
+   (the 800x800 frames minified), n_samples 8, 1024x1024 textures, grid
+   128 at mesh_scale 2.3, laplace_scale 6000, white background, four
+   display layers; TRANSPARENCY_ITERS iterations a pass, no probe, no
+   validation, in chiprun_out/train_transparency/.  Checks: losses
+   finite, pass 1 at one layer and pass 2 at 8 (the summary lines), each
+   kernel's launches per step (8 per micro-step for pass 2's per-layer
+   kernels), the boundary, RGBA texture_kd.png files in dmtet_mesh/ (its
+   alpha the bake's uniform draw) and mesh/.  Then, in this process, on
+   the export read back with its alpha at 8 layers: the memory of one
+   micro-step and of an unsplit batch of 2 (the unsplit batch 8
+   reckoned); one recorded micro-step (one 512x512 view, n2 = 64) whose
+   every kernel launch is held against its plain version (resolve,
+   sample, trace + shade, denoise and their backward kernels at each
+   layer, every row scatter launch), with the pixels each layer covers;
+   one validation view at 8 layers (the first test view, 800x800,
+   n_samples 32: its seconds, 8 x 1,024 sample and trace launches, and
+   sample and trace on stratum 0 of each layer against their plain
+   versions); last the resolve at each of 8 peel layers of spot256 at
+   512x512, bit-equal to its plain version, layer 7 covering pixels;
 7. with --profile only: torch.profiler over 4 more frames and over 4 more
    training steps; prints device time by kernel, launches and host gaps,
    and writes the full tables to chiprun_out/profile_port.txt and
@@ -155,7 +178,11 @@ and per pass-1 step there, per grid-128 micro-step and, for the step's
 kernels, its check at batch 4, at pass 1's batch 4 and at the grid-128
 micro-step, for sample and trace at the grid-128 validation stratum, for
 the trace on the whole grid-128 surface, and for trace + shade at the
-grid-128 bake; the row scatter's
+grid-128 bake; its launches in phase 16's program and per 8-layer
+micro-step, its check at each layer of that micro-step (the scatter: all
+its launches), for sample and trace at stratum 0 of each layer of the
+8-layer validation view, and for the resolve at the 8 peel layers of
+spot256; the row scatter's
 entry is its largest launch, with every launch of the step and their
 summed time and bound beside it, and pass 1's hash-grid launch with the
 generic instance's and index_add_'s times), the card line, and {"ok":
@@ -207,8 +234,15 @@ NERF_TEST = os.path.join('data', 'nerf_synthetic_spot',
 NERF_ITERS = 2          # iterations a pass of phase 14's program
 NERF_G128_CONFIG = os.path.join('configs', 'nerf_spot_synth.json')
 NERF_G128_ITERS = 2     # iterations a pass of phase 15's program
-NERF_VIEWS = 4          # the test split's views, in both validations
-NERF_TIMEOUT = 700      # seconds for the program of phase 14 or 15
+NERF_VIEWS = 1          # phase 15's test split: the first of the 4 views
+NERF_TIMEOUT = 700      # seconds for the program of phase 14, 15 or 16
+TRANSPARENCY_CONFIG = os.path.join('configs', 'nerfactor_drums.json')
+TRANSPARENCY_ITERS = 2  # iterations a pass of phase 16's program
+# phase 16's --micro-batch: the largest that fits both passes (PERF.md
+# section 6 reckons it: pass 2 peels 8 layers, each with its own G-buffer
+# and shading, and the config sets batch 8 and no micro_batch)
+TRANSPARENCY_MICRO_BATCH = 4
+PEEL_LAYERS = 8         # transparency's pass 2 and its validation
 SMEM_PER_SM = 233472    # shared memory of an H100 SM (1 KB of it per block
                         # is reserved)
 
@@ -361,10 +395,11 @@ def profile_run(run, label, device, out_path):
 # The training step
 # ---------------------------------------------------------------------------
 
-def train_setup(device, res, n_samples, tex_res, kd_noise=None):
+def train_setup(device, res, n_samples, tex_res, kd_noise=None, layers=1):
     """The pass-2 step's state on device: flags, the spot dataset, DLMesh,
     the trainable material and light, their optimizers.  kd_noise: a
-    [1, tex_res, tex_res, 3] array subtracted from the constant initial kd."""
+    [1, tex_res, tex_res, C] array subtracted from the constant initial kd
+    (C = 4 past one depth-peel layer, the alpha among them)."""
     import torch
     from nvdiffrecmc_tpu_torch import config, train
     from nvdiffrecmc_tpu_torch.dataset.dataset_mesh import (
@@ -373,7 +408,7 @@ def train_setup(device, res, n_samples, tex_res, kd_noise=None):
     from nvdiffrecmc_tpu_torch.render import light as light_mod
     FLAGS = config.make_flags(train_res=[res, res], n_samples=n_samples,
                               texture_res=[tex_res, tex_res],
-                              envlight=SPOT256_PROBE)
+                              envlight=SPOT256_PROBE, layers=layers)
     ds = DatasetMesh(spot256_scene(device), CAM_RADIUS, FLAGS, seed=5)
     geometry = DLMesh(ds.ref_mesh, FLAGS)
     mat_params, mat_static = train.initial_guess_material(
@@ -518,29 +553,33 @@ def _cos_close(g, w):
     return cos, close
 
 
-def small_step_agreement(device):
+def small_step_agreement(device, layers=1):
     """One 64x64 step (n_samples 2, 256^2 textures) on the card and the same
     step on the CPU with the plain versions, from one target, one set of
-    uniforms and jitter offsets: losses within 1e-4 relative; gradients of
-    v_pos, kd, ks, normal and light with cosine >= 0.999 and >= 99% of the
-    entries within 1e-3 max|g|.  kd gets seeded noise so that the
-    smoothness term's |kd_jitter - kd| is off its kink."""
+    uniforms and jitter offsets for each depth-peel layer: losses within
+    1e-4 relative; gradients of v_pos, kd, ks, normal and light with cosine
+    >= 0.999 and >= 99% of the entries within 1e-3 max|g|.  kd gets seeded
+    noise so that the smoothness term's |kd_jitter - kd| is off its kink
+    (past one layer kd has 4 channels, and the noise puts its alpha in
+    [0.7, 1])."""
     import numpy as np
     import torch
     from nvdiffrecmc_tpu_torch import train
     from nvdiffrecmc_tpu_torch.ops import pallas_shade
     res, n, tex = 64, 2, 256
     noise = np.random.RandomState(4).uniform(
-        0.0, 0.3, (1, tex, tex, 3)).astype(np.float32)
+        0.0, 0.3, (1, tex, tex, 4 if layers > 1 else 3)).astype(np.float32)
     gen = torch.Generator()
     gen.manual_seed(7)
-    uniforms = pallas_shade.make_uniforms(gen, n * n, res * res, n,
-                                          device='cpu')
-    offsets = torch.randn((1, res, res, 2), generator=gen) * 0.005
+    uniforms = [pallas_shade.make_uniforms(gen, n * n, res * res, n,
+                                           device='cpu')
+                for _ in range(layers)]
+    offsets = [torch.randn((1, res, res, 2), generator=gen) * 0.005
+               for _ in range(layers)]
     target = None
     out = {}
     for dev in ('cpu', device):
-        st = train_setup(dev, res, n, tex, kd_noise=noise)
+        st = train_setup(dev, res, n, tex, kd_noise=noise, layers=layers)
         if target is None:
             target = make_targets(st, 1, 3)[0]
         tgt = {k: (v.to(dev) if torch.is_tensor(v) else v)
@@ -548,7 +587,8 @@ def small_step_agreement(device):
         il, rl = train.compute_grads(
             st['geometry'], st['params'], st['static'], tgt, 0, st['FLAGS'],
             st['loss_fn'], st['ds'].perms, None,
-            uniforms=[uniforms.to(dev)], offsets=[offsets.to(dev)])
+            uniforms=[u.to(dev) for u in uniforms],
+            offsets=[o.to(dev) for o in offsets])
         p = st['params']
         out[dev] = (float(il), float(rl),
                     {'v_pos': p['geo']['v_pos'].grad.cpu(),
@@ -943,15 +983,16 @@ def pass_summary(lines, pass_name):
 
 def check_program_log(lines, n_passes, iters=PROGRAM_ITERS, probe_every=10):
     """The program's losses and probe PSNRs, all finite, one log line each
-    10 iterations and one probe each probe_every iterations of each pass.
-    Returns the PSNRs and the seconds of each probe."""
+    10 iterations and one probe each probe_every iterations of each pass
+    (none for 0).  Returns the PSNRs and the seconds of each probe."""
     import re
     losses = [float(x) for ln in _after(lines, 'iter=')
               for x in re.findall(r'_loss=([-+\w.]+)', ln)]
     psnrs = [float(x.split()[-2]) for x in _after(lines, '[probe] iter=')
              if 'PSNR' in x]
     logged = n_passes * len(range(0, iters, 10))
-    probed = n_passes * len(range(0, iters, probe_every))
+    probed = n_passes * len(range(0, iters, probe_every)) \
+        if probe_every else 0
     if len(losses) != 2 * logged or len(psnrs) != probed or not all(
             _finite(x) for x in losses + psnrs):
         raise RuntimeError('program losses %s, probe PSNRs %s'
@@ -961,11 +1002,11 @@ def check_program_log(lines, n_passes, iters=PROGRAM_ITERS, probe_every=10):
     return psnrs, probe_s
 
 
-def check_step_launches(per_step, label, micro_steps=1):
+def check_step_launches(per_step, label, micro_steps=1, layers=1):
     """Each kernel launched per step as STEP_LAUNCHES says, times the
-    step's micro-steps."""
+    step's micro-steps and its depth-peel layers."""
     wrong = {n: per_step[n] for n in STEP_LAUNCHES
-             if per_step[n] != STEP_LAUNCHES[n] * micro_steps}
+             if per_step[n] != STEP_LAUNCHES[n] * micro_steps * layers}
     if wrong or per_step['scatter'] < micro_steps:
         raise RuntimeError('%s: kernel launches per step %s'
                            % (label, wrong or per_step))
@@ -1360,14 +1401,36 @@ def two_pass_program():
 # The NeRF scene: both passes at batch 8 in micro-steps of 1, 800x800
 # ---------------------------------------------------------------------------
 
-def nerf_setup(work, config, iters, validate):
+def nerf_one_test_view():
+    """A copy of data/nerf_synthetic_spot whose transforms_test.json holds
+    its first view only (the rest links to the repo's files), under
+    build/nvdiffrecmc_tpu_torch/.  Returns its path."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    src = os.path.join(here, 'data', 'nerf_synthetic_spot')
+    dst = os.path.join(here, 'build', 'nvdiffrecmc_tpu_torch',
+                       'nerf_spot_one_test_view')
+    shutil.rmtree(dst, ignore_errors=True)
+    os.makedirs(dst)
+    for name in ('train', 'test', 'transforms_train.json'):
+        os.symlink(os.path.join(src, name), os.path.join(dst, name))
+    with open(os.path.join(src, 'transforms_test.json')) as f:
+        test = json.load(f)
+    test['frames'] = test['frames'][:1]
+    with open(os.path.join(dst, 'transforms_test.json'), 'w') as f:
+        json.dump(test, f)
+    return dst
+
+
+def nerf_setup(work, config, iters, validate, ref_mesh=None):
     """config as shipped, but iters iterations a pass, validate, out_root
-    work and data_root this checkout, written into work/.  Returns its
-    path."""
+    work, data_root this checkout and, when given, ref_mesh, written into
+    work/.  Returns its path."""
     here = os.path.dirname(os.path.abspath(__file__))
     with open(os.path.join(here, config)) as f:
         cfg = json.load(f)
     cfg.update(iter=iters, validate=validate, out_root=work, data_root=here)
+    if ref_mesh is not None:
+        cfg['ref_mesh'] = ref_mesh
     os.makedirs(work, exist_ok=True)
     path = os.path.join(work, 'config.json')
     with open(path, 'w') as f:
@@ -1378,7 +1441,9 @@ def nerf_setup(work, config, iters, validate):
 def nerf_program(config, iters, validate, label):
     """Phases 14 and 15, the program: config (a NeRF config of the
     spot scene) as nerf_setup writes it, in chiprun_out/train_<label>/
-    (spaces as underscores; cleared first).  Relays and prints each
+    (spaces as underscores; cleared first); with validate, on
+    nerf_one_test_view's copy of the scene, so that each validation
+    renders NERF_VIEWS view.  Relays and prints each
     pass's median ms per step, micro-steps and launches per step, the
     surface triangles at the end of pass 1 and every overflow warning,
     the boundary (check_boundary), s per view and PSNR of both
@@ -1394,7 +1459,8 @@ def nerf_program(config, iters, validate, label):
     work = os.path.join(here, 'chiprun_out',
                         'train_' + label.replace(' ', '_'))
     shutil.rmtree(work, ignore_errors=True)
-    cfg = nerf_setup(work, config, iters, validate)
+    cfg = nerf_setup(work, config, iters, validate,
+                     nerf_one_test_view() if validate else None)
     with open(cfg) as f:
         grid = json.load(f)['dmtet_grid']
     torch.cuda.empty_cache()
@@ -1677,17 +1743,22 @@ def nerf_g128_checks(device, cfg, bake_obj, leaf):
     return out, per_micro, r_w, at_view, r2
 
 
-def nerf_view_checks(device, FLAGS, geometry, p, static, label):
+def nerf_view_checks(device, FLAGS, geometry, p, static, label,
+                     state='the pass-1 state'):
     """train.render_eval of the first NeRF test view (800x800, n_samples
-    32) on the pass-1 state p: its seconds and launches (sample and trace
-    once a stratum), finite buffers, and sample and trace on the first
-    stratum's inputs (the DMTet mesh with its padded triangle slots)
-    against their plain versions.  Returns {'sample': check, 'trace':
-    check}."""
+    32) at FLAGS['layers'] depth-peel layers on the state p: its seconds
+    and launches (sample and trace once a stratum of each layer), finite
+    buffers, and sample and trace on the first stratum of each layer
+    (the launches of layer i's stratum 0, i 1,024 launches in) against
+    their plain versions on the pixels the layer covers (for pass 1, the
+    DMTet mesh with its padded triangle slots).  Returns {'sample': check,
+    'trace': check} of layer 0, with 'layers': [{'sample', 'trace',
+    'covered'}] of every layer."""
     import torch
     from nvdiffrecmc_tpu_torch import checks, kernels, train
     from nvdiffrecmc_tpu_torch.dataset import DatasetNERF
     here = os.path.dirname(os.path.abspath(__file__))
+    layers = FLAGS['layers']
     ds = DatasetNERF(os.path.join(here, NERF_TEST), FLAGS, device=device)
     batch = ds.collate([ds[0]])
     target = train.prepare_batch(batch, tuple(batch['img'].shape[1:3]),
@@ -1695,7 +1766,7 @@ def nerf_view_checks(device, FLAGS, geometry, p, static, label):
     kernels.reset_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    with torch.no_grad(), checks.Recorder() as rec:
+    with torch.no_grad(), checks.Recorder(every=VAL_N * VAL_N) as rec:
         buf = train.render_eval(geometry, p['geo'], p['mat'], static,
                                 p['light'], target, FLAGS)
         torch.cuda.synchronize()
@@ -1705,25 +1776,298 @@ def nerf_view_checks(device, FLAGS, geometry, p, static, label):
         if not bool(torch.isfinite(v).all()):
             raise RuntimeError('%s validation buffer %s is not finite'
                                % (label, k))
-    if counts['sample'] != VAL_N * VAL_N or counts['trace'] != VAL_N * VAL_N:
+    want = VAL_N * VAL_N * layers
+    if counts['sample'] != want or counts['trace'] != want:
         raise RuntimeError('%s validation view launched %s' % (label, counts))
-    ro, rd, bvh, tmin = rec.args['trace']
-    u8 = rec.args['sample'][0]
-    # covered pixels: the loop starts the rays of the others at BIG
-    covered = ro[:u8.shape[2], 0] < 1e37
-    with torch.no_grad():
-        rs = checks.check_sample(*rec.args['sample'], mask=covered)
-        print_compare(rs, ' (%s validation stratum 0)' % label)
-        r = checks.check_trace(ro, rd, bvh, tmin)
-        print_compare(r, ' (%s validation stratum 0)' % label)
-    n, cap = geometry.tri_count(p['geo'])
-    print('%s validation view on the pass-1 state: %.3f s (800x800, '
-          'n_samples 32, %d surface triangles of %d slots); launches %s (%s)'
-          % (label, sec, n, cap, counts, smi_line()), flush=True)
-    if not (rs['ok'] and r['ok']):
+    out, bad = [], []
+    for i in range(layers):
+        ro, rd, bvh, tmin = rec.each['trace'][i]
+        u8 = rec.each['sample'][i][0]
+        # covered pixels: the loop starts the rays of the others at BIG
+        covered = ro[:u8.shape[2], 0] < 1e37
+        tag = (' (%s validation stratum 0)' % label if layers == 1 else
+               ' (%s validation stratum 0, layer %d, %d pixels covered)'
+               % (label, i, int(covered.sum())))
+        with torch.no_grad():
+            rs = checks.check_sample(*rec.each['sample'][i], mask=covered,
+                                     reps=2)
+            print_compare(rs, tag)
+            r = checks.check_trace(ro, rd, bvh, tmin, reps=2)
+            print_compare(r, tag)
+        out.append(dict(sample=rs, trace=r, covered=int(covered.sum())))
+        if not (rs['ok'] and r['ok']):
+            bad.append(i)
+    n, cap = geometry.tri_count(p['geo']) if hasattr(geometry, 'tri_count') \
+        else (geometry.base_mesh.t_pos_idx.shape[0],) * 2
+    print('%s validation view on %s: %.3f s (%dx%d, n_samples 32, %d '
+          'layers, %d surface triangles of %d slots); launches %s (%s)'
+          % (label, state, sec, *target['img'].shape[1:3], layers, n, cap,
+             counts, smi_line()), flush=True)
+    if bad:
         raise RuntimeError('sample or trace disagrees with its plain version '
-                           'on the %s validation stratum 0' % label)
-    return {'sample': rs, 'trace': r}
+                           'on the %s validation stratum 0 of layers %s'
+                           % (label, bad))
+    return dict(out[0], layers=out)
+
+
+# ---------------------------------------------------------------------------
+# Transparency: configs/nerfactor_drums.json's keys on the NeRF scene; pass
+# 2, its validation and the export through 8 depth-peeled layers
+# ---------------------------------------------------------------------------
+
+def transparency_program():
+    """Phase 16, the program: configs/nerfactor_drums.json (out_root and
+    data_root set to this checkout) with --ref_mesh data/nerf_synthetic_spot
+    (the nerfactor scenes are not in the repo), TRANSPARENCY_ITERS
+    iterations a pass, no probe, no validation and --micro-batch
+    TRANSPARENCY_MICRO_BATCH, in chiprun_out/train_transparency/ (cleared
+    first).  Relays the log; checks losses finite, pass 1 at one layer and
+    pass 2 at PEEL_LAYERS, each kernel's launches per step, every kernel
+    but the mask and the trace launched, peak memory under the card's, the
+    boundary (check_boundary), and an RGBA texture_kd.png in dmtet_mesh/
+    (its alpha the bake's uniform draw) and in mesh/.  Returns a dict: the
+    program's flags, the kernel launches of the run, per pass-1 and per
+    pass-2 step, the exported OBJ, the peak memory and the micro-steps."""
+    import re
+    import numpy as np
+    import torch
+    from nvdiffrecmc_tpu_torch.render import texture as texture_mod
+    here = os.path.dirname(os.path.abspath(__file__))
+    label = 'transparency'
+    work = os.path.join(here, 'chiprun_out', 'train_transparency')
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    with open(os.path.join(here, TRANSPARENCY_CONFIG)) as f:
+        cfg = json.load(f)
+    cfg.update(out_root=work, data_root=here)
+    path = os.path.join(work, 'config.json')
+    with open(path, 'w') as f:
+        json.dump(cfg, f, indent=1)
+    argv = ['--config', path, '--ref_mesh',
+            os.path.join('data', 'nerf_synthetic_spot'), '-o',
+            'nerfactor_drums', '-i', str(TRANSPARENCY_ITERS), '-si', '0',
+            '--validate', 'false', '--micro-batch',
+            str(TRANSPARENCY_MICRO_BATCH)]
+    torch.cuda.empty_cache()
+    lines = run_program(argv, os.path.join(work, 'run.log'),
+                        timeout=NERF_TIMEOUT)
+    relay = ('DatasetNERF', 'iter=', 'WARNING', 'peak device memory',
+             'dmtet_pass1:', 'prune_small', 'pass boundary:', 'Base mesh',
+             'mesh_pass:', 'export:')
+    for ln in lines:
+        if ln.startswith(relay):
+            print(label + ' | ' + ln, flush=True)
+    check_program_log(lines, 2, TRANSPARENCY_ITERS, 0)
+    med1, per_step1 = pass_summary(lines, 'dmtet_pass1')
+    med2, per_step2 = pass_summary(lines, 'mesh_pass')
+    text = '\n'.join(lines)
+    micro = [int(x) for x in re.findall(r'of (\d+) micro-steps', text)]
+    layers = [int(x) for x in re.findall(r'micro-steps at (\d+) layers',
+                                         text)]
+    launches = json.loads(_after(lines, 'kernel launches: ')[0])
+    peak = float(_after(lines, 'peak device memory: ')[0].split()[0])
+    card = torch.cuda.get_device_properties(0).total_memory / 2 ** 30
+    out = os.path.join(work, 'nerfactor_drums')
+    n_micro = 8 // TRANSPARENCY_MICRO_BATCH
+    print('%s: pass 1 median %.3f ms per step at %d layer, pass 2 %.3f ms '
+          'at %d layers (batch 8 in %s micro-steps, 512x512, n_samples 8, '
+          'grid 128, %d steps each); peak device memory %.3f GiB of the '
+          'card\'s %.3f (%s)'
+          % (label, med1, layers[0], med2, layers[1], micro, TRANSPARENCY_ITERS,
+             peak, card, smi_line()), flush=True)
+    print('%s: kernel launches %s; per pass-1 step %s; per pass-2 step %s'
+          % (label, launches, per_step1, per_step2), flush=True)
+    if micro != [n_micro, n_micro] or layers != [1, PEEL_LAYERS]:
+        raise RuntimeError('%s: micro-steps %s, layers %s per pass'
+                           % (label, micro, layers))
+    check_step_launches(per_step1, label + ' pass 1', n_micro)
+    check_step_launches(per_step2, label + ' pass 2', n_micro, PEEL_LAYERS)
+    idle = [n for n, c in launches.items()
+            if c == 0 and n not in ('mask', 'trace')]
+    if idle:
+        raise RuntimeError('%s: kernels not launched %s' % (label, idle))
+    if not peak < card:
+        raise RuntimeError('%s: peak device memory %.3f GiB' % (label, peak))
+    mesh1, _ = check_boundary(lines, out, label)
+    _, mesh2, _ = check_mesh_dir(os.path.join(out, 'mesh'))
+    kd = {}
+    for d in ('dmtet_mesh', 'mesh'):
+        with open(os.path.join(out, d, 'texture_kd.png'), 'rb') as f:
+            kd[d] = texture_mod.decode_png(f.read())
+    alpha = kd['dmtet_mesh'][..., 3].astype(np.float64) / 255.0
+    print('%s: dmtet_mesh/ %d triangles; mesh/ %d triangles; texture_kd.png '
+          '%s (dmtet_mesh/, alpha mean %.4f, std %.4f) and %s (mesh/)'
+          % (label, mesh1.t_pos_idx.shape[0], mesh2.t_pos_idx.shape[0],
+             kd['dmtet_mesh'].shape, alpha.mean(), alpha.std(),
+             kd['mesh'].shape), flush=True)
+    if kd['dmtet_mesh'].shape[-1] != 4 or kd['mesh'].shape[-1] != 4 or \
+            abs(alpha.mean() - 0.5) > 0.05 or abs(alpha.std() - 0.2887) > 0.05:
+        raise RuntimeError('%s: the baked or exported kd is not RGBA with '
+                           'the bake\'s uniform alpha' % label)
+    if mesh2.t_pos_idx.shape[0] != mesh1.t_pos_idx.shape[0]:
+        raise RuntimeError('%s: pass 2 changed the baked mesh' % label)
+    drop_checkpoints(out)
+    return dict(argv=argv, launches=launches, per_step1=per_step1,
+                per_step2=per_step2, peak=peak, micro=n_micro,
+                mesh=os.path.join(out, 'mesh', 'mesh.obj'))
+
+
+def peel_checks(rec, label):
+    """Each launch of each kernel of a recorded 8-layer micro-step against
+    its plain version: resolve, the guide tables, sample (forward), trace
+    + shade and the denoiser at every layer (layer 0 first), the
+    denoiser's transpose, shade_bwd and the light scatter once a layer (in
+    the order the backward runs the layers), every row scatter launch.
+    Returns {name: [check, ...]} in launch order; raises on a
+    disagreement."""
+    import torch
+    from nvdiffrecmc_tpu_torch import checks
+    out, bad = {}, []
+    with torch.no_grad():
+        for name in checks.FORWARD + checks.BACKWARD:
+            if name == 'scatter':
+                rs = [checks.check_scatter(*a, reps=2)
+                      for a in rec.each['scatter']]
+            else:
+                rs = checks.run_launches(name, rec.each, reps=2)
+                if len(rs) != PEEL_LAYERS:
+                    bad.append('%s: %d launches' % (name, len(rs)))
+            tags = [('layer %d' % i) if name in checks.FORWARD else
+                    ('launch %d of %d' % (i + 1, len(rs)))
+                    for i in range(len(rs))]
+            for r, tag in zip(rs, tags):
+                print_compare(r, ' (%s, %s)' % (label, tag))
+                if not r['ok']:
+                    bad.append('%s %s' % (name, tag))
+            out[name] = rs
+    if bad:
+        raise RuntimeError('kernels disagree with their plain versions at '
+                           'the %s: %s' % (label, bad))
+    return out
+
+
+def peel_resolve_checks(device):
+    """The resolve at every one of PEEL_LAYERS depth-peel layers of
+    spot256 (its inner shells reach layer 7 from every side) at 512x512,
+    from a DatasetMesh camera: each layer's launch, with the previous
+    layer's depths and ids as rasterize passes them, bit-equal to
+    resolve_plain.  Prints the pixels each layer covers; raises unless
+    layer 7 covers some.  Returns [check, ...] with 'covered'."""
+    import torch
+    from nvdiffrecmc_tpu_torch import checks
+    from nvdiffrecmc_tpu_torch.dataset.dataset_mesh import (DatasetMesh,
+                                                            spot256_scene)
+    from nvdiffrecmc_tpu_torch.ops import pallas_raster, rasterizer, xfm
+    mesh = spot256_scene(device)
+    ds = DatasetMesh(mesh, CAM_RADIUS, flags(RES, N_SAMPLES), seed=3)
+    mvp = torch.as_tensor(ds._random_scene()[1], device=device)
+    v_clip = xfm.xfm_points(mesh.v_pos, mvp)
+    with torch.no_grad(), checks.Recorder(every=1) as rec:
+        prev = None
+        for _ in range(PEEL_LAYERS):
+            prev, _ = rasterizer.rasterize(v_clip, mesh.t_pos_idx, (RES, RES),
+                                           prev_rast=prev)
+        torch.cuda.synchronize()
+    out = []
+    with torch.no_grad():
+        for i, args in enumerate(rec.each['resolve']):
+            r = checks.check_resolve(*args, reps=2)
+            r['covered'] = int((pallas_raster._resolve_cuda(*args)[1] > 0)
+                               .sum())
+            print_compare(r, ' (spot256, peel layer %d of %d, %d pixels '
+                          'covered)' % (i, PEEL_LAYERS, r['covered']))
+            out.append(r)
+    covered = [r['covered'] for r in out]
+    print('peel layers of spot256 at %dx%d: pixels covered %s (%s)'
+          % (RES, RES, covered, smi_line()), flush=True)
+    if len(out) != PEEL_LAYERS or not covered[-1] or \
+            not all(r['ok'] for r in out):
+        raise RuntimeError('the resolve at the peel layers: %s' % [
+            (r['ids_differ'], r['z_differ'], r['covered']) for r in out])
+    return out
+
+
+def transparency_checks(device, prog):
+    """Phase 16, in this process, on the program's export (mesh/, its RGBA
+    kd read back) at FLAGS['layers'] = PEEL_LAYERS as main sets it for
+    pass 2: the peak memory of one 8-layer micro-step (one 512x512 view of
+    the NeRF scene, n2 = 64) and of an unsplit batch of 2, with the
+    unsplit batch 8 reckoned from them; one recorded micro-step whose
+    every kernel launch is held against its plain version (peel_checks),
+    with the pixels each layer covers; one validation view at 8 layers
+    (nerf_view_checks); the resolve at 8 peel layers of spot256
+    (peel_resolve_checks).  Returns (peel_checks' checks, launches per
+    micro-step, the view's checks, the peel layers' resolve checks)."""
+    import torch
+    from nvdiffrecmc_tpu_torch import checks, config, kernels, train
+    from nvdiffrecmc_tpu_torch.dataset import DatasetNERF
+    from nvdiffrecmc_tpu_torch.geometry import DLMesh
+    from nvdiffrecmc_tpu_torch.ops import envshade, pallas_shade
+    from nvdiffrecmc_tpu_torch.render import light as light_mod
+    from nvdiffrecmc_tpu_torch.render import obj as obj_mod
+    here = os.path.dirname(os.path.abspath(__file__))
+    label = 'transparency micro-step'
+    FLAGS = config.parse_flags(prog['argv'])
+    FLAGS['layers'] = PEEL_LAYERS
+    FLAGS['pre_load'] = False
+    mesh = obj_mod.load_obj(prog['mesh'], device=device)
+    kd = mesh.material['kd'].data
+    if kd.shape[-1] != 4:
+        raise RuntimeError('the exported kd read back has %d channels'
+                           % kd.shape[-1])
+    ds = DatasetNERF(os.path.join(here, NERF_TRAIN), FLAGS, device=device)
+    geometry = DLMesh(mesh, FLAGS)
+    mat, static = train.initial_guess_material(
+        None, False, FLAGS, init_mat=mesh.material, device=device)
+    light = light_mod.create_trainable_env_rnd(FLAGS['probe_res'], 0.0, 0.5,
+                                               device=device)
+    p = train.make_params(geometry, mat, light)
+    loss_fn = train.createLoss(FLAGS)
+    perms = envshade.make_perms(FLAGS['n_samples'], device=device)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(41)
+    batch = train.prepare_batch(ds.collate([ds[i] for i in range(8)]),
+                                FLAGS['train_res'], 'random', gen, FLAGS)
+    target = {k: batch[k] for k in ('img', 'mvp', 'campos', 'background')}
+    one = train.batch_slice(target, 0, 8)
+
+    def grads(t):
+        train.clear_grads(p)
+        return train.compute_grads(geometry, p, static, t, 0, FLAGS, loss_fn,
+                                   perms, gen)
+    peak1 = _peak_gib(lambda: grads(one))
+    peak2 = _peak_gib(lambda: grads(train.batch_slice(target, 0, 4)))
+    print('transparency memory: one 8-layer micro-step (batch 1, 512x512, '
+          'n2 = 64) %.3f GiB above the state, an unsplit batch of 2 %.3f '
+          'GiB; an unsplit batch of 8 reckoned at %.3f GiB (peak(1) + 7 '
+          '(peak(2) - peak(1))); the program at --micro-batch %d (%d '
+          'micro-steps a step) peaked at %.3f GiB (%s)'
+          % (peak1, peak2, peak1 + 7 * (peak2 - peak1),
+             TRANSPARENCY_MICRO_BATCH, prog['micro'], prog['peak'],
+             smi_line()), flush=True)
+    kernels.reset_launches()
+    with checks.Recorder(every=1) as rec:
+        il, rl = grads(one)
+        torch.cuda.synchronize()
+    per_micro = dict(kernels.LAUNCHES)
+    check_step(p, il, rl)
+    check_step_launches(per_micro, label, 1, PEEL_LAYERS)
+    covered = [int((a[1][pallas_shade.GB_MASK] > 0).sum())
+               for a in rec.each['trace_shade']]
+    print('%s: img_loss %.5f, reg_loss %.5f; pixels covered by layer %s of '
+          '%d; %d triangles; launches %s (%s)'
+          % (label, float(il), float(rl), covered, one['img'].shape[1]
+             * one['img'].shape[2], mesh.t_pos_idx.shape[0], per_micro,
+             smi_line()), flush=True)
+    if not covered[1]:
+        raise RuntimeError('%s: the second layer covers no pixel' % label)
+    at_micro = peel_checks(rec, label)
+    del rec
+    torch.cuda.empty_cache()
+    at_view = nerf_view_checks(device, FLAGS, geometry, p, static,
+                               'transparency', 'the exported mesh')
+    at_peel = peel_resolve_checks(device)
+    return at_micro, per_micro, at_view, at_peel
 
 
 def device_ms_per_step(run, steps):
@@ -2106,6 +2450,38 @@ def main():
             row['at_nerf_g128_pass2_bake'] = dict(brief(g128_bake),
                                                   leaf_size=g128['leaf'])
     phase_seconds('15 (NeRF, grid 128)')
+
+    # 16. transparency: configs/nerfactor_drums.json's keys on the NeRF
+    # scene through the program (pass 2 and its export at 8 depth-peeled
+    # layers, the bake's alpha); then in this process an 8-layer
+    # micro-step's every kernel launch, an 8-layer validation view and the
+    # resolve at 8 peel layers, each against its plain version
+    del g128
+    torch.cuda.empty_cache()
+    prog = transparency_program()
+    at_tp, tp_micro, at_tp_view, at_peel = transparency_checks(device, prog)
+    for row in rows:
+        name = row['name']
+        row['launches_in_transparency_program'] = prog['launches'][name]
+        row['launches_per_transparency_micro_step'] = tp_micro[name]
+        if name == 'scatter':
+            row['at_transparency_micro_step'] = dict(
+                launches=len(at_tp[name]),
+                largest=brief(max(at_tp[name],
+                                  key=lambda r: r['plain_ms'])),
+                ms=sum(r['ms'] for r in at_tp[name]),
+                plain_ms=sum(r['plain_ms'] for r in at_tp[name]))
+        elif name in at_tp:
+            row['at_transparency_micro_step'] = [brief(r)
+                                                 for r in at_tp[name]]
+        if name in ('sample', 'trace'):
+            row['at_transparency_validation_stratum'] = [
+                dict(brief(x[name]), covered=x['covered'])
+                for x in at_tp_view['layers']]
+        if name == 'resolve':
+            row['at_peel_layers'] = [dict(brief(r), covered=r['covered'])
+                                     for r in at_peel]
+    phase_seconds('16 (transparency)')
 
     # 7. optional profile: every profiler session after every timed phase
     if args.profile:

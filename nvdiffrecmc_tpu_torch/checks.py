@@ -47,6 +47,10 @@ Tolerances, with their reasons:
 - mask: every entry equal to the plain version's (the same slab
   arithmetic; max/min are exact).
 
+On a depth-peel layer that covers no pixel, the checks that compare
+covered pixels only (sample, trace_shade, shade_bwd) have nothing to
+compare and pass, saying so in `compared_on`.
+
 `bound` gives each kernel's bound: the least time the card could take
 for the same work, the largest of the bytes the function
 must move (each input read once, each output written once) over 3.35 TB/s,
@@ -137,7 +141,7 @@ def check_sample(u8, gb8, rows, cols, guide, pdf_tex, base, n_samples_x,
     tex = pallas_shade.S_LTEX
     same_tex = (got[:, tex:tex + 2] == want[:, tex:tex + 2]).all(1)
     agree = same_tex & _close(got, want, 1e-4, 1e-4).all(1)    # [n2, P]
-    share = float(agree.double().mean())
+    share = float(agree.double().mean()) if agree.numel() else 1.0
     err = (got - want).abs().permute(0, 2, 1)[same_tex]         # [n, 16]
     ratio = err / (1e-3 + 1e-3 * want.abs().permute(0, 2, 1)[same_tex])
     bound = float(ratio.max()) if ratio.numel() else 0.0
@@ -166,7 +170,7 @@ def check_trace_shade(samp, gb, bvh, BSDF=0, tmin=0.0, reps=5):
     vk = torch.stack([visw[:, idx], visw[:, P + idx]], 1)      # [n2, 2, n]
     vp = torch.stack([visw_p[:, :n], visw_p[:, n:]], 1)
     bits = vk == vp
-    share = float(bits.double().mean())
+    share = float(bits.double().mean()) if n else 1.0
     pix_ok = bits.all(0).all(0)                                 # [n]
     ok_out = out[:, idx][:, pix_ok]
     ok_plain = out_p[:, pix_ok]
@@ -288,11 +292,12 @@ def check_shade_bwd(samp, gb, vw, g6, BSDF=0, reps=10):
     row_max = want.abs().amax(1, keepdim=True)
     close = err <= 1e-4 * want.abs() + 1e-6 * row_max
     bound = float((err / (2e-2 * want.abs() + 1e-4 * row_max + 1e-30))
-                  .max())
+                  .max()) if err.numel() else 0.0
     ids_same = bool(torch.equal(drad[:, 6:8, idx], drad_p[:, 6:8]))
-    share = float(close.double().mean())
+    share = float(close.double().mean()) if close.numel() else 1.0
     return dict(
-        name='shade_bwd', agree=share, max_abs_err=float(err.max()),
+        name='shade_bwd', agree=share,
+        max_abs_err=float(err.max()) if err.numel() else 0.0,
         err_over_bound=bound,
         ok=share >= MIN_AGREE and bound <= 1.0 and ids_same,
         compared_on='%d of %d pixels' % (idx.numel(), P),
@@ -610,6 +615,23 @@ def run(name, recorded, **kw):
         kw['mask'] = recorded['trace_shade'][1][pallas_shade.GB_MASK] > 0
     return CHECKS[name](*recorded[name], **kw)
 
+
+def run_launches(name, each, **kw):
+    """The check of kernel `name` on each of its launches that a
+    Recorder(every=1) took, in launch order (one per depth-peel layer
+    for the per-layer kernels: a step launches layer 0's first).  The
+    sample kernel's forward launch i is checked on the pixels that
+    trace_shade's launch i covers (its replays in the backward repeat the
+    forward launches)."""
+    out = []
+    for i, args in enumerate(each[name]):
+        if name == 'sample':
+            if i >= len(each['trace_shade']):
+                break
+            kw['mask'] = each['trace_shade'][i][1][pallas_shade.GB_MASK] > 0
+        out.append(CHECKS[name](*args, **kw))
+    return out
+
 # kernel name -> (source, TPU kernel it replaces)
 SOURCES = {
     'resolve': ('nvdiffrecmc_tpu_torch/csrc/resolve.cu',
@@ -642,7 +664,10 @@ class Recorder:
     each kernel wrapper while the main path runs (the launch itself goes
     through unchanged); for the row scatter, which runs once per gather,
     the launch with the most updates (the texture pyramid's adjoint) under
-    'scatter', and every launch, in order, under 'scatter_all'."""
+    'scatter', and every launch, in order, under 'scatter_all'.  every:
+    also keep every every-th launch of each kernel (launches 0, every,
+    2 every, ...; 1 for all of them), in order, in `each` (name -> list of
+    arguments; it holds their tensors alive)."""
 
     _TARGETS = ((pallas_raster, '_resolve_cuda', 'resolve'),
                 (pallas_shade, '_sample_guide_cuda', 'sample_guide'),
@@ -656,8 +681,11 @@ class Recorder:
                 (pallas_tracer, '_trace_cuda', 'trace'),
                 (pallas_tracer, '_mask_cuda', 'mask'))
 
-    def __init__(self):
+    def __init__(self, every=0):
         self.args = {'scatter_all': []}
+        self.every = every
+        self.each = {name: [] for _, _, name in self._TARGETS}
+        self._count = dict.fromkeys(self.each, 0)
         self._saved = []
 
     def __enter__(self):
@@ -672,6 +700,9 @@ class Recorder:
                     self.args[_name] = a
                 if _name == 'scatter':
                     self.args['scatter_all'].append(a)
+                if self.every and self._count[_name] % self.every == 0:
+                    self.each[_name].append(a)
+                self._count[_name] += 1
                 return _orig(*a)
             setattr(mod, attr, wrapped)
         return self

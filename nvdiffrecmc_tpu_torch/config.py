@@ -90,8 +90,8 @@ DEFAULTS = dict(
 UNREAD = frozenset(('random_textures', 'leaf_size'))
 
 # the only value (by truth) of each key that the port honours
-HONOURED = dict(transparency=False, decorrelated=False,
-                denoiser_demodulate=True, custom_mip=False)
+HONOURED = dict(decorrelated=False, denoiser_demodulate=True,
+                custom_mip=False)
 
 REFERENCE_BUDGET = 5000         # the iteration count the schedules assume
 REFERENCE_SHADOW_RAMP = 1750.0

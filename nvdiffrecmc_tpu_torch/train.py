@@ -473,15 +473,28 @@ def uv_unwrap(v_pos, t_pos_idx):
             torch.as_tensor(tidx, device=v_pos.device))
 
 
+def bake_alpha(shape, device):
+    """The alpha channel that transparency appends to the baked kd:
+    uniform in [0, 1) of shape, drawn from a torch.Generator seeded 0 on
+    device (the JAX package draws jax.random.uniform(PRNGKey(0)), a stream
+    the port cannot draw; a test feeds JAX's array through this function
+    instead)."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(0)
+    return torch.rand(shape, generator=gen, device=device)
+
+
 @torch.no_grad()
 def bake_textures(geometry, params, mat_params, mat_static, FLAGS,
                   times=None):
     """The pass boundary: extract_static_mesh, uv_unwrap, then the neural
     material rendered in UV space at FLAGS['texture_res'] (render_uv) with
     its seams dilated over 7x7.  Returns (the base mesh, {'kd', 'ks',
-    'normal'} [1, H, W, 3] textures, the normal map flat).  times: a dict
-    that receives the seconds of 'extract' (prune apart), 'prune',
-    'unwrap' and 'bake', and the texels the mesh covers, 'covered'."""
+    'normal'} [1, H, W, 3] textures, the normal map flat); with
+    FLAGS['transparency'] kd is [1, H, W, 4], its alpha bake_alpha's.
+    times: a dict that receives the seconds of 'extract' (prune apart),
+    'prune', 'unwrap' and 'bake', and the texels the mesh covers,
+    'covered'."""
     times = {} if times is None else times
     dev = mat_params['table'].device
 
@@ -506,8 +519,10 @@ def bake_textures(geometry, params, mat_params, mat_static, FLAGS,
                / torch.clamp(torch.sum(mask, dim=(0, 1, 2)), min=1e-6))
         return vecmath.dilate(x, avg[None, None, None, :], mask, 7)
     kd, ks = dilate_tex(kd), dilate_tex(ks)
+    if FLAGS['transparency']:
+        kd = torch.cat((kd, bake_alpha(kd[..., 0:1].shape, dev)), dim=-1)
     normal = torch.tensor([0.0, 0.0, 1.0], device=dev).expand(
-        kd.shape).contiguous()
+        kd[..., 0:3].shape).contiguous()
     times['covered'] = int(mask.sum())
     lap('bake', t0)
     return base, {'kd': kd, 'ks': ks, 'normal': normal}
@@ -743,10 +758,10 @@ def optimize_mesh(geometry, mat_params, mat_static, light_base, dataset_train,
     n = len(iter_dur_vec)
     if n:
         print('%s: %d steps from iteration %d, median %.3f ms per step of '
-              '%d micro-steps; kernel launches per step %s'
+              '%d micro-steps at %d layers; kernel launches per step %s'
               % (pass_name, n, start_it,
                  statistics.median(iter_dur_vec) * 1000,
-                 config.micro_slices(F),
+                 config.micro_slices(F), F['layers'],
                  json.dumps({k: v / n for k, v in step_launches.items()})),
               flush=True)
     return params
@@ -908,7 +923,9 @@ def main(argv=None, device=None):
     NeRF or LLFF folder of images) and the light (trainable, or
     FLAGS['envlight']).  Without base_mesh: pass 1 and the
     pass boundary (dmtet_pass), then pass 2 on the baked mesh (warm-up 100
-    steps); with it: pass 2 on the base mesh and its material.  Pass 2
+    steps; with FLAGS['transparency'], pass 2, its validation and the
+    export at 8 depth-peeled layers, the baked kd with an alpha); with
+    it: pass 2 on the base mesh and its material.  Pass 2
     trains the material, the light unless lock_light and the vertices
     unless lock_pos (optimize_mesh), validates 16 views when
     FLAGS['validate'], and exports mesh.obj, mesh.mtl, its textures and
@@ -937,6 +954,8 @@ def main(argv=None, device=None):
         base_mesh, mat_params, mat_static, light_base = dmtet_pass(
             FLAGS, light_base, dataset_train, dataset_validate, device)
         pass_idx, warmup_iter = 1, 100
+        if FLAGS['transparency']:     # pass 2 peels 8 layers
+            FLAGS['layers'] = 8
     else:
         base_mesh = mesh_mod.load_mesh(
             config.resolve_path(FLAGS, FLAGS['base_mesh']), device=device)

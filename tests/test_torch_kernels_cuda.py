@@ -27,7 +27,10 @@ rows in both row orders, marching tets on the card against the CPU at
 grids 64 and 128 (training's slots and the boundary's count-sized
 buffers), and the hash-grid encode on the card against the CPU at the
 default config; the NeRF dataset on the card against the CPU, and a
-micro-batched pass-2 step at 64x64 against the unsplit one).
+micro-batched pass-2 step at 64x64 against the unsplit one; transparency:
+the resolve at each of 8 depth-peel layers of spot256, sample and trace +
+shade on a sparse peel layer, and an 8-layer step at 64x64 with an RGBA
+kd against the plain CPU step).
 Marked `gpu`; skipped where torch.cuda.is_available() is false.  On a machine with a GPU and no JAX:
 
     python -m pytest --noconftest -m gpu tests/test_torch_kernels_cuda.py
@@ -1116,3 +1119,86 @@ def test_micro_batched_step_matches_unsplit():
         cos = float((g * w).sum() / (g.norm() * w.norm()))
         close = float(((g - w).abs() <= 1e-3 * w.abs().max()).double().mean())
         assert cos >= 0.999 and close >= 0.99, (k, cos, close)
+
+
+@pytest.fixture(scope='module')
+def peeled():
+    """Kernel inputs of every launch while one 256x256 frame of spot256
+    renders at 8 depth-peel layers (n_samples 4, the bilateral denoiser),
+    with an RGBA kd (alpha 0.6): its inner shells reach layer 7."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA device')
+    from nvdiffrecmc_tpu_torch import checks, kernels
+    from nvdiffrecmc_tpu_torch.dataset.dataset_mesh import (
+        SPOT256_PROBE, DatasetMesh, spot256_scene)
+    from nvdiffrecmc_tpu_torch.geometry import DLMesh
+    from nvdiffrecmc_tpu_torch.render import render as render_mod
+    from nvdiffrecmc_tpu_torch.render import texture as texture_mod
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device('cuda', 0)
+    kernels.build()
+    H = W = 256
+    mesh = spot256_scene(dev)
+    FLAGS = dict(n_samples=4, train_res=[H, W], cam_near_far=[0.1, 1000.0],
+                 spp=1, layers=1, iter=1, batch=1, envlight=SPOT256_PROBE)
+    ds = DatasetMesh(mesh, 3.0, FLAGS, seed=3)
+    kd = mesh.material['kd'].data
+    material = dict(mesh.material, kd=texture_mod.Texture2D(data=torch.cat(
+        (kd[..., 0:3], torch.full_like(kd[..., 0:1], 0.6)), dim=-1)))
+    geometry = DLMesh(ds.ref_mesh, FLAGS)
+    mvp, campos = (torch.as_tensor(x, device=dev)
+                   for x in ds._random_scene()[1:3])
+    m, bvh = geometry.getMesh(geometry.parameters(), material)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    with torch.no_grad(), checks.Recorder(every=1) as rec:
+        buf = render_mod.render_mesh(
+            dict(FLAGS, layers=8), m, mvp, campos, ds.lgt, (H, W), bvh,
+            ds.perms, gen, num_layers=8, msaa=True,
+            background=torch.ones((1, H, W, 3), device=dev),
+            denoiser_sigma=2.0, rnd_seed=1)
+        torch.cuda.synchronize()
+    assert all(torch.isfinite(v).all() for v in buf.values())
+    return rec.each
+
+
+def test_resolve_peel_layers_match_plain(peeled):
+    """The resolve at each of the 8 depth-peel layers, given the previous
+    layer's depths and ids as rasterize passes them, bit-equal to
+    resolve_plain; layer 7 covers pixels."""
+    from nvdiffrecmc_tpu_torch import checks
+    from nvdiffrecmc_tpu_torch.ops import pallas_raster
+    assert len(peeled['resolve']) == 8
+    for i, args in enumerate(peeled['resolve']):
+        r = checks.check_resolve(*args, reps=1)
+        assert r['ok'], (i, r)
+    assert int((pallas_raster._resolve_cuda(*peeled['resolve'][7])[1] > 0)
+               .sum()) > 0
+
+
+def test_env_shade_on_a_sparse_peel_layer(peeled):
+    """Sample and trace + shade of the deepest layer that covers pixels,
+    fewer than half of layer 0's and less than 15% of the frame, against
+    their plain versions on its covered pixels."""
+    from nvdiffrecmc_tpu_torch import checks
+    from nvdiffrecmc_tpu_torch.ops import pallas_shade
+    covered = [int((a[1][pallas_shade.GB_MASK] > 0).sum())
+               for a in peeled['trace_shade']]
+    i = max(j for j, c in enumerate(covered) if c)
+    assert 0 < covered[i] < min(covered[0] / 2, 0.15 * 256 * 256), covered
+    with torch.no_grad():
+        for name in ('sample', 'trace_shade'):
+            r = checks.run_launches(name, peeled, reps=1)[i]
+            assert r['ok'], (name, i, r)
+
+
+def test_8_layer_step_matches_plain_cpu_step():
+    """One 64x64 step at 8 depth-peel layers with an RGBA kd on the card
+    against the same step on the CPU with the plain versions
+    (chip_smoke.small_step_agreement: losses within 1e-4 relative,
+    gradients with cosine >= 0.999 and >= 99% of entries within 1e-3
+    max|g|)."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA device')
+    import chip_smoke
+    chip_smoke.small_step_agreement(torch.device('cuda', 0), layers=8)

@@ -28,9 +28,9 @@ from nvdiffrecmc_tpu_torch.render import texture as t_texture
 CONFIGS = sorted(glob.glob(os.path.join(
     os.path.dirname(os.path.dirname(os.path.abspath(__file__))), 'configs',
     '*.json')))
-# configs whose values the port refuses: transparency (nerfactor drums and
-# ficus)
-REFUSED = {'nerfactor_drums', 'nerfactor_ficus'}
+# configs whose values the port refuses: none (transparency, which
+# nerfactor drums and ficus set, is honoured)
+REFUSED = set()
 
 
 @pytest.fixture(autouse=True)
@@ -98,7 +98,7 @@ def test_strtobool_matches_jax():
 
 
 @pytest.mark.parametrize('extra, error', [
-    ({'transparency': True}, NotImplementedError),
+    ({'transparency': True}, None),
     ({'decorrelated': True}, NotImplementedError),
     ({'denoiser_demodulate': False}, NotImplementedError),
     ({'batch': 4, 'micro_batch': 3}, ValueError),
@@ -108,14 +108,18 @@ def test_strtobool_matches_jax():
 def test_parse_flags_refuses(tmp_path, extra, error):
     """A key whose value the port does not honour raises, and so does a
     key it does not know, and a micro_batch that does not divide batch;
-    the pass-1 keys and random_textures pass, and micro_batch is honoured
-    from the config and from the command line."""
+    transparency (error None) parses and stays true; the pass-1 keys and
+    random_textures pass, and micro_batch is honoured from the config and
+    from the command line."""
     fn = str(tmp_path / 'c.json')
     with open(fn, 'w') as f:
         json.dump(dict({'dmtet_grid': 32, 'sdf_init': 'sphere',
                         'random_textures': True}, **extra), f)
-    with pytest.raises(error):
-        config.parse_flags(['--config', fn])
+    if error is None:
+        assert config.parse_flags(['--config', fn])['transparency'] is True
+    else:
+        with pytest.raises(error):
+            config.parse_flags(['--config', fn])
     with open(fn, 'w') as f:
         json.dump({'dmtet_grid': 32, 'random_textures': True}, f)
     assert config.parse_flags(['--config', fn])['dmtet_grid'] == 32
