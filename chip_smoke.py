@@ -118,11 +118,11 @@ one):
    and mesh/ exports that many triangles;
 15. the NeRF scene at grid 128: the program on configs/nerf_spot_synth.json
    as shipped (grid 128: 12,582,912 tets, 393,216 triangle slots) but
-   NERF_G128_ITERS iterations a pass, both validations (on a copy of the
-   scene whose test split holds its first view, nerf_one_test_view), in
-   chiprun_out/train_nerf_grid_128/, with phase 14's lines and
-   checks and s per view and PSNR of both validations (both metrics.txt
-   read).  Then, in this process: the grid's set-up seconds and resident
+   NERF_G128_ITERS iteration a pass, no probe (phase 14 runs the NeRF
+   probes), both validations on a copy of the scene whose test split is
+   its first view (NERF_VIEWS), in chiprun_out/train_nerf_grid_128/,
+   with phase 14's lines and checks and both metrics.txt files.
+   Then, in this process: the grid's set-up seconds and resident
    bytes and the init's surface triangles against the slots; the peak
    memory of one micro-step and of an unsplit batch of 2 (the unsplit
    batch 8 reckoned from them); one recorded pass-1 micro-step at 800x800
@@ -159,6 +159,25 @@ one):
    sample and trace on stratum 0 of each layer against their plain
    versions); last the resolve at each of 8 peel layers of spot256 at
    512x512, bit-equal to its plain version, layer 7 covering pixels;
+17. the training options: a two-material copy of spot256 written under
+   chiprun_out/train_options/base/ (the faces split by their centroid's
+   x, the second material's kd the first's tinted and at half
+   resolution, written with the port's encode_png); the program on
+   phase 12's config of configs/spot.json's keys with that copy as
+   base_mesh and custom_mip, decorrelated and denoiser_demodulate false,
+   OPTIONS_ITERS iterations, a checkpoint at 5, no probe, no validation
+   (launches per step as OPTIONS_STEP_LAUNCHES; the export read back with
+   its 10 mip levels a texture).  Then, in this process, one recorded
+   batch-4 512x512 step with those options on that mesh, whose one-buffer
+   denoiser launches and decorrelated backward (sample, trace + shade,
+   shade_bwd, light scatter) are held against their plain versions, the
+   backward's uniforms other than the forward's; that step's ms against
+   the default step's in turns; last one spot256 step at n_samples 17
+   (289 strata, the stratum loop and its backward) at 512x512: s per step,
+   peak memory (below one [n2, 8, P] array), launches per stratum, and
+   its backward's launches on strata 0 and 288 against their plain
+   versions; after them a kernel-only trace of one more such step (its
+   device time, idle share and device events a stratum);
 7. with --profile only: torch.profiler over 4 more frames and over 4 more
    training steps; prints device time by kernel, launches and host gaps,
    and writes the full tables to chiprun_out/profile_port.txt and
@@ -168,9 +187,10 @@ one):
 
 Each phase prints its seconds ('phase N: ... s').  Any failure raises and
 exits non-zero before the last line.  The last
-three lines are the kernels JSON (all eleven entries: the ten kernels that
-replace the TPU kernels, the denoiser's two modes apart, and the sampler's
-guide kernel; each with its time, its plain version's, its bound and, for
+three lines are the kernels JSON (all thirteen entries: the ten kernels
+that replace the TPU kernels, the denoiser's two modes apart, the
+sampler's guide kernel, and the denoiser's one-buffer instance in its two
+modes; each with its time, its plain version's, its bound and, for
 the two scatters, index_add_'s, for the guide torch.searchsorted's, and
 its launches in phase 12's program and per step there, in phase 13's
 program and per pass-1 step there, in phase 14's and phase 15's programs
@@ -182,7 +202,10 @@ grid-128 bake; its launches in phase 16's program and per 8-layer
 micro-step, its check at each layer of that micro-step (the scatter: all
 its launches), for sample and trace at stratum 0 of each layer of the
 8-layer validation view, and for the resolve at the 8 peel layers of
-spot256; the row scatter's
+spot256; its launches in phase 17's program and per step there, per
+options step and per loop step, its check in the options step's
+decorrelated backward and on the loop backward's strata 0 and 288; the
+one-buffer denoiser's two rows from the options step; the row scatter's
 entry is its largest launch, with every launch of the step and their
 summed time and bound beside it, and pass 1's hash-grid launch with the
 generic instance's and index_add_'s times), the card line, and {"ok":
@@ -214,6 +237,9 @@ TEX_RES = 1024
 STEP_LAUNCHES = {'resolve': 1, 'sample_guide': 1, 'sample': 2,
                  'trace_shade': 1, 'denoise': 1, 'denoise_grad': 1,
                  'shade_bwd': 1, 'light_scatter': 1}
+# kernels that only a training option runs (the one-buffer denoiser of
+# denoiser_demodulate false): no launch on the default paths
+OPTION_KERNELS = ('denoise_one', 'denoise_one_grad')
 TRACER_RAYS = 2 ** 21   # bench.py's bench_tracer
 RESOLVE_MAX_LAUNCHES = 10   # kernels of one rasterize call up to the resolve
 VAL_FRAMES = 2
@@ -233,11 +259,11 @@ NERF_TEST = os.path.join('data', 'nerf_synthetic_spot',
                          'transforms_test.json')
 NERF_ITERS = 2          # iterations a pass of phase 14's program
 NERF_G128_CONFIG = os.path.join('configs', 'nerf_spot_synth.json')
-NERF_G128_ITERS = 2     # iterations a pass of phase 15's program
+NERF_G128_ITERS = 1     # iterations a pass of phase 15's program
 NERF_VIEWS = 1          # phase 15's test split: the first of the 4 views
 NERF_TIMEOUT = 700      # seconds for the program of phase 14, 15 or 16
 TRANSPARENCY_CONFIG = os.path.join('configs', 'nerfactor_drums.json')
-TRANSPARENCY_ITERS = 2  # iterations a pass of phase 16's program
+TRANSPARENCY_ITERS = 1  # iterations a pass of phase 16's program
 # phase 16's --micro-batch: the largest that fits both passes (PERF.md
 # section 6 reckons it: pass 2 peels 8 layers, each with its own G-buffer
 # and shading, and the config sets batch 8 and no micro_batch)
@@ -425,8 +451,8 @@ def train_setup(device, res, n_samples, tex_res, kd_noise=None, layers=1):
 
 
 def groups(params):
-    return {'geo': list(params['geo'].values()),
-            'mat': list(params['mat'].values()), 'light': [params['light']]}
+    from nvdiffrecmc_tpu_torch import train
+    return {k: train._group(params[k]) for k in ('geo', 'mat', 'light')}
 
 
 def check_step(params, img_loss, reg_loss):
@@ -1127,7 +1153,8 @@ def program_phase():
              export_s, smi_line()), flush=True)
     print('program: kernel launches %s; per step %s' % (launches, per_step),
           flush=True)
-    idle = [n for n, c in launches.items() if c == 0 and n != 'mask']
+    idle = [n for n, c in launches.items()
+            if c == 0 and n not in ('mask',) + OPTION_KERNELS]
     if idle:
         raise RuntimeError('program: kernels not launched %s' % idle)
     check_step_launches(per_step, 'program')
@@ -1421,14 +1448,16 @@ def nerf_one_test_view():
     return dst
 
 
-def nerf_setup(work, config, iters, validate, ref_mesh=None):
+def nerf_setup(work, config, iters, validate, ref_mesh=None, probes=True):
     """config as shipped, but iters iterations a pass, validate, out_root
-    work, data_root this checkout and, when given, ref_mesh, written into
-    work/.  Returns its path."""
+    work, data_root this checkout, when given ref_mesh, and without
+    probes save_interval 0, written into work/.  Returns its path."""
     here = os.path.dirname(os.path.abspath(__file__))
     with open(os.path.join(here, config)) as f:
         cfg = json.load(f)
     cfg.update(iter=iters, validate=validate, out_root=work, data_root=here)
+    if not probes:
+        cfg['save_interval'] = 0
     if ref_mesh is not None:
         cfg['ref_mesh'] = ref_mesh
     os.makedirs(work, exist_ok=True)
@@ -1438,9 +1467,10 @@ def nerf_setup(work, config, iters, validate, ref_mesh=None):
     return path
 
 
-def nerf_program(config, iters, validate, label):
+def nerf_program(config, iters, validate, label, probes=True):
     """Phases 14 and 15, the program: config (a NeRF config of the
-    spot scene) as nerf_setup writes it, in chiprun_out/train_<label>/
+    spot scene) as nerf_setup writes it (without its probes unless
+    probes), in chiprun_out/train_<label>/
     (spaces as underscores; cleared first); with validate, on
     nerf_one_test_view's copy of the scene, so that each validation
     renders NERF_VIEWS view.  Relays and prints each
@@ -1460,7 +1490,7 @@ def nerf_program(config, iters, validate, label):
                         'train_' + label.replace(' ', '_'))
     shutil.rmtree(work, ignore_errors=True)
     cfg = nerf_setup(work, config, iters, validate,
-                     nerf_one_test_view() if validate else None)
+                     nerf_one_test_view() if validate else None, probes)
     with open(cfg) as f:
         grid = json.load(f)['dmtet_grid']
     torch.cuda.empty_cache()
@@ -1473,7 +1503,7 @@ def nerf_program(config, iters, validate, label):
     for i, ln in enumerate(lines):
         if ln.startswith(relay) or (i and lines[i - 1].startswith('MSE')):
             print(label + ' | ' + ln, flush=True)
-    psnrs, probe_s = check_program_log(lines, 2, iters, 100)
+    psnrs, probe_s = check_program_log(lines, 2, iters, 100 if probes else 0)
     med1, per_step1 = pass_summary(lines, 'dmtet_pass1')
     med2, per_step2 = pass_summary(lines, 'mesh_pass')
     micro = [int(x) for x in re.findall(r'of (\d+) micro-steps',
@@ -1509,7 +1539,7 @@ def nerf_program(config, iters, validate, label):
                            % (label, micro))
     check_step_launches(per_step1, label + ' pass 1', 8)
     check_step_launches(per_step2, label + ' pass 2', 8)
-    unused = ('mask',) if validate else ('mask', 'trace')
+    unused = (('mask',) if validate else ('mask', 'trace')) + OPTION_KERNELS
     idle = [n for n, c in launches.items() if c == 0 and n not in unused]
     if idle:
         raise RuntimeError('%s: kernels not launched %s' % (label, idle))
@@ -1883,7 +1913,7 @@ def transparency_program():
     check_step_launches(per_step1, label + ' pass 1', n_micro)
     check_step_launches(per_step2, label + ' pass 2', n_micro, PEEL_LAYERS)
     idle = [n for n, c in launches.items()
-            if c == 0 and n not in ('mask', 'trace')]
+            if c == 0 and n not in ('mask', 'trace') + OPTION_KERNELS]
     if idle:
         raise RuntimeError('%s: kernels not launched %s' % (label, idle))
     if not peak < card:
@@ -2070,10 +2100,290 @@ def transparency_checks(device, prog):
     return at_micro, per_micro, at_view, at_peel
 
 
+# ---------------------------------------------------------------------------
+# Phase 17: the training options (multi-material OBJ, custom mips,
+# decorrelated shading, the modulated denoiser, the stratum loop's
+# backward)
+# ---------------------------------------------------------------------------
+
+def write_two_material_spot(work):
+    """A two-material copy of spot256 in work/: the faces split by their
+    centroid's x (x < 0: material m0, the rest m1), m0's kd the scene's
+    texture_kd.png, m1's that texture tinted and at half resolution
+    (written with the port's encode_png), ks (0, 0.5, 0) for both.
+    Returns the OBJ's path."""
+    import numpy as np
+    from nvdiffrecmc_tpu_torch.dataset.dataset_mesh import SPOT256_DIR
+    from nvdiffrecmc_tpu_torch.render import obj as obj_mod
+    from nvdiffrecmc_tpu_torch.render import texture as texture_mod
+    os.makedirs(work, exist_ok=True)
+    src = os.path.join(SPOT256_DIR, 'mesh.obj')
+    v, _, _, faces, tfaces, nfaces = obj_mod.read_obj(src)[:6]
+    kd = texture_mod.load_image(os.path.join(SPOT256_DIR, 'texture_kd.png'))
+    half = kd.reshape(kd.shape[0] // 2, 2, kd.shape[1] // 2, 2, -1).mean(
+        (1, 3))
+    tint = np.clip(half[..., 0:3] * np.array([1.0, 0.6, 0.4]), 0.0, 1.0)
+    with open(os.path.join(work, 'kd_m1.png'), 'wb') as f:
+        f.write(texture_mod.encode_png(np.rint(tint * 255.0).astype(
+            np.uint8)))
+    shutil.copy(os.path.join(SPOT256_DIR, 'texture_kd.png'),
+                os.path.join(work, 'kd_m0.png'))
+    with open(os.path.join(work, 'mesh.mtl'), 'w') as f:
+        for m in ('m0', 'm1'):
+            f.write('newmtl %s\nbsdf pbr\nmap_Kd kd_%s.png\nKs 0 0.5 0\n'
+                    % (m, m))
+    cx = np.asarray(v, np.float64)[np.asarray(faces)].mean(1)[:, 0]
+    with open(src) as f:
+        head = [ln for ln in f if ln.startswith(('v ', 'vt ', 'vn '))]
+
+    def corner(k, i):
+        return '%d/%s/%s' % (faces[k][i] + 1,
+                             '' if tfaces[k][i] < 0 else tfaces[k][i] + 1,
+                             '' if nfaces[k][i] < 0 else nfaces[k][i] + 1)
+    path = os.path.join(work, 'mesh.obj')
+    with open(path, 'w') as f:
+        f.write('mtllib mesh.mtl\n')
+        f.writelines(head)
+        for name, sel in (('m0', cx < 0.0), ('m1', cx >= 0.0)):
+            f.write('usemtl %s\n' % name)
+            for k in np.nonzero(sel)[0]:
+                f.write('f %s %s %s\n' % tuple(corner(k, i)
+                                               for i in range(3)))
+    print('options: two-material spot256 %s: %d + %d faces, kd %s and %s'
+          % (path, int((cx < 0).sum()), int((cx >= 0).sum()),
+             kd.shape[:2], tint.shape[:2]), flush=True)
+    return path
+
+
+# launches per step of the options program (custom_mip, decorrelated,
+# denoiser_demodulate false): the backward samples and traces anew, the
+# one-buffer denoiser runs in place of the pair
+OPTIONS_STEP_LAUNCHES = {'resolve': 1, 'sample_guide': 1, 'sample': 2,
+                         'trace_shade': 2, 'denoise': 0, 'denoise_grad': 0,
+                         'denoise_one': 1, 'denoise_one_grad': 1,
+                         'shade_bwd': 1, 'light_scatter': 1}
+OPTIONS = dict(custom_mip=True, decorrelated=True, denoiser_demodulate=False)
+OPTIONS_ITERS = 10
+LOOP_N = 17             # 289 strata: the stratum loop and its backward
+
+
+def options_program(work, base_obj):
+    """The program on configs/spot.json's keys with the two-material base
+    mesh and the three options, OPTIONS_ITERS iterations, a checkpoint at
+    5, no probe and no validation; the export read back with its mip
+    levels.  Returns (launches, per step)."""
+    from nvdiffrecmc_tpu_torch.render import obj as obj_mod
+    cfg_path = program_setup(work, base_mesh=False, out_dir='spot_options',
+                             iters=OPTIONS_ITERS)
+    with open(cfg_path) as f:
+        cfg = json.load(f)
+    cfg.update(OPTIONS, base_mesh=base_obj, save_interval=0,
+               checkpoint_interval=5)
+    with open(cfg_path, 'w') as f:
+        json.dump(cfg, f, indent=1)
+    lines = run_program(['--config', cfg_path],
+                        os.path.join(work, 'run.log'))
+    for ln in lines:
+        if ln.startswith(('iter=', 'peak device memory', 'mesh_pass:',
+                          'export:', 'custom_mip', 'decorrelated',
+                          'denoiser_demodulate')):
+            print('options program | ' + ln, flush=True)
+    check_program_log(lines, 1, iters=OPTIONS_ITERS, probe_every=0)
+    med, per_step = pass_summary(lines, 'mesh_pass')
+    launches = json.loads(_after(lines, 'kernel launches: ')[0])
+    wrong = {n: per_step[n] for n, c in OPTIONS_STEP_LAUNCHES.items()
+             if per_step[n] != c}
+    if wrong or per_step['scatter'] < 1:
+        raise RuntimeError('options program: launches per step %s'
+                           % (wrong or per_step))
+    out = os.path.join(work, 'spot_options')
+    mesh_dir = os.path.join(out, 'mesh')
+    files = sorted(os.listdir(mesh_dir))
+    back = obj_mod.load_obj(os.path.join(mesh_dir, 'mesh.obj'), device='cpu')
+    levels = {k: len(back.material[k].data) for k in ('kd', 'ks', 'normal')
+              if isinstance(back.material[k].data, list)}
+    print('options program: median %.3f ms per step at batch 4 with %s; '
+          'per step %s; mesh/ %d files, mip levels read back %s; %d '
+          'triangles (%s)' % (med, OPTIONS, per_step, len(files), levels,
+                              back.t_pos_idx.shape[0], smi_line()),
+          flush=True)
+    if levels != {'kd': 10, 'ks': 10, 'normal': 10} or \
+            back.t_pos_idx.shape[0] != 26474:
+        raise RuntimeError('options program: the export is wrong: %s'
+                           % files)
+    drop_checkpoints(out)
+    return launches, per_step, med
+
+
+def options_setup(device, base_obj, batch, n_samples, options):
+    """A pass-2 step's state at 512x512 and 512x512 textures on the base
+    mesh base_obj (its material the initial guess), with spot256 as the
+    reference, batch targets over random backgrounds."""
+    import torch
+    from nvdiffrecmc_tpu_torch import config, train
+    from nvdiffrecmc_tpu_torch.dataset.dataset_mesh import (
+        SPOT256_PROBE, DatasetMesh, spot256_scene)
+    from nvdiffrecmc_tpu_torch.geometry import DLMesh
+    from nvdiffrecmc_tpu_torch.render import light as light_mod
+    from nvdiffrecmc_tpu_torch.render import obj as obj_mod
+    FLAGS = config.make_flags(train_res=[RES, RES], n_samples=n_samples,
+                              texture_res=[512, 512], batch=batch,
+                              envlight=SPOT256_PROBE, **options)
+    ds = DatasetMesh(spot256_scene(device), CAM_RADIUS, FLAGS, seed=29)
+    base = obj_mod.load_obj(base_obj, device=device)
+    geometry = DLMesh(base, FLAGS)
+    mat, static = train.initial_guess_material(
+        geometry, False, FLAGS, init_mat=base.material, device=device)
+    light = light_mod.create_trainable_env_rnd(FLAGS['probe_res'], 0.0, 0.5,
+                                               device=device)
+    params = train.make_params(geometry, mat, light)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(31)
+    target = train.prepare_batch(ds.collate([ds[i] for i in range(batch)]),
+                                 FLAGS['train_res'], 'random', gen, FLAGS)
+    return dict(FLAGS=FLAGS, ds=ds, geometry=geometry, params=params,
+                static=static, opts=train.make_optimizers(params, FLAGS),
+                loss_fn=train.createLoss(FLAGS), target=target)
+
+
+def _step(st, it):
+    import torch
+    from nvdiffrecmc_tpu_torch import train
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    il, rl = train.train_step(st['geometry'], st['params'], st['opts'],
+                              st['static'], st['target'], it, st['FLAGS'],
+                              st['loss_fn'], st['ds'].perms, None)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3, il, rl
+
+
+def options_checks(device, base_obj):
+    """In process: one recorded batch-4 512x512 step with the three
+    options on the two-material mesh, its one-buffer denoiser launches and
+    its decorrelated backward's sample, trace + shade, shade_bwd and light
+    scatter held against their plain versions (the backward's uniforms
+    other than the forward's); its ms per step against the default step's
+    at batch 4 in turns (default, options, options, default, ...); then
+    one spot256 step at n_samples 17 (289 strata, the loop) at 512x512:
+    s per step, peak memory, the loop backward's launches per stratum,
+    and its launches on strata 0 and 288 against their plain versions.
+    Returns (name -> check of the options step, launches per options
+    step, loop strata checks, launches of the loop's step)."""
+    import torch
+    from nvdiffrecmc_tpu_torch import checks, kernels, train
+    from nvdiffrecmc_tpu_torch.render import light as light_mod
+    opt = options_setup(device, base_obj, 4, N_SAMPLES, OPTIONS)
+    kernels.reset_launches()
+    with checks.Recorder(every=1) as rec:
+        _, il, rl = _step(opt, 0)
+    per_step = dict(kernels.LAUNCHES)
+    check_step(opt['params'], il, rl)
+    out, differ = checks.check_decorrelated_backward(rec.each, reps=2)
+    with torch.no_grad():
+        for name in checks.OPTIONS:
+            out[name] = dict(checks.run(name, rec.args, reps=5),
+                             args=rec.args[name])
+    del rec
+    bad = []
+    for name, r in out.items():
+        print_compare(r, ' (options step, batch 4%s)' % (
+            ', decorrelated backward' if name not in checks.OPTIONS
+            else ''))
+        if not r['ok']:
+            bad.append(name)
+    print('options step: the backward\'s uniforms differ from the '
+          'forward\'s in %.6f of their entries; launches %s'
+          % (differ, {k: v for k, v in per_step.items() if v}), flush=True)
+    wrong = {n: per_step[n] for n, c in OPTIONS_STEP_LAUNCHES.items()
+             if per_step[n] != c}
+    if bad or wrong or differ < 0.99:
+        raise RuntimeError('options step: disagree %s, launches %s, '
+                           'uniforms differ %.4f' % (bad, wrong, differ))
+
+    plain = options_setup(device, base_obj, 4, N_SAMPLES, {})
+    times = {'default': [], 'options': []}
+    for i in range(4):
+        for name in (('default', 'options') if i % 2 == 0
+                     else ('options', 'default')):
+            ms, il, rl = _step(plain if name == 'default' else opt, i + 1)
+            times[name].append(ms)
+    print('options step vs default step, batch 4 at 512x512 in turns: '
+          'median %.3f vs %.3f ms (%s vs %s) (%s)'
+          % (statistics.median(times['options']),
+             statistics.median(times['default']),
+             ', '.join('%.1f' % x for x in times['options']),
+             ', '.join('%.1f' % x for x in times['default']), smi_line()),
+          flush=True)
+    del opt, plain
+    torch.cuda.empty_cache()
+
+    # the stratum loop's backward: one spot256 step at n_samples 17
+    st = options_setup(device, base_obj, 1, LOOP_N, {})
+    kernels.reset_launches()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    ms, il, rl = _step(st, 0)
+    peak = (torch.cuda.max_memory_allocated() - before) / 2 ** 30
+    loop_launches = dict(kernels.LAUNCHES)
+    check_step(st['params'], il, rl)
+    P, n2 = RES * RES, LOOP_N * LOOP_N
+    one = n2 * 8 * P * 4 / 2 ** 30       # the smallest [n2, ., P] array
+    print('loop step (spot256, 512x512, n_samples %d, %d strata): %.3f s, '
+          'peak %.3f GiB above the state (one [n2, 8, P] array would be '
+          '%.3f GiB); launches %s (%s)'
+          % (LOOP_N, n2, ms / 1e3, peak, one,
+             {k: v for k, v in loop_launches.items() if v}, smi_line()),
+          flush=True)
+    per_stratum = {k: loop_launches[k] for k in ('sample', 'trace',
+                                                 'shade_bwd',
+                                                 'light_scatter')}
+    if per_stratum != dict(sample=2 * n2, trace=2 * n2, shade_bwd=n2,
+                           light_scatter=n2) or peak >= one:
+        raise RuntimeError('loop step: launches %s, peak %.3f GiB'
+                           % (per_stratum, peak))
+    # again, the backward recorded on strata 0 and n2 - 1
+    train.clear_grads(st['params'])
+    p = st['params']
+    tables = light_mod.update_pdf(p['light'])
+    lgt = {'base': p['light'], 'pdf': tables.pdf, 'rows': tables.rows,
+           'cols': tables.cols}
+    il, rl = st['geometry'].tick(
+        p['geo'], train.make_material(p['mat'], st['static']), lgt,
+        dict(st['target'], resolution=(RES, RES), spp=1), st['loss_fn'], 1,
+        st['FLAGS'], 2.0, st['ds'].perms, None, rnd_seed=1)
+    with checks.Recorder(every=n2 - 1) as rec:
+        (il + rl).backward()
+        torch.cuda.synchronize()
+    strata = checks.check_loop_strata(rec.each, reps=2)
+    del rec
+    bad = []
+    for name, rs in strata.items():
+        for s, r in zip((0, n2 - 1), rs):
+            print_compare(r, ' (loop backward, stratum %d of %d)' % (s, n2))
+            if not r['ok']:
+                bad.append('%s stratum %d' % (name, s))
+    if bad or any(len(rs) != 2 for rs in strata.values()):
+        raise RuntimeError('loop backward: disagree %s' % bad)
+    # last, as it runs under a profiler: a kernel-only trace of one more
+    # loop step, its device time against its wall time
+    dev_ms, wall, events = device_ms_per_step(lambda i: _step(st, 2 + i), 1)
+    print('loop step under a kernel-only trace: %.3f ms device of %.3f ms '
+          'wall (%.1f%% idle), %.1f device events a stratum (%s)'
+          % (dev_ms, wall, 100.0 * (1.0 - dev_ms / wall), events / n2,
+             smi_line()), flush=True)
+    return out, per_step, strata, loop_launches, dict(
+        loop_step_s=ms / 1e3, loop_peak_gib=peak, loop_device_ms=dev_ms,
+        loop_traced_wall_ms=wall, loop_idle_share=1.0 - dev_ms / wall,
+        loop_device_events_per_stratum=events / n2)
+
+
 def device_ms_per_step(run, steps):
     """Device ms per call of run(i) under a kernel-only torch.profiler
-    trace of `steps` calls (after one warm-up): the sum of the kernels'
-    device time; and the wall ms per call in that trace."""
+    trace of `steps` calls (after one warm-up): the sum of the device
+    events' time (kernels, copies, sets); the wall ms per call in that
+    trace; and the device events per call."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     run(0)
@@ -2088,9 +2398,10 @@ def device_ms_per_step(run, steps):
     key = 'self_device_time_total'
     if averages and not hasattr(averages[0], key):
         key = 'self_cuda_time_total'
-    busy = sum(getattr(e, key) for e in averages
-               if e.device_type == torch.autograd.DeviceType.CUDA)
-    return busy / 1e3 / steps, wall
+    events = [e for e in averages
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(getattr(e, key) for e in events)
+    return busy / 1e3 / steps, wall, sum(e.count for e in events) / steps
 
 
 def print_tests(work, rays, G, label):
@@ -2405,7 +2716,7 @@ def main():
                          st1['static'], targets1[i % len(targets1)],
                          PASS1_IT + PASS1_STEPS + 1 + i, st1['FLAGS'],
                          st1['loss_fn'], st1['ds'].perms, None)
-    dev_ms, wall = device_ms_per_step(pass1_step, 2)
+    dev_ms, wall, _ = device_ms_per_step(pass1_step, 2)
     print('pass 1 (kernel-only trace, batch 4): %.3f ms device per step, '
           '%.3f ms wall in the trace (%s)' % (dev_ms, wall, smi_line()),
           flush=True)
@@ -2425,13 +2736,15 @@ def main():
     phase_seconds('14 (NeRF, grid 64)')
 
     # 15. the NeRF scene at grid 128: configs/nerf_spot_synth.json as
-    # shipped through the program, NERF_G128_ITERS iterations a pass, both
-    # validations; then in this process one micro-step's kernels, the trace
-    # over the whole unpruned surface, a validation view's first stratum
-    # and a pass-2 micro-step on the program's count-sized bake
+    # shipped through the program, NERF_G128_ITERS iteration a pass, no
+    # probe (phase 14 runs the NeRF probes), both validations on the first
+    # test view; then in this process one micro-step's kernels,
+    # the trace over the whole unpruned surface, a validation view with its
+    # first stratum's checks and a pass-2 micro-step on the program's
+    # count-sized bake
     torch.cuda.empty_cache()
     g128 = nerf_program(NERF_G128_CONFIG, NERF_G128_ITERS, True,
-                        'nerf grid 128')
+                        'nerf grid 128', probes=False)
     at_g128, g128_micro, g128_whole, at_nerf_val, g128_bake = \
         nerf_g128_checks(device, g128['cfg'], g128['bake'], g128['leaf'])
     for row in rows:
@@ -2482,6 +2795,49 @@ def main():
             row['at_peel_layers'] = [dict(brief(r), covered=r['covered'])
                                      for r in at_peel]
     phase_seconds('16 (transparency)')
+
+    # 17. the training options: the program with custom_mip, decorrelated
+    # and denoiser_demodulate false on a two-material copy of spot256, then
+    # in this process a recorded step with them, and a step at n_samples 17
+    # through the stratum loop's backward
+    del prog, at_tp, at_tp_view, at_peel
+    torch.cuda.empty_cache()
+    work = os.path.join(here, 'chiprun_out', 'train_options')
+    shutil.rmtree(work, ignore_errors=True)
+    base_obj = write_two_material_spot(os.path.join(work, 'base'))
+    opt_launches, opt_per_step, _ = options_program(work, base_obj)
+    at_opt, opt_step, at_loop, loop_launches, loop_info = options_checks(
+        device, base_obj)
+    for row in rows:
+        name = row['name']
+        row['launches_in_options_program'] = opt_launches[name]
+        row['launches_per_options_program_step'] = opt_per_step[name]
+        row['launches_per_options_step'] = opt_step[name]
+        row['launches_per_loop_step'] = loop_launches[name]
+        if name in at_opt:
+            row['at_options_decorrelated_backward'] = brief(at_opt[name])
+        if name in at_loop:
+            row['at_options_loop_strata'] = [brief(r) for r in at_loop[name]]
+    for name in checks.OPTIONS:     # the one-buffer denoiser's rows
+        r = at_opt[name]
+        src, rep = checks.SOURCES[name]
+        b = checks.bound(name, r['args'])
+        rows.append(dict(
+            name=name, route='cuda', source=src, replaces=rep,
+            launches=opt_step[name], max_abs_err=r['max_abs_err'],
+            ms=r['ms'], plain_ms=r['plain_ms'], bound_ms=b['bound_ms'],
+            bound_by=b['bound_by'], library_ms=None, agree=r['agree'],
+            bound_bytes=b['bound_bytes'], bound_ops=b['bound_ops'],
+            compared_on='options step, batch 4, 512x512',
+            launches_in_options_program=opt_launches[name],
+            launches_per_options_program_step=opt_per_step[name]))
+        print('bound %-13s %.4f ms by %s (%.3e bytes, %.3e ops); kernel '
+              '%.4f ms' % (name, b['bound_ms'], b['bound_by'],
+                           b['bound_bytes'], b['bound_ops'], r['ms']),
+              flush=True)
+    print('options: %s' % json.dumps(loop_info), flush=True)
+    del at_opt, at_loop
+    phase_seconds('17 (options)')
 
     # 7. optional profile: every profiler session after every timed phase
     if args.profile:

@@ -47,6 +47,13 @@ Tolerances, with their reasons:
 - mask: every entry equal to the plain version's (the same slab
   arithmetic; max/min are exact).
 
+- denoise_one, denoise_one_grad (the one-buffer instance of the
+  denoiser, 3 channels): as denoise and denoise_grad.
+- the launches of a decorrelated backward (check_decorrelated_backward)
+  and of the stratum loop's backward (check_loop_strata, shade_bwd with
+  each stratum weighed 1 / n2 of all strata): each kernel's own
+  tolerance above, the light scatter's against the float64 sum.
+
 On a depth-peel layer that covers no pixel, the checks that compare
 covered pixels only (sample, trace_shade, shade_bwd) have nothing to
 compare and pass, saying so in `compared_on`.
@@ -186,18 +193,27 @@ def check_trace_shade(samp, gb, bvh, BSDF=0, tmin=0.0, reps=5):
             samp_s, gb_s, bvh, BSDF, tmin), 1, warmup=0))
 
 
-def check_denoise(col6, nrm, zdz, sigma, reps=20):
-    got = pallas_denoise._denoise_cuda(col6, nrm, zdz, sigma)
-    want = pallas_denoise.denoise_pair_plain(col6, nrm, zdz, sigma)
+def _check_denoise(name, cuda_fn, col, nrm, zdz, sigma, reps):
+    got = cuda_fn(col, nrm, zdz, sigma)
+    want = pallas_denoise.denoise_pair_plain(col, nrm, zdz, sigma)
     err = float((got - want).abs().max())
     close = _close(got, want, 1e-6, 1e-4)
     return dict(
-        name='denoise', agree=float(close.double().mean()), max_abs_err=err,
+        name=name, agree=float(close.double().mean()), max_abs_err=err,
         ok=bool(close.all()),
-        ms=time_ms(lambda: pallas_denoise._denoise_cuda(col6, nrm, zdz,
-                                                        sigma), reps),
+        ms=time_ms(lambda: cuda_fn(col, nrm, zdz, sigma), reps),
         plain_ms=time_ms(lambda: pallas_denoise.denoise_pair_plain(
-            col6, nrm, zdz, sigma), 2))
+            col, nrm, zdz, sigma), 2))
+
+
+def check_denoise(col6, nrm, zdz, sigma, reps=20):
+    return _check_denoise('denoise', pallas_denoise._denoise_cuda, col6, nrm,
+                          zdz, sigma, reps)
+
+
+def check_denoise_one(col3, nrm, zdz, sigma, reps=20):
+    return _check_denoise('denoise_one', pallas_denoise._denoise_one_cuda,
+                          col3, nrm, zdz, sigma, reps)
 
 
 def _sum_bound(got, want, abs_sum, rel, floor=0.0):
@@ -217,21 +233,33 @@ def _flushed(count):
     return count.double() * 2.0 ** -126
 
 
-def check_denoise_grad(g6, nrm, zdz, sigma, reps=20):
-    got = pallas_denoise._denoise_grad_cuda(g6, nrm, zdz, sigma)[..., :6]
-    want = pallas_denoise.denoise_pair_plain(g6, nrm, zdz, sigma, True)
-    abs_sum = pallas_denoise.denoise_pair_plain(g6.abs(), nrm, zdz, sigma,
-                                                True)[..., :6]
-    share, worst = _sum_bound(got, want[..., :6], abs_sum,
+def _check_denoise_grad(name, cuda_fn, g, nrm, zdz, sigma, reps):
+    C = g.shape[-1]
+    got = cuda_fn(g, nrm, zdz, sigma)[..., :C]
+    want = pallas_denoise.denoise_pair_plain(g, nrm, zdz, sigma, True)
+    abs_sum = pallas_denoise.denoise_pair_plain(g.abs(), nrm, zdz, sigma,
+                                                True)[..., :C]
+    share, worst = _sum_bound(got, want[..., :C], abs_sum,
                               1e-5 + 529 * 2.0 ** -24)
     return dict(
-        name='denoise_grad', agree=share, err_over_bound=worst,
-        max_abs_err=float((got - want[..., :6]).abs().max()),
+        name=name, agree=share, err_over_bound=worst,
+        max_abs_err=float((got - want[..., :C]).abs().max()),
         ok=worst <= 1.0,
-        ms=time_ms(lambda: pallas_denoise._denoise_grad_cuda(
-            g6, nrm, zdz, sigma), reps),
+        ms=time_ms(lambda: cuda_fn(g, nrm, zdz, sigma), reps),
         plain_ms=time_ms(lambda: pallas_denoise.denoise_pair_plain(
-            g6, nrm, zdz, sigma, True), 2))
+            g, nrm, zdz, sigma, True), 2))
+
+
+def check_denoise_grad(g6, nrm, zdz, sigma, reps=20):
+    return _check_denoise_grad('denoise_grad',
+                               pallas_denoise._denoise_grad_cuda, g6, nrm,
+                               zdz, sigma, reps)
+
+
+def check_denoise_one_grad(g3, nrm, zdz, sigma, reps=20):
+    return _check_denoise_grad('denoise_one_grad',
+                               pallas_denoise._denoise_one_grad_cuda, g3,
+                               nrm, zdz, sigma, reps)
 
 
 def check_scatter(idx, vals, out_rows, reps=20, generic=False):
@@ -275,9 +303,10 @@ def check_light_scatter(drad, Hl, Wl, reps=20):
             drad, Hl, Wl), reps))
 
 
-def check_shade_bwd(samp, gb, vw, g6, BSDF=0, reps=10):
+def check_shade_bwd(samp, gb, vw, g6, BSDF=0, sample_frac=None, reps=10):
     n2, _, P = samp.shape
-    dgb, drad = pallas_shade._shade_bwd_cuda(samp, gb, vw, g6, BSDF)
+    dgb, drad = pallas_shade._shade_bwd_cuda(samp, gb, vw, g6, BSDF,
+                                             sample_frac)
     covered = torch.nonzero(gb[pallas_shade.GB_MASK] > 0)[:, 0]
     stride = max(1, covered.numel() // TRACE_SUBSET)
     idx = covered[::stride][:TRACE_SUBSET]
@@ -285,7 +314,7 @@ def check_shade_bwd(samp, gb, vw, g6, BSDF=0, reps=10):
            torch.cat([vw[:, idx], vw[:, P + idx]], 1).contiguous(),
            g6[:, idx].contiguous())
     with torch.enable_grad():
-        dgb_p, drad_p = pallas_shade.shade_bwd_plain(*sub, BSDF)
+        dgb_p, drad_p = pallas_shade.shade_bwd_plain(*sub, BSDF, sample_frac)
     got = torch.cat([dgb[:, idx], drad[:, 0:6, idx].reshape(-1, idx.numel())])
     want = torch.cat([dgb_p, drad_p[:, 0:6].reshape(-1, idx.numel())])
     err = (got - want).abs()
@@ -301,10 +330,10 @@ def check_shade_bwd(samp, gb, vw, g6, BSDF=0, reps=10):
         err_over_bound=bound,
         ok=share >= MIN_AGREE and bound <= 1.0 and ids_same,
         compared_on='%d of %d pixels' % (idx.numel(), P),
-        ms=time_ms(lambda: pallas_shade._shade_bwd_cuda(samp, gb, vw, g6,
-                                                        BSDF), reps),
-        plain_ms=time_ms(lambda: pallas_shade.shade_bwd_plain(*sub, BSDF),
-                         1, warmup=0))
+        ms=time_ms(lambda: pallas_shade._shade_bwd_cuda(
+            samp, gb, vw, g6, BSDF, sample_frac), reps),
+        plain_ms=time_ms(lambda: pallas_shade.shade_bwd_plain(
+            *sub, BSDF, sample_frac), 1, warmup=0))
 
 
 def check_trace(ro, rd, bvh, tmin=0.0, reps=5):
@@ -340,12 +369,16 @@ def check_mask(rayf, aabb_lo, aabb_hi, ray_block, tmin, tmax, reps=10):
 CHECKS = {'resolve': check_resolve, 'sample_guide': check_sample_guide,
           'sample': check_sample,
           'trace_shade': check_trace_shade, 'denoise': check_denoise,
-          'denoise_grad': check_denoise_grad, 'shade_bwd': check_shade_bwd,
+          'denoise_grad': check_denoise_grad, 'denoise_one': check_denoise_one,
+          'denoise_one_grad': check_denoise_one_grad,
+          'shade_bwd': check_shade_bwd,
           'light_scatter': check_light_scatter, 'scatter': check_scatter,
           'trace': check_trace, 'mask': check_mask}
 FORWARD = ('resolve', 'sample_guide', 'sample', 'trace_shade', 'denoise')
 BACKWARD = ('denoise_grad', 'shade_bwd', 'light_scatter', 'scatter')
 VALIDATE = ('trace', 'mask')
+# the one-buffer denoiser (denoiser_demodulate false), off the default path
+OPTIONS = ('denoise_one', 'denoise_one_grad')
 
 
 # ---------------------------------------------------------------------------
@@ -528,11 +561,13 @@ def bound(name, args):
                + SHADE_OPS * 2 * n2 * int(covered.sum()))
         return dict(_bound_of(_nbytes(samp, gb, *_walk_tensors(bvh))
                               + (12 * P + 2 * n2 * P) * 4, ops), **work)
-    if name in ('denoise', 'denoise_grad'):
-        col6, nrm, zdz, sigma = args
-        N, H, W = col6.shape[:3]
+    if name in ('denoise', 'denoise_grad', 'denoise_one',
+                'denoise_one_grad'):
+        col, nrm, zdz, sigma = args
+        N, H, W, C = col.shape
         taps = denoise_taps(N, H, W, sigma)
-        return dict(_bound_of(_nbytes(col6, nrm, zdz) + N * H * W * 7 * 4,
+        return dict(_bound_of(_nbytes(col, nrm, zdz)
+                              + N * H * W * (C + 1) * 4,
                               TAP_OPS * taps, TAP_SFU * taps), taps=taps)
     if name == 'shade_bwd':
         samp, gb, vw, g6 = args[:4]
@@ -632,6 +667,47 @@ def run_launches(name, each, **kw):
         out.append(CHECKS[name](*args, **kw))
     return out
 
+@torch.no_grad()
+def check_decorrelated_backward(each, reps=5):
+    """The launches of one decorrelated step on the fused path (one layer)
+    that a Recorder(every=1) took: the sampler's second launch (the
+    backward's) must read uniforms other than its first's (the
+    forward's), and it, the second trace + shade launch (the backward's
+    trace, on those samples), shade_bwd and the light scatter are each
+    held against their plain versions with their own tolerances.
+    Returns (kernel name -> result, the share of the five uniform rows
+    that differ between the two launches)."""
+    u_f, u_b = each['sample'][0][0], each['sample'][1][0]
+    differ = float((u_f[:, 0:5] != u_b[:, 0:5]).double().mean())
+    mask = each['trace_shade'][1][1][pallas_shade.GB_MASK] > 0
+    return {'sample': check_sample(*each['sample'][1], mask=mask, reps=reps),
+            'trace_shade': check_trace_shade(*each['trace_shade'][1],
+                                             reps=reps),
+            'shade_bwd': check_shade_bwd(*each['shade_bwd'][0], reps=reps),
+            'light_scatter': check_light_scatter(
+                *each['light_scatter'][0], reps=reps)}, differ
+
+
+@torch.no_grad()
+def check_loop_strata(each, reps=3):
+    """The stratum loop's backward launches that a Recorder took over the
+    backward alone (per stratum: sample, trace, shade_bwd, light scatter;
+    the i-th recorded launch of each kernel is one stratum's), each held
+    against its plain version with its own tolerance, the sample kernel
+    on the pixels that stratum's shade_bwd G-buffer covers.  Returns
+    kernel name -> list of results, one per recorded stratum."""
+    out = {k: [] for k in ('sample', 'trace', 'shade_bwd', 'light_scatter')}
+    for i, args in enumerate(each['shade_bwd']):
+        mask = args[1][pallas_shade.GB_MASK] > 0
+        out['sample'].append(check_sample(*each['sample'][i], mask=mask,
+                                          reps=reps))
+        out['trace'].append(check_trace(*each['trace'][i], reps=reps))
+        out['shade_bwd'].append(check_shade_bwd(*args, reps=reps))
+        out['light_scatter'].append(check_light_scatter(
+            *each['light_scatter'][i], reps=reps))
+    return out
+
+
 # kernel name -> (source, TPU kernel it replaces)
 SOURCES = {
     'resolve': ('nvdiffrecmc_tpu_torch/csrc/resolve.cu',
@@ -646,6 +722,11 @@ SOURCES = {
                 'nvdiffrecmc_tpu/ops/pallas_denoise.py:47'),
     'denoise_grad': ('nvdiffrecmc_tpu_torch/csrc/denoise.cu',
                      'nvdiffrecmc_tpu/ops/pallas_denoise.py:47'),
+    # no TPU kernel: the JAX package denoises the modulated color in jnp
+    'denoise_one': ('nvdiffrecmc_tpu_torch/csrc/denoise.cu',
+                    'nvdiffrecmc_tpu/ops/denoiser.py:94'),
+    'denoise_one_grad': ('nvdiffrecmc_tpu_torch/csrc/denoise.cu',
+                         'nvdiffrecmc_tpu/ops/denoiser.py:94'),
     'shade_bwd': ('nvdiffrecmc_tpu_torch/csrc/shade_bwd.cu',
                   'nvdiffrecmc_tpu/ops/pallas_shade.py:723'),
     'light_scatter': ('nvdiffrecmc_tpu_torch/csrc/light_scatter.cu',
@@ -675,6 +756,8 @@ class Recorder:
                 (pallas_shade, '_trace_shade_cuda', 'trace_shade'),
                 (pallas_denoise, '_denoise_cuda', 'denoise'),
                 (pallas_denoise, '_denoise_grad_cuda', 'denoise_grad'),
+                (pallas_denoise, '_denoise_one_cuda', 'denoise_one'),
+                (pallas_denoise, '_denoise_one_grad_cuda', 'denoise_one_grad'),
                 (pallas_shade, '_shade_bwd_cuda', 'shade_bwd'),
                 (pallas_shade, '_light_scatter_cuda', 'light_scatter'),
                 (pallas_scatter, '_scatter_cuda', 'scatter'),

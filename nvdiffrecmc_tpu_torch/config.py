@@ -2,9 +2,7 @@
 nvdiffrecmc_tpu/config.py, as a plain dict.  Every key of DEFAULTS is one
 the port reads; the keys of UNREAD (the reference configs'
 random_textures, the TPU BVH's leaf_size) are accepted and ignored; any
-other key is refused.  A key
-whose value changes what the program computes in a way the port does not
-honour (HONOURED) raises NotImplementedError."""
+other key is refused."""
 
 import argparse
 import copy
@@ -89,10 +87,6 @@ DEFAULTS = dict(
 # read by nothing
 UNREAD = frozenset(('random_textures', 'leaf_size'))
 
-# the only value (by truth) of each key that the port honours
-HONOURED = dict(decorrelated=False, denoiser_demodulate=True,
-                custom_mip=False)
-
 REFERENCE_BUDGET = 5000         # the iteration count the schedules assume
 REFERENCE_SHADOW_RAMP = 1750.0
 REFERENCE_LR_DECAY = 0.0002     # lr = 10^(-rate * it)
@@ -159,7 +153,7 @@ def parse_flags(argv=None):
     """The JAX package's parse_flags: argparse, then the --config JSON over
     it, then every flag given explicitly in argv (by its presence, not its
     value) over the config; out_dir joined under out_root.  Raises on keys
-    outside DEFAULTS and UNREAD, and on values the port does not honour."""
+    outside DEFAULTS and UNREAD."""
     parser = _parser()
     args = parser.parse_args(argv)
     FLAGS = copy.deepcopy(DEFAULTS)
@@ -207,9 +201,6 @@ def micro_slices(FLAGS):
 
 
 def _derive(FLAGS):
-    for k, v in HONOURED.items():
-        if bool(FLAGS.get(k)) != bool(v):
-            raise NotImplementedError('%s=%r is not ported' % (k, FLAGS[k]))
     micro_slices(FLAGS)
     apply_schedule_scaling(FLAGS)
     if FLAGS['display_res'] is None:

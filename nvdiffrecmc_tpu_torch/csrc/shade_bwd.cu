@@ -10,7 +10,8 @@
 // 1) sits exactly on its lower bound once the material projection has
 // pinned the texel there.
 //
-// Inputs per pixel: the replayed samples of every stratum (sample.cu),
+// Inputs per pixel: the replayed samples of every stratum (sample.cu; or
+// of the strata the launch takes, each weighed sample_frac),
 // the G-buffer, the per-ray visibility already lerped by the shadow scale
 // (vw = visw * ss + 1 - ss, so the forward's visible/all-visible mix is one
 // weight), and the output cotangents g (d_diffuse 3, d_specular 3, zero at
@@ -208,7 +209,7 @@ __global__ void __launch_bounds__(32 * WARPS, 16 / WARPS)
 shade_bwd_kernel(const float* __restrict__ samp, const float* __restrict__ gb,
                  const float* __restrict__ vw, const float* __restrict__ g,
                  float* __restrict__ dgb, float* __restrict__ drad, int n2,
-                 int P, int bsdf) {
+                 int P, int bsdf, float sample_frac) {
     __shared__ float s_red[WARPS * DGB_ROWS * 32];
     const int lane = threadIdx.x & 31;
     const int w = threadIdx.x >> 5;
@@ -232,7 +233,6 @@ shade_bwd_kernel(const float* __restrict__ samp, const float* __restrict__ gb,
                 gsp[k] = g[(3 + k) * sP + p];
             }
         }
-        const float sample_frac = 1.f / (float)n2;
         for (int s = w; s < n2; s += WARPS) {
             const float* sp = samp + (size_t)s * 16 * sP + p;
             float* dr = drad + (size_t)s * 8 * sP + p;
@@ -281,13 +281,16 @@ shade_bwd_kernel(const float* __restrict__ samp, const float* __restrict__ gb,
 }
 
 // Returns the error of a refused launch.
+// sample_frac: the weight of one stratum in the whole estimator, 1 / n2 of
+// all its strata, so that a launch on some of them (the stratum loop's
+// backward, one at a time) weighs them as the launch on all of them does.
 extern "C" int nvk_shade_bwd(const float* samp, const float* gb,
                              const float* vw, const float* g, float* dgb,
                              float* drad, int n2, int P, int bsdf,
-                             cudaStream_t stream) {
+                             float sample_frac, cudaStream_t stream) {
     if (P == 0) return 0;
     shade_bwd_kernel<<<(P + 31) / 32, 32 * WARPS, 0, stream>>>(
-        samp, gb, vw, g, dgb, drad, n2, P, bsdf);
+        samp, gb, vw, g, dgb, drad, n2, P, bsdf, sample_frac);
     return (int)cudaGetLastError();
 }
 

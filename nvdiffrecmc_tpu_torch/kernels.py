@@ -31,7 +31,8 @@ NVCC_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
 # Launches per kernel.  Each wrapper adds one where it launches its kernel
 # and nowhere else; reset_launches() zeroes them.
 LAUNCHES = {'resolve': 0, 'sample_guide': 0, 'sample': 0, 'trace_shade': 0,
-            'denoise': 0, 'denoise_grad': 0, 'shade_bwd': 0,
+            'denoise': 0, 'denoise_grad': 0, 'denoise_one': 0,
+            'denoise_one_grad': 0, 'shade_bwd': 0,
             'light_scatter': 0, 'scatter': 0, 'trace': 0, 'mask': 0}
 
 _VP = ctypes.c_void_p
@@ -47,7 +48,8 @@ _SIGNATURES = {
     'nvk_trace_shade': [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP,
                         _VP, _I, _I, _I, _I, _I, _I, _I, _F, _VP],
     'nvk_denoise': [_VP, _VP, _VP, _VP, _I, _I, _I, _F, _I, _VP],
-    'nvk_shade_bwd': [_VP] * 6 + [_I] * 3 + [_VP],
+    'nvk_denoise_one': [_VP, _VP, _VP, _VP, _I, _I, _I, _F, _I, _VP],
+    'nvk_shade_bwd': [_VP] * 6 + [_I] * 3 + [_F, _VP],
     'nvk_shade_bwd_info': [_VP],
     'nvk_light_scatter': [_VP, _VP, _I, _I, _I, _VP],
     'nvk_scatter_add': [_VP, _VP, _VP, _LL, _I, _LL, _I, _VP],

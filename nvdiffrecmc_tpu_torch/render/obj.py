@@ -1,8 +1,7 @@
 """Wavefront OBJ load and save (counterpart of
 nvdiffrecmc_tpu/render/obj.py): polygon triangulation, mtllib loading (or an
-override), v-flip of texcoords, OBJ + MTL export.  Meshes that use more than
-one material need the JAX package's uber-material merge, which is not
-ported yet (load_obj raises on them)."""
+override), v-flip of texcoords, the uber-material merge of a mesh whose
+faces use several materials, OBJ + MTL export."""
 
 import os
 
@@ -24,12 +23,14 @@ def _idx(token, k):
 
 def read_obj(filename):
     """Parse geometry only.  Returns (vertices, texcoords, normals, faces,
-    tfaces, nfaces, face_materials) as python lists; face_materials holds
-    the `usemtl` name in force for each triangle (None before any)."""
+    tfaces, nfaces, face_materials, mtl_names) as python lists;
+    mtl_names holds the `usemtl` names in the order they first appear,
+    face_materials the index into it in force for each triangle (None
+    before any)."""
     with open(filename, 'r') as f:
         lines = f.readlines()
     vertices, texcoords, normals = [], [], []
-    faces, tfaces, nfaces, mfaces = [], [], [], []
+    faces, tfaces, nfaces, mfaces, names = [], [], [], [], []
     active = None
     for line in lines:
         parts = line.split()
@@ -44,7 +45,9 @@ def read_obj(filename):
         elif prefix == 'vn':
             normals.append([float(v) for v in parts[1:4]])
         elif prefix == 'usemtl':
-            active = parts[1]
+            if parts[1] not in names:
+                names.append(parts[1])
+            active = names.index(parts[1])
         elif prefix == 'f':
             vs = parts[1:]
             v0, t0, n0 = _idx(vs[0], 0), _idx(vs[0], 1), _idx(vs[0], 2)
@@ -55,7 +58,7 @@ def read_obj(filename):
                 faces.append([v0, v1, v2])
                 tfaces.append([t0, t1, t2])
                 nfaces.append([n0, n1, n2])
-    return vertices, texcoords, normals, faces, tfaces, nfaces, mfaces
+    return vertices, texcoords, normals, faces, tfaces, nfaces, mfaces, names
 
 
 def mesh_from_lists(vertices, texcoords, normals, faces, tfaces, nfaces,
@@ -80,7 +83,9 @@ def mesh_from_lists(vertices, texcoords, normals, faces, tfaces, nfaces,
 def load_obj(filename, clear_ks=True, mtl_override=None, device=None):
     """The mesh of an OBJ file with its material: the one its faces use,
     from the file's mtllib, or from mtl_override (read with clear_ks on)
-    when given."""
+    when given; where the usemtl lines name several, their merge
+    (material.merge_materials) with the texcoords rewritten into its
+    atlas."""
     device = resolve(device)
     obj_path = os.path.dirname(filename)
     all_materials = [{
@@ -101,18 +106,22 @@ def load_obj(filename, clear_ks=True, mtl_override=None, device=None):
                         os.path.join(obj_path, line.split()[1]), clear_ks,
                         device=device)
 
-    (vertices, texcoords, normals, faces, tfaces, nfaces,
-     mfaces) = read_obj(filename)
-    used = []
-    for name in mfaces:
-        if name is None:
-            continue
+    (vertices, texcoords, normals, faces, tfaces, nfaces, mfaces,
+     names) = read_obj(filename)
+    # the materials the usemtl names resolve to, in the order they first
+    # appear (two names may resolve to one, the default material)
+    used, index = [], []
+    for name in names:
         mat = material_mod._find_mat(all_materials, name)
         if not any(mat is u for u in used):
             used.append(mat)
+        index.append(next(i for i, u in enumerate(used) if u is mat))
+    mfaces = [None if k is None else index[k] for k in mfaces]
     if len(used) > 1:
-        raise NotImplementedError('multi-material OBJ merge is not ported')
-    uber = used[0] if used else all_materials[0]
+        uber, texcoords, tfaces = material_mod.merge_materials(
+            used, texcoords, tfaces, mfaces)
+    else:
+        uber = used[0] if used else all_materials[0]
     return mesh_from_lists(vertices, texcoords, normals, faces, tfaces,
                            nfaces, material=uber, device=device)
 

@@ -17,11 +17,13 @@ from ..ops import mesh_ops
 from ..ops import rasterizer as ras
 from ..ops import xfm
 from ..ops.antialias import antialias
+from ..ops.denoiser import bilateral_denoiser
 from ..ops.normal import prepare_shading_normal
 from ..ops.texture import bilinear_sample
 from ..ops.vecmath import (abs_pos0, avg_pool_nhwc, pixel_grid,
                            safe_normalize, scale_img_nhwc)
 from ..ops import texture as tex_ops
+from ..ops.pallas_denoise import bilateral_denoiser_pair
 
 
 def shade_pre(FLAGS, rast, gb_depth, gb_pos, gb_geometric_normal, gb_normal,
@@ -134,12 +136,13 @@ def shade_pre(FLAGS, rast, gb_depth, gb_pos, gb_geometric_normal, gb_normal,
 
 def shade_mc(FLAGS, pre, lgt, bvh, bsdf, shadow_scale, rnd_seed, perms,
              uniforms=None):
-    """Seed-dependent MC env shading on a prepared G-buffer.  Returns
+    """Seed-dependent MC env shading on a prepared G-buffer.  With
+    FLAGS['decorrelated'] the backward samples on its own uniforms, drawn
+    from rnd_seed + 0x77777 as the JAX package seeds them.  Returns
     (diffuse_accum, specular_accum), or (None, None) for non-MC modes."""
     if bsdf not in ('pbr', 'diffuse', 'white'):
         return None, None
-    if FLAGS.get('decorrelated', False):
-        raise NotImplementedError('decorrelated shading is not ported')
+    bwd = rnd_seed + 0x77777 if FLAGS.get('decorrelated', False) else None
     kd, ks = pre['kd'], pre['ks']
     gb_pos = pre['gb_pos']
     gb_normal_shaded = pre['gb_normal_shaded']
@@ -151,23 +154,23 @@ def shade_mc(FLAGS, pre, lgt, bvh, bsdf, shadow_scale, rnd_seed, perms,
         pre['rast_id'], ro, gb_pos, gb_normal_shaded, view_pos_b, kd_shade,
         ks, lgt['base'], lgt['pdf'], lgt['rows'], lgt['cols'], bvh, perms,
         rnd_seed, shadow_scale, BSDF=ibsdf, n_samples_x=FLAGS['n_samples'],
-        uniforms=uniforms)
+        uniforms=uniforms, bwd=bwd)
 
 
 def shade_post(FLAGS, pre, diffuse_accum, specular_accum, bsdf,
                denoiser_sigma):
     """Combine the MC estimate with the G-buffer into the buffer dict,
-    each [B,H,W,4] with alpha in the last channel."""
+    each [B,H,W,4] with alpha in the last channel.  With denoiser_sigma,
+    denoise the demodulated diffuse and specular estimates as a pair, or,
+    with FLAGS['denoiser_demodulate'] false, the shaded color once it is
+    modulated."""
     kd, ks, alpha = pre['kd'], pre['ks'], pre['alpha']
     gb_depth = pre['gb_depth']
     gb_normal_shaded = pre['gb_normal_shaded']
     if bsdf in ('pbr', 'diffuse', 'white'):
         kd_shade = torch.ones_like(kd) if bsdf == 'white' else kd
-        if denoiser_sigma is not None:
-            if not FLAGS.get('denoiser_demodulate', True):
-                raise NotImplementedError(
-                    'denoising the modulated color is not ported')
-            from ..ops.pallas_denoise import bilateral_denoiser_pair
+        demodulate = FLAGS.get('denoiser_demodulate', True)
+        if denoiser_sigma is not None and demodulate:
             diffuse_accum, specular_accum = bilateral_denoiser_pair(
                 diffuse_accum, specular_accum, gb_normal_shaded, gb_depth,
                 denoiser_sigma)
@@ -176,6 +179,9 @@ def shade_post(FLAGS, pre, diffuse_accum, specular_accum, bsdf,
         else:
             kd = kd * (1.0 - ks[..., 2:3])
             shaded_col = diffuse_accum * kd + specular_accum
+        if denoiser_sigma is not None and not demodulate:
+            shaded_col = bilateral_denoiser(shaded_col, gb_normal_shaded,
+                                            gb_depth, denoiser_sigma)
     elif bsdf == 'normal':
         shaded_col = (gb_normal_shaded + 1.0) * 0.5
     elif bsdf == 'tangent':

@@ -1,4 +1,5 @@
-"""2D texture container with auto mip chains, trainable textures, and a
+"""2D texture container with auto or explicit (custom) mip chains,
+trainable textures, and a
 PNG reader and writer, with the texture save of the export (counterpart of
 nvdiffrecmc_tpu/render/texture.py).
 
@@ -66,11 +67,14 @@ class Texture2D:
                                    for m in self.getMips()])
 
 
-def create_trainable(init, res=None, min_max=None, device=None):
+def create_trainable(init, res=None, auto_mipmaps=True, min_max=None,
+                     device=None):
     """A Texture2D whose data is a fresh tensor, resized to res (bilinear
-    magnification, area minification); its mips are built when sampled.
-    init: an array [C], [H, W, C] or [1, H, W, C], or a Texture2D (its
-    base level, and its min_max unless one is given)."""
+    magnification, area minification).  auto_mipmaps: its mips are built
+    from it when sampled; else data is the explicit chain (custom mips):
+    the base level halved with scale_img_nhwc down to 1x1, every level a
+    tensor of its own.  init: an array [C], [H, W, C] or [1, H, W, C], or
+    a Texture2D (its base level, and its min_max unless one is given)."""
     device = resolve(device)
     if isinstance(init, Texture2D):
         min_max = init.min_max if min_max is None else min_max
@@ -78,7 +82,15 @@ def create_trainable(init, res=None, min_max=None, device=None):
     init = _to_nhwc(init, device)
     if res is not None:
         init = vecmath.scale_img_nhwc(init, res)
-    return Texture2D(data=init.contiguous().clone(), min_max=min_max)
+    if auto_mipmaps:
+        return Texture2D(data=init.contiguous().clone(), min_max=min_max)
+    chain = [init]
+    while chain[-1].shape[1] > 1 or chain[-1].shape[2] > 1:
+        size = [max(chain[-1].shape[1] // 2, 1),
+                max(chain[-1].shape[2] // 2, 1)]
+        chain.append(vecmath.scale_img_nhwc(chain[-1], size))
+    return Texture2D(data=[m.contiguous().clone() for m in chain],
+                     min_max=min_max)
 
 
 def srgb_to_rgb(texture: Texture2D):
@@ -218,14 +230,23 @@ def _to_nhwc(init, device):
 
 
 def load_texture2D(fn, lambda_fn=None, channels=None, device=None):
+    """The texture at fn, or, where <base>_0<ext> exists, the mip list
+    <base>_0<ext>, <base>_1<ext>, ... that save_texture2D writes."""
     device = resolve(device)
-    img = load_image(fn)
-    if channels is not None:
-        img = img[..., 0:channels]
-    img = _to_nhwc(img, device)
-    if lambda_fn is not None:
-        img = lambda_fn(img)
-    return Texture2D(data=img)
+
+    def _load(path):
+        img = load_image(path)
+        if channels is not None:
+            img = img[..., 0:channels]
+        img = _to_nhwc(img, device)
+        return img if lambda_fn is None else lambda_fn(img)
+    base, ext = os.path.splitext(fn)
+    if os.path.exists(base + '_0' + ext):
+        mips = []
+        while os.path.exists(base + ('_%d' % len(mips)) + ext):
+            mips.append(_load(base + ('_%d' % len(mips)) + ext))
+        return Texture2D(data=mips)
+    return Texture2D(data=_load(fn))
 
 
 def save_texture2D(fn, tex, lambda_fn=None):

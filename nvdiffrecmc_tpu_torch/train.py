@@ -8,10 +8,12 @@ boundary, and the program.
 
 Parameters are a dict {'geo', 'mat', 'light'} of leaf tensors: 'geo' is
 {'v_pos'} (DLMesh) or {'sdf', 'deform'} (DMTetGeometry); 'mat' is {'kd',
-'ks', 'normal'} or, for the neural material, {'table', 'w0', 'w1', ...}
-(the flat hash-grid table and the MLP's weights).  `train_step` renders
-one batch (or, with micro_batch, each of its slices in turn) through the
-geometry's `tick`, runs `backward()`, and updates them in place.
+'ks', 'normal'} (each a tensor, or with custom_mip a list of its mip
+levels, every level a leaf) or, for the neural material, {'table', 'w0',
+'w1', ...} (the flat hash-grid table and the MLP's weights).
+`train_step` renders one batch (or, with micro_batch, each of its slices
+in turn) through the geometry's `tick`, runs `backward()`, and updates
+them in place.
 `validate` renders the validation views with `render_eval` and writes
 their PSNR.  `main` runs the JAX program on a reference mesh or a NeRF /
 LLFF folder of images: pass 1 (DMTet) when the config sets no base_mesh, then the pass boundary (extract,
@@ -110,7 +112,9 @@ def initial_guess_material(geometry, mlp, FLAGS, init_mat=None,
     FLAGS['texture_res'] and their bounds: from init_mat's textures
     (resized to texture_res) when given, else constant kd and ks drawn
     from numpy's RandomState(seed); the normal map from init_mat, else
-    flat."""
+    flat.  With FLAGS['custom_mip'] the textures made by
+    texture.create_trainable (the normal map always, kd and ks where
+    init_mat gives them) are explicit mip lists, as in the JAX package."""
     device = resolve(device)
 
     def f32(k):
@@ -134,7 +138,8 @@ def initial_guess_material(geometry, mlp, FLAGS, init_mat=None,
     res = tuple(FLAGS['texture_res'])
 
     def trainable(init):
-        return texture_mod.create_trainable(init, res, device=device).data
+        return texture_mod.create_trainable(
+            init, res, not FLAGS['custom_mip'], device=device).data
     if init_mat is None:
         rng = np.random.RandomState(seed)
         num_ch = 4 if FLAGS['layers'] > 1 else 3
@@ -199,8 +204,9 @@ def make_material(mat_params, mat_static):
 
 @torch.no_grad()
 def clamp_material(mat_params, mat_static):
-    """Post-step projections, in place: each texture onto its bounds, the
-    normal map back to unit length (none for the neural material)."""
+    """Post-step projections, in place: each texture (every mip level of a
+    custom chain) onto its bounds, the normal map back to unit length
+    (none for the neural material)."""
     if mat_static.get('kind') == 'mlp':
         return mat_params
     for k in ('kd', 'ks', 'normal'):
@@ -208,14 +214,18 @@ def clamp_material(mat_params, mat_static):
             tex = texture_mod.Texture2D(data=mat_params[k],
                                         min_max=mat_static['min_max'][k])
             tex = tex.clamp().normalize() if k == 'normal' else tex.clamp()
-            mat_params[k].copy_(tex.data)
+            for dst, src in zip(_group(mat_params[k]), _group(tex.data)):
+                dst.copy_(src)
     return mat_params
 
 
 def make_params(geometry, mat_params, light_base):
-    """Leaf tensors (requires_grad) for the three parameter groups, copied
-    so that an in-place update never reaches the geometry's initial guess."""
+    """Leaf tensors (requires_grad) for the three parameter groups (a mip
+    list stays a list of leaves), copied so that an in-place update never
+    reaches the geometry's initial guess."""
     def leaf(x):
+        if isinstance(x, list):
+            return [leaf(m) for m in x]
         return x.detach().clone().requires_grad_()
     return {'geo': {k: leaf(v) for k, v in geometry.parameters().items()},
             'mat': {k: leaf(v) for k, v in mat_params.items()},
@@ -223,7 +233,21 @@ def make_params(geometry, mat_params, light_base):
 
 
 def _group(p):
-    return [p] if torch.is_tensor(p) else list(p.values())
+    """The leaf tensors of a tensor, a list of them or a dict of either."""
+    if torch.is_tensor(p):
+        return [p]
+    vals = p.values() if isinstance(p, dict) else p
+    return [t for v in vals for t in _group(v)]
+
+
+def _map(fn, p):
+    """p (a tensor, a list of them or a dict of either) with fn applied to
+    every tensor."""
+    if torch.is_tensor(p):
+        return fn(p)
+    if isinstance(p, dict):
+        return {k: _map(fn, v) for k, v in p.items()}
+    return [_map(fn, v) for v in p]
 
 
 def lr_schedule(count, lr_decay_rate, warmup_iter=0):
@@ -780,11 +804,7 @@ def save_checkpoint(path, it, params, optimizers, generator, batches,
     os.makedirs(os.path.dirname(path) or '.', exist_ok=True)
     state = {
         'iteration': int(it),
-        'params': {'geo': {k: v.detach().cpu() for k, v
-                           in params['geo'].items()},
-                   'mat': {k: v.detach().cpu() for k, v
-                           in params['mat'].items()},
-                   'light': params['light'].detach().cpu()},
+        'params': _map(lambda v: v.detach().cpu(), params),
         'optimizers': {k: {'adam': opt.state_dict(),
                            'schedule': sched.state_dict()}
                        for k, (opt, sched) in optimizers.items()},
@@ -812,10 +832,8 @@ def load_checkpoint(path, params, optimizers, generator, batches, dataset):
     except (OSError, EOFError, RuntimeError, pickle.UnpicklingError) as e:
         raise RuntimeError('checkpoint %s is unreadable: %s' % (path, e)) \
             from e
-    for group in ('geo', 'mat'):
-        for k, p in params[group].items():
-            p.copy_(state['params'][group][k])
-    params['light'].copy_(state['params']['light'])
+    for p, v in zip(_group(params), _group(state['params']), strict=True):
+        p.copy_(v)
     for k, (opt, sched) in optimizers.items():
         opt.load_state_dict(state['optimizers'][k]['adam'])
         sched.load_state_dict(state['optimizers'][k]['schedule'])

@@ -55,7 +55,7 @@ def test_denoiser_pair_grad_matches_jax(sigma):
     want, = vjp(jnp.asarray(g7))
     c6, n, z = (torch.as_tensor(x).requires_grad_()
                 for x in (col6, nrm, zdz))
-    out = t_pd._premul_pair(c6, n, z, sigma)
+    out = t_pd.premul(c6, n, z, sigma)
     out.backward(torch.as_tensor(g7))
     np.testing.assert_allclose(c6.grad.numpy(), np.asarray(want), rtol=1e-5,
                                atol=2e-5)

@@ -15,9 +15,14 @@ Tolerances, with their reasons:
   that lands one texel over (trig ulps at a texel border) moves little.
 - the loop against the port's own fused pipeline on the same uniforms:
   1e-5 abs + 1e-5 rel everywhere (the same functions; the sums differ only
-  in float32 rounding order).
+  in float32 rounding order), forward and gradient.
+- the loop's gradient against jax.grad of env_shade_fused_jnp: 1e-4
+  max|g| (see test_loop_raises_under_autograd and
+  test_loop_gradient_matches_jax_in_the_light).
 The scene has at most 15 leaves, so the JAX tracer's k_pairs cap drops
 nothing (tracer.OCCLUSION_DROPPED_PAIRS stays 0)."""
+
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -198,14 +203,138 @@ def test_env_shade_switches_at_256_strata(monkeypatch, n_samples_x, path):
     assert taken == [path]
 
 
-def test_loop_raises_under_autograd():
-    gbuf, (v, tri) = _loop_scene(side=4)
+_GRAD_N = 17      # 289 strata: the loop
+_GRAD_SEED = 11
+# argument positions of (base, pos, nrm, view, kd, ks) in _port_args
+_DIFF = (7, 2, 3, 4, 5, 6)
+
+
+def _cotangents(side):
+    rng = np.random.RandomState(3)
+    return tuple(rng.randn(1, side, side, 3).astype(np.float32)
+                 for _ in range(2))
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_jitted():
+    """JAX's any_hit and _shade_stratum under jax.jit, made once so that
+    the file's gradient tests share their compiles."""
+    return (jax.jit(j_tracer.any_hit,
+                    static_argnames=('tmin', 'tmax', 'ray_chunk', 'k_pairs',
+                                     'pair_block')),
+            jax.jit(j_ps._shade_stratum, static_argnums=(4,)))
+
+
+def _jax_grads(monkeypatch, side, n_samples_x, perms, argnums):
+    """jax.grad of <g_d, diffuse> + <g_s, specular> through
+    env_shade_fused_jnp in (base, pos, nrm, view, kd, ks)[argnums] on the
+    side x side scene (JAX's any_hit and _shade_stratum jitted)."""
+    any_hit, shade = _jax_jitted()
+    monkeypatch.setattr(j_tracer, 'any_hit', any_hit)
+    monkeypatch.setattr(j_ps, '_shade_stratum', shade)
+    gbuf, (v, tri) = _loop_scene(side=side)
+    base, pdf, rows, cols = smooth_light()
+    jbvh = j_bvh.build(jnp.asarray(v), jnp.asarray(tri), leaf_size=16)
+    mask, ro = jnp.asarray(gbuf[0]), jnp.asarray(gbuf[1])
+    gd, gs = _cotangents(side)
+
+    def f(lb, *g):
+        d, s = j_ps.env_shade_fused_jnp(mask, ro, *g, lb, pdf, rows, cols,
+                                        jbvh, perms, _GRAD_SEED, 1.0, BSDF=0,
+                                        n_samples_x=n_samples_x)
+        return jnp.sum(d * gd) + jnp.sum(s * gs)
+    return jax.grad(f, argnums=argnums)(
+        base, *(jnp.asarray(a) for a in gbuf[2:7]))
+
+
+@functools.lru_cache(maxsize=None)
+def _loop_grads():
+    """The port loop's forward and the gradients of <g_d, diffuse> +
+    <g_s, specular> in (base, pos, nrm, view, kd, ks) on the 8x8 scene
+    at n_samples 17, on JAX's uniforms; computed once for the two tests
+    that read them (the file's tests share a worker)."""
+    gbuf, (v, tri) = _loop_scene(side=8)
+    perms = j_es.make_perms(_GRAD_N, n_tables=16)
+    n2, P = _GRAD_N * _GRAD_N, gbuf[0].size
+    u8 = t(j_ps.make_uniforms(jax.random.PRNGKey(_GRAD_SEED), n2, P,
+                              _GRAD_N, perms))
     tbvh = t_bvh.build(t(v), t(tri), leaf_size=16)
+    gd, gs = _cotangents(8)
+
+    def grads(fn):
+        targs = list(_port_args(gbuf, smooth_light()))
+        for k in _DIFF:
+            targs[k].requires_grad_()
+        d, s = fn(*targs, tbvh, t(perms).long(), _GRAD_SEED, 1.0, BSDF=0,
+                  n_samples_x=_GRAD_N, uniforms=u8)
+        (torch.sum(d * t(gd)) + torch.sum(s * t(gs))).backward()
+        return (d.detach(), s.detach()), [targs[k].grad for k in _DIFF]
+    return grads(t_es.env_shade), grads(t_ps.env_shade_fused), perms
+
+
+def test_loop_raises_under_autograd(monkeypatch):
+    """The stratum loop's gradient (n_samples 17, 289 strata, 8x8) against
+    jax.grad of pallas_shade.env_shade_fused_jnp, the JAX package's jnp
+    twin of its loop, on the same uniforms, in pos, nrm, view, kd and ks:
+    within 1e-4 max|g| of each (the same arithmetic summed in another
+    order; a grazing ray flips nothing on this scene).  JAX's any_hit and
+    _shade_stratum run under jax.jit (dispatched op by op, 289 strata take
+    minutes); its light gradient transposes 289 slices of the sample array,
+    one compile each (85 s in all), so the light's gradient is held against
+    the port's fused backward (the next test) and against JAX at 16 strata
+    (test_loop_gradient_matches_jax_in_the_light).  (The test kept its
+    name from when the loop raised under autograd.)"""
+    (_, got), _, perms = _loop_grads()
+    want = _jax_grads(monkeypatch, 8, _GRAD_N, perms, tuple(range(1, 6)))
+    for name, g, w in zip(('pos', 'nrm', 'view', 'kd', 'ks'), got[1:],
+                          want):
+        w = np.asarray(w)
+        assert np.abs(w).max() > 0.0, name
+        np.testing.assert_allclose(g.numpy(), w, rtol=0,
+                                   atol=1e-4 * np.abs(w).max(), err_msg=name)
+
+
+def test_loop_backward_matches_fused_backward():
+    """The loop's forward and gradient (light, pos, nrm, view, kd, ks) at
+    289 strata equal the fused pipeline's on the same uniforms within
+    1e-5 abs + 1e-5 rel (the loop launches shade backward and the light
+    scatter once per stratum, each stratum weighed 1 / 289; the sums
+    differ only in float32 rounding order)."""
+    (fwd, got), (fwd_f, want), _ = _loop_grads()
+    for a, b in zip(fwd, fwd_f):
+        torch.testing.assert_close(a, b, atol=1e-5, rtol=1e-5)
+    for g, w in zip(got, want):
+        assert float(w.abs().max()) > 0.0
+        torch.testing.assert_close(g, w, atol=1e-5, rtol=1e-5)
+
+
+def test_loop_gradient_matches_jax_in_the_light(monkeypatch):
+    """The stratum loop's backward (per stratum the shade backward and the
+    light scatter, each stratum weighed 1 / n2) at 16 strata (n_samples 4,
+    the Kensler path; 8x8), called directly since env_shade takes the fused
+    path there, against jax.grad of env_shade_fused_jnp on the same
+    uniforms in the light and in pos, nrm, view, kd and ks: within 1e-4
+    max|g| of each, as at 289 strata.  JAX's light gradient at 289 strata
+    transposes a slice of the sample array per stratum, one compile each;
+    at 16 the light's path is the same, and the loop at 289 equals the
+    fused backward (the test above)."""
+    n = 4
+    gbuf, (v, tri) = _loop_scene(side=8)
+    perms = j_es.make_perms(n, n_tables=16)
+    u8 = t(j_ps.make_uniforms(jax.random.PRNGKey(_GRAD_SEED), n * n,
+                              gbuf[0].size, n, perms))
     targs = list(_port_args(gbuf, smooth_light()))
-    targs[2] = targs[2].requires_grad_()
-    with pytest.raises(NotImplementedError):
-        t_es.env_shade(*targs, tbvh, None, 0, 1.0, n_samples_x=32)
-    perms = t_es.make_perms(17, n_tables=8, device='cpu')
-    with torch.no_grad():
-        d, s = t_es.env_shade(*targs, tbvh, perms, 0, 1.0, n_samples_x=17)
-    assert d.shape == (1, 4, 4, 3) and bool(torch.isfinite(s).all())
+    for k in _DIFF:
+        targs[k].requires_grad_()
+    d, s = t_es._env_shade_loop(*targs, t_bvh.build(t(v), t(tri),
+                                                    leaf_size=16),
+                                t(perms).long(), _GRAD_SEED, 1.0, 0, n, u8)
+    gd, gs = _cotangents(8)
+    (torch.sum(d * t(gd)) + torch.sum(s * t(gs))).backward()
+    want = _jax_grads(monkeypatch, 8, n, perms, tuple(range(6)))
+    for name, k, w in zip(('light', 'pos', 'nrm', 'view', 'kd', 'ks'),
+                          _DIFF, want):
+        w = np.asarray(w)
+        assert np.abs(w).max() > 0.0, name
+        np.testing.assert_allclose(targs[k].grad.numpy(), w, rtol=0,
+                                   atol=1e-4 * np.abs(w).max(), err_msg=name)

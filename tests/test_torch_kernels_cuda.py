@@ -30,7 +30,13 @@ default config; the NeRF dataset on the card against the CPU, and a
 micro-batched pass-2 step at 64x64 against the unsplit one; transparency:
 the resolve at each of 8 depth-peel layers of spot256, sample and trace +
 shade on a sparse peel layer, and an 8-layer step at 64x64 with an RGBA
-kd against the plain CPU step).
+kd against the plain CPU step; the training options: the denoiser's
+one-buffer instance in both modes at 500x333, a step with custom_mip,
+decorrelated and denoiser_demodulate false whose one-buffer denoiser and
+decorrelated backward launches are held against their plain versions,
+the stratum loop's backward at n_samples 17, strata 0 and 288 held
+against theirs, and the decorrelated loop against the correlated one on
+each uniform set).
 Marked `gpu`; skipped where torch.cuda.is_available() is false.  On a machine with a GPU and no JAX:
 
     python -m pytest --noconftest -m gpu tests/test_torch_kernels_cuda.py
@@ -858,7 +864,8 @@ def _ragged_step_inputs(recorded_step, n2):
     """shade_bwd's recorded step inputs cut to P - 5 pixels (not a multiple
     of 32) and to n2 strata: the first stratum, or the recorded strata
     repeated up to n2."""
-    samp, gb, vw, g6, bsdf = recorded_step['shade_bwd']
+    # (its recorded sample_frac is the step's 1 / n2; these take their own)
+    samp, gb, vw, g6, bsdf = recorded_step['shade_bwd'][:5]
     m, _, P = samp.shape
     Q = P - 5
     reps = -(-n2 // m)
@@ -1202,3 +1209,193 @@ def test_8_layer_step_matches_plain_cpu_step():
         pytest.skip('needs a CUDA device')
     import chip_smoke
     chip_smoke.small_step_agreement(torch.device('cuda', 0), layers=8)
+
+
+@pytest.mark.parametrize('sigma', [2.0, 0.6])
+def test_denoise_one_both_modes_ragged(sigma):
+    """The denoiser's one-buffer instance (3 channels, the modulated
+    color) at 500x333 in both modes within the checks' tolerances, and two
+    launches equal on every entry."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA device')
+    from nvdiffrecmc_tpu_torch import checks, kernels
+    from nvdiffrecmc_tpu_torch.ops import pallas_denoise
+    kernels.build()
+    col6, nrm, zdz, g6 = _denoise_inputs(333, 500, N=2)
+    col3, g3 = col6[..., :3].contiguous(), g6[..., 3:].contiguous()
+    r = checks.check_denoise_one(col3, nrm, zdz, sigma, reps=1)
+    assert r['ok'], r
+    r = checks.check_denoise_one_grad(g3, nrm, zdz, sigma, reps=1)
+    assert r['ok'], r
+    for grad_mode, c in ((False, col3), (True, g3)):
+        one = pallas_denoise._launch(c, nrm, zdz, sigma, grad_mode)
+        assert one.shape == tuple(c.shape[:3]) + (4,)
+        assert torch.equal(
+            pallas_denoise._launch(c, nrm, zdz, sigma, grad_mode), one)
+
+
+def _options_setup(n_samples, H=256, W=256, **options):
+    """A pass-2 step's state on spot256 at HxW (textures 256x256, light
+    64x64) with the given flags."""
+    from nvdiffrecmc_tpu_torch import config, kernels, train
+    from nvdiffrecmc_tpu_torch.dataset.dataset_mesh import (
+        SPOT256_PROBE, DatasetMesh, spot256_scene)
+    from nvdiffrecmc_tpu_torch.geometry import DLMesh
+    from nvdiffrecmc_tpu_torch.render import light as light_mod
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device('cuda', 0)
+    kernels.build()
+    FLAGS = config.make_flags(train_res=[H, W], n_samples=n_samples,
+                              texture_res=[256, 256], envlight=SPOT256_PROBE,
+                              **options)
+    ds = DatasetMesh(spot256_scene(dev), 3.0, FLAGS, seed=2)
+    geometry = DLMesh(ds.ref_mesh, FLAGS)
+    mat, static = train.initial_guess_material(
+        geometry, False, FLAGS, init_mat=ds.ref_mesh.material, device=dev)
+    light = light_mod.create_trainable_env_rnd(64, 0.0, 0.5, device=dev)
+    params = train.make_params(geometry, mat, light)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    item = ds[0]
+    target = train.prepare_batch(
+        {'img': item['img'], 'mvp': item['mvp'], 'campos': item['campos']},
+        [H, W], 'random', gen, FLAGS)
+    return FLAGS, ds, geometry, params, static, target
+
+
+def test_options_step_launches_match_plain():
+    """One step with custom_mip, decorrelated and denoiser_demodulate
+    false: the one-buffer denoiser instead of the pair, the decorrelated
+    backward's sample and trace + shade launches on uniforms of their
+    own, every one of them held against its plain version
+    (checks.check_decorrelated_backward), and the mip lists' gradients
+    finite."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA device')
+    from nvdiffrecmc_tpu_torch import checks, kernels, train
+    FLAGS, ds, geometry, params, static, target = _options_setup(
+        4, custom_mip=True, decorrelated=True, denoiser_demodulate=False)
+    assert isinstance(params['mat']['kd'], list)
+    kernels.reset_launches()
+    with checks.Recorder(every=1) as rec:
+        train.train_step(geometry, params,
+                         train.make_optimizers(params, FLAGS), static,
+                         target, 0, FLAGS, train.createLoss(FLAGS),
+                         ds.perms, None)
+        torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    assert {k: launches[k] for k in ('sample', 'trace_shade', 'shade_bwd',
+                                     'light_scatter', 'denoise',
+                                     'denoise_grad', 'denoise_one',
+                                     'denoise_one_grad')} == dict(
+        sample=2, trace_shade=2, shade_bwd=1, light_scatter=1, denoise=0,
+        denoise_grad=0, denoise_one=1, denoise_one_grad=1)
+    out, differ = checks.check_decorrelated_backward(rec.each, reps=1)
+    assert differ > 0.99
+    for name, r in out.items():
+        assert r['ok'], (name, r)
+    for name in ('denoise_one', 'denoise_one_grad'):
+        r = checks.run(name, rec.args, reps=1)
+        assert r['ok'], r
+    for p in train._group(params['mat']):
+        assert bool(torch.isfinite(p).all())
+
+
+def test_loop_backward_strata_match_plain():
+    """A 64x64 step at n_samples 17 (289 strata, the loop): its backward
+    launches sample, trace, shade_bwd and the light scatter once per
+    stratum, and strata 0 and 288 are held against their plain versions
+    (checks.check_loop_strata)."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA device')
+    from nvdiffrecmc_tpu_torch import checks, kernels, train
+    from nvdiffrecmc_tpu_torch.render import light as light_mod
+    FLAGS, ds, geometry, params, static, target = _options_setup(
+        17, H=64, W=64)
+    tables = light_mod.update_pdf(params['light'])
+    lgt = {'base': params['light'], 'pdf': tables.pdf, 'rows': tables.rows,
+           'cols': tables.cols}
+    il, rl = geometry.tick(
+        params['geo'], train.make_material(params['mat'], static), lgt,
+        dict(target, resolution=(64, 64), spp=1), train.createLoss(FLAGS),
+        0, FLAGS, 2.0, ds.perms, None, rnd_seed=0)
+    kernels.reset_launches()
+    with checks.Recorder(every=288) as rec:
+        (il + rl).backward()
+        torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    for name in ('sample', 'trace', 'shade_bwd', 'light_scatter'):
+        assert launches[name] == 289, (name, launches)
+    assert launches['trace_shade'] == 0
+    out = checks.check_loop_strata(rec.each, reps=1)
+    for name, rs in out.items():
+        assert len(rs) == 2, name
+        for r in rs:
+            assert r['ok'], (name, r)
+    for p in train._leaves(params):
+        assert p.grad is not None and bool(torch.isfinite(p.grad).all())
+
+
+def test_loop_backward_decorrelated_on_its_own_uniforms():
+    """The stratum loop with decorrelation (n_samples 17, 48x48 on the
+    card): its forward is the correlated forward on the forward's
+    uniforms, and its gradient the correlated gradient on the backward's,
+    equal entry for entry (the light's within 1e-5: its scatter's float32
+    atomics add in another order in each run)."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA device')
+    from nvdiffrecmc_tpu_torch import kernels
+    from nvdiffrecmc_tpu_torch.dataset.dataset_mesh import spot256_scene
+    from nvdiffrecmc_tpu_torch.ops import bvh as bvh_mod
+    from nvdiffrecmc_tpu_torch.ops import envshade, pallas_shade
+    from nvdiffrecmc_tpu_torch.render import light as light_mod
+    kernels.build()
+    dev = torch.device('cuda', 0)
+    n, side = 17, 48
+    P, n2 = side * side, n * n
+    mesh = spot256_scene(dev)
+    bvh = bvh_mod.build(mesh.v_pos, mesh.t_pos_idx)
+    rng = np.random.RandomState(3)
+    pos = rng.uniform(-0.5, 0.5, (1, side, side, 3))
+    nrm = rng.randn(1, side, side, 3)
+    nrm /= np.linalg.norm(nrm, axis=-1, keepdims=True)
+    view = pos + np.array([0.0, 0.0, 3.0])
+    kd = rng.uniform(0.1, 0.9, pos.shape)
+    ks = np.stack([np.zeros((1, side, side)),
+                   rng.uniform(0.2, 0.8, (1, side, side)),
+                   rng.uniform(0.0, 1.0, (1, side, side))], -1)
+    light = light_mod.create_trainable_env_rnd(32, 0.0, 0.5, device=dev)
+    tables = light_mod.update_pdf(light)
+    perms = envshade.make_perms(n, n_tables=64, device=dev)
+    gens = [torch.Generator(device=dev) for _ in range(2)]
+    for g, seed in zip(gens, (1, 2)):
+        g.manual_seed(seed)
+    u = [pallas_shade.make_uniforms(g, n2, P, n, perms, device=dev)
+         for g in gens]
+    cot = [torch.as_tensor(rng.randn(1, side, side, 3).astype(np.float32),
+                           device=dev) for _ in range(2)]
+
+    def run(**kw):
+        leaves = [torch.as_tensor(a.astype(np.float32), device=dev)
+                  .requires_grad_() for a in (pos, nrm, view, kd, ks)]
+        base = light.detach().clone().requires_grad_()
+        mask = torch.ones((1, side, side), device=dev)
+        d, s = envshade.env_shade(
+            mask, leaves[0].detach() + leaves[1].detach() * 1e-3, *leaves,
+            base, tables.pdf, tables.rows, tables.cols, bvh, perms, 0, 1.0,
+            n_samples_x=n, **kw)
+        (torch.sum(d * cot[0]) + torch.sum(s * cot[1])).backward()
+        return (d.detach(), s.detach()), [base.grad] + [x.grad for x in leaves]
+    fwd, grads = run(uniforms=u[0], bwd=u[1])
+    fwd_c = run(uniforms=u[0])[0]
+    grads_c = run(uniforms=u[1])[1]
+    for a, b in zip(fwd, fwd_c):
+        assert torch.equal(a, b)
+    for a, b in zip(grads, grads_c):
+        assert bool(torch.isfinite(a).all()) and float(b.abs().max()) > 0.0
+    # the light's: float32 atomics land in another order in each run
+    torch.testing.assert_close(grads[0], grads_c[0], rtol=1e-5,
+                               atol=1e-6 * float(grads_c[0].abs().max()))
+    for a, b in zip(grads[1:], grads_c[1:]):
+        assert torch.equal(a, b)

@@ -109,7 +109,7 @@ def test_trainable_textures_and_light_match_jax():
         bounds = (np.array([0.1, 0.2, 0.3], np.float32),
                   np.array([0.6, 0.7, 0.8], np.float32))
         jt = j_texture.create_trainable(init, res, True, bounds)
-        tt = t_texture.create_trainable(init, res, bounds, device='cpu')
+        tt = t_texture.create_trainable(init, res, True, bounds, device='cpu')
         # the projections the trainer applies after each step
         for got, want in ((tt, jt), (tt.clamp(), jt.clamp()),
                           (tt.normalize(), jt.normalize())):

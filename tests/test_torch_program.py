@@ -1,6 +1,6 @@
 """The port's pass-2 program against the JAX package's: the flags
 (parse_flags on every configs/*.json, CLI over config by presence in argv,
-strtobool, the refusals of what the port does not honour), the batch
+strtobool, the refusals of unknown keys), the batch
 order of batch_iterator, and train.main on the CPU at a small size (the
 octasphere at 16x16, 32x32 textures, n_samples 2, no probe, no
 validation): a run stopped after its checkpoint and resumed equals the
@@ -97,26 +97,32 @@ def test_strtobool_matches_jax():
                 fn(s)
 
 
+# the ids are the cases' names from when decorrelated, denoiser_demodulate
+# false and custom_mip raised NotImplementedError
 @pytest.mark.parametrize('extra, error', [
     ({'transparency': True}, None),
-    ({'decorrelated': True}, NotImplementedError),
-    ({'denoiser_demodulate': False}, NotImplementedError),
+    ({'decorrelated': True}, None),
+    ({'denoiser_demodulate': False}, None),
     ({'batch': 4, 'micro_batch': 3}, ValueError),
-    ({'custom_mip': True}, NotImplementedError),
+    ({'custom_mip': True}, None),
     ({'lock_geometry': True}, KeyError),
-])
+], ids=['extra0-None', 'extra1-NotImplementedError',
+        'extra2-NotImplementedError', 'extra3-ValueError',
+        'extra4-NotImplementedError', 'extra5-KeyError'])
 def test_parse_flags_refuses(tmp_path, extra, error):
-    """A key whose value the port does not honour raises, and so does a
-    key it does not know, and a micro_batch that does not divide batch;
-    transparency (error None) parses and stays true; the pass-1 keys and
-    random_textures pass, and micro_batch is honoured from the config and
-    from the command line."""
+    """A key the port does not know raises, and so does a micro_batch
+    that does not divide batch; transparency, decorrelated, custom_mip and
+    denoiser_demodulate false (error None) parse and keep their values;
+    the pass-1 keys and random_textures pass, and micro_batch is honoured
+    from the config and from the command line."""
     fn = str(tmp_path / 'c.json')
     with open(fn, 'w') as f:
         json.dump(dict({'dmtet_grid': 32, 'sdf_init': 'sphere',
                         'random_textures': True}, **extra), f)
     if error is None:
-        assert config.parse_flags(['--config', fn])['transparency'] is True
+        got = config.parse_flags(['--config', fn])
+        for k, v in extra.items():
+            assert got[k] is v, (k, got[k])
     else:
         with pytest.raises(error):
             config.parse_flags(['--config', fn])
