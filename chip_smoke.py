@@ -44,7 +44,8 @@ one):
    per ray that the walk needs under the three-level structure (sub-boxes
    of bvh.SUB triangles) and under the two-level one (whole leaves);
 9. validation at the reference protocol with phase 6's trained scene and
-   parameters: train.validate over 2 views of DatasetMesh(validate=True)
+   parameters: train.validate over VAL_FRAMES view (the first) of
+   DatasetMesh(validate=True)
    at 512x512, n_samples 32 (1,024 strata in one call, the stratum loop),
    no denoiser, checker background, into chiprun_out/validate/; seconds,
    MSE and PSNR per view, launches per render_eval (sample and trace
@@ -82,17 +83,17 @@ one):
    the initial gray.  Then `-i 12` into the same out_dir resumes from
    iteration 11 and runs that one step; the checkpoints are deleted;
 13. pass 1, the pass boundary and both passes: the program on the config
-   of phase 12 without base_mesh, validation on, in
-   chiprun_out/train_two_pass/ (pass 1 on the DMTet Kuhn grid 64, 98,304
-   triangle slots, with the default hash grid and its 32-wide MLP, 20
-   iterations and 8 dmtet_validate views; the bake at 512x512; pass 2 on
-   the baked mesh, 20 iterations, 16 views).  Relayed and printed: each
+   of phase 12 without base_mesh, no validation (phase 15's program runs
+   both), in chiprun_out/train_two_pass/ (pass 1 on the DMTet Kuhn grid
+   64, 98,304 triangle slots, with the default hash grid and its 32-wide
+   MLP, 20 iterations; the bake at 512x512; pass 2 on the baked mesh, 20
+   iterations).  Relayed and printed: each
    pass's median ms per step and launches per step (as in phase 6), the
    surface triangles against the slots at the end of pass 1 and every
-   overflow warning, the boundary (check_boundary, as in phase 14), s per
-   view of each validation, every probe's PSNR and seconds, peak device
-   memory.  Checks: losses and PSNRs finite, both metrics.txt,
-   dmtet_mesh/ and mesh/ read back, pass 2's mesh the baked one.  Then, in this process, one
+   overflow warning, the boundary (check_boundary, as in phase 14), every
+   probe's PSNR and seconds, peak device memory.  Checks: losses and
+   PSNRs finite, dmtet_mesh/ and mesh/ read back, pass 2's mesh the
+   baked one.  Then, in this process, one
    recorded pass-1 step at batch 4 (iteration PASS1_IT) holds every
    kernel of the step against its plain version (every row scatter
    launch; the hash-grid table's, 268 M rows of C = 2, also with the
@@ -105,23 +106,24 @@ one):
    the program on configs/nerf_spot_synth_g64.json as shipped
    (data/nerf_synthetic_spot, batch 8 in micro-steps of 1, 800x800,
    n_samples 8, 1024x1024 textures, DMTet grid 64 at mesh_scale 2.4, the
-   white background, four display layers) but NERF_ITERS iterations a
-   pass and no validation, in chiprun_out/train_nerf_grid_64/ (cleared
+   white background, four display layers) but NERF_ITERS iteration a
+   pass, both validations on a copy of the scene whose test split is its
+   first view (NERF_VIEWS), in chiprun_out/train_nerf_grid_64/ (cleared
    first).  Relayed and printed: each pass's median ms per step,
    micro-steps and launches per step, the surface triangles against the
-   98,304 slots and every overflow warning, the boundary, the probes,
-   peak device memory.  Checks: losses and PSNRs finite, 8 micro-steps a
-   step, every kernel but the mask and the trace launched, peak memory
+   98,304 slots and every overflow warning, the boundary, the probes, s
+   per view and PSNR of both validations, peak device memory.  Checks:
+   losses and PSNRs finite, both metrics.txt, 8 micro-steps a
+   step, every kernel but the mask launched, peak memory
    under the card's, and the boundary (check_boundary): the bake holds
    every surface triangle pass 1 ends with less the prune's drops, read
    back from dmtet_mesh/, no face of zero area, covered kd and ks texels,
    and mesh/ exports that many triangles;
 15. the NeRF scene at grid 128: the program on configs/nerf_spot_synth.json
    as shipped (grid 128: 12,582,912 tets, 393,216 triangle slots) but
-   NERF_G128_ITERS iteration a pass, no probe (phase 14 runs the NeRF
-   probes), both validations on a copy of the scene whose test split is
-   its first view (NERF_VIEWS), in chiprun_out/train_nerf_grid_128/,
-   with phase 14's lines and checks and both metrics.txt files.
+   NERF_G128_ITERS iteration a pass, no probe and no validation (phase
+   14's program runs both at grid 64), in chiprun_out/train_nerf_grid_128/,
+   with phase 14's lines and checks.
    Then, in this process: the grid's set-up seconds and resident
    bytes and the init's surface triangles against the slots; the peak
    memory of one micro-step and of an unsplit batch of 2 (the unsplit
@@ -131,10 +133,7 @@ one):
    memory and its triangle tests per ray on 65,536 of stratum 0's shadow
    rays; the whole unpruned surface (marching tets in buffers sized to
    it, as the pass boundary extracts, 4.9 M triangles at leaf 1024) holds
-   the trace against its plain version on those rays; one validation view
-   (the first test view, 800x800, n_samples 32) on that pass-1 state,
-   whose first stratum holds sample and trace against their plain
-   versions (the DMTet mesh with its padded slots); last one pass-2
+   the trace against its plain version on those rays; last one pass-2
    micro-step on the program's bake, read back, whose trace + shade is
    held against its plain version at the leaf size the program chose;
 16. transparency: the program on configs/nerfactor_drums.json with
@@ -178,6 +177,31 @@ one):
    its backward's launches on strata 0 and 288 against their plain
    versions; after them a kernel-only trace of one more such step (its
    device time, idle share and device events a stratum);
+18. configs/nerd_gold.json's LLFF path (NeRD's real captures: JPEG images
+   and masks) on the repo's capture data/llff_spot_synth/ (24 views at
+   800x600): the scene decoded by the port's JPEG decoder (its seconds;
+   the decoded uint8 scene's sha256 equal to the one the CPU tests pin
+   under imageio), the LLFF dataset's load, and in this process at
+   nerd_gold's keys (grid 128 at mesh_scale 2.5, 512x512, n_samples 12,
+   so n2 = 144) the peak memory of one pass-1 micro-step and of an
+   unsplit batch of 2, batch 8 reckoned from them, and the micro-batch
+   the program gets (the largest of 8, 4, 2, 1 whose reckoned step and
+   the state stay within NERD_MEMORY_SHARE of the card); one recorded
+   micro-step whose every kernel launch is held against its plain
+   version, with the triangles the resolve gives the whole screen; the
+   capture's first view at its native 600x800 (n_samples 32) on that
+   grid-128 DMTet state, with its padded triangle slots, whose first
+   stratum holds sample and trace against their plain versions; then
+   the program (nerd_gold.json with --ref_mesh data/llff_spot_synth,
+   NERD_ITERS iteration a pass, no probe, no validation, that
+   --micro-batch) through nerf_program, in chiprun_out/train_nerd_gold/,
+   with phase 14's checks of the log, launches, memory and boundary;
+   then one validation view
+   of the bake at the capture's native 800x600 (train.validate,
+   max_frames=1, the config's display layers) whose resolve and first
+   stratum's sample and trace are held against their plain versions,
+   with the whole-screen triangles; last a 24x32 frame (24 high, 32
+   wide) through the kernels against the plain versions on the CPU;
 7. with --profile only: torch.profiler over 4 more frames and over 4 more
    training steps; prints device time by kernel, launches and host gaps,
    and writes the full tables to chiprun_out/profile_port.txt and
@@ -196,15 +220,18 @@ its launches in phase 12's program and per step there, in phase 13's
 program and per pass-1 step there, in phase 14's and phase 15's programs
 and per pass-1 step there, per grid-128 micro-step and, for the step's
 kernels, its check at batch 4, at pass 1's batch 4 and at the grid-128
-micro-step, for sample and trace at the grid-128 validation stratum, for
-the trace on the whole grid-128 surface, and for trace + shade at the
-grid-128 bake; its launches in phase 16's program and per 8-layer
-micro-step, its check at each layer of that micro-step (the scatter: all
+micro-step, for the trace on the whole grid-128 surface, and for trace +
+shade at the grid-128 bake; its launches in phase 16's program and per
+8-layer micro-step, its check at each layer of that micro-step (the scatter: all
 its launches), for sample and trace at stratum 0 of each layer of the
 8-layer validation view, and for the resolve at the 8 peel layers of
 spot256; its launches in phase 17's program and per step there, per
 options step and per loop step, its check in the options step's
-decorrelated backward and on the loop backward's strata 0 and 288; the
+decorrelated backward and on the loop backward's strata 0 and 288; its
+launches in phase 18's program and per pass-1 step there and per
+nerd_gold micro-step, its check at that micro-step, for sample and
+trace at the 600x800 view of the grid-128 DMTet state and, for resolve,
+sample and trace, at the 600x800 view of the bake; the
 one-buffer denoiser's two rows from the options step; the row scatter's
 entry is its largest launch, with every launch of the step and their
 summed time and bound beside it, and pass 1's hash-grid launch with the
@@ -242,14 +269,12 @@ STEP_LAUNCHES = {'resolve': 1, 'sample_guide': 1, 'sample': 2,
 OPTION_KERNELS = ('denoise_one', 'denoise_one_grad')
 TRACER_RAYS = 2 ** 21   # bench.py's bench_tracer
 RESOLVE_MAX_LAUNCHES = 10   # kernels of one rasterize call up to the resolve
-VAL_FRAMES = 2
+VAL_FRAMES = 1
 VAL_N = 32              # the reference validation protocol's n_samples
 SMALL_VAL_N = 17        # phase 10's: 289 strata, past the fused path's 256,
                         # so the stratum loop runs
 PROGRAM_ITERS = 20
-PROGRAM_VIEWS = 16      # main()'s validation views
 PROGRAM_TIMEOUT = 600   # seconds for each run of the program
-DMTET_VIEWS = 8         # main()'s validation views after pass 1
 PASS1_IT = 3            # the recorded pass-1 step's iteration
 PASS1_STEPS = 4         # pass-1 steps timed in this process
 NERF_CONFIG = os.path.join('configs', 'nerf_spot_synth_g64.json')
@@ -257,10 +282,10 @@ NERF_TRAIN = os.path.join('data', 'nerf_synthetic_spot',
                           'transforms_train.json')
 NERF_TEST = os.path.join('data', 'nerf_synthetic_spot',
                          'transforms_test.json')
-NERF_ITERS = 2          # iterations a pass of phase 14's program
+NERF_ITERS = 1          # iterations a pass of phase 14's program
 NERF_G128_CONFIG = os.path.join('configs', 'nerf_spot_synth.json')
 NERF_G128_ITERS = 1     # iterations a pass of phase 15's program
-NERF_VIEWS = 1          # phase 15's test split: the first of the 4 views
+NERF_VIEWS = 1          # phase 14's test split: the first of the 4 views
 NERF_TIMEOUT = 700      # seconds for the program of phase 14, 15 or 16
 TRANSPARENCY_CONFIG = os.path.join('configs', 'nerfactor_drums.json')
 TRANSPARENCY_ITERS = 1  # iterations a pass of phase 16's program
@@ -269,6 +294,12 @@ TRANSPARENCY_ITERS = 1  # iterations a pass of phase 16's program
 # and shading, and the config sets batch 8 and no micro_batch)
 TRANSPARENCY_MICRO_BATCH = 4
 PEEL_LAYERS = 8         # transparency's pass 2 and its validation
+NERD_CONFIG = os.path.join('configs', 'nerd_gold.json')
+LLFF_SCENE = os.path.join('data', 'llff_spot_synth')
+NERD_ITERS = 1          # iterations a pass of phase 18's program
+NERD_MEMORY_SHARE = 0.9  # of the card that phase 18's reckoned step may
+                         # take with the state (the reckoning came within
+                         # 1% of the program's peak, PERF.md section 6)
 SMEM_PER_SM = 233472    # shared memory of an H100 SM (1 KB of it per block
                         # is reserved)
 
@@ -320,24 +351,25 @@ def check_buffers(buf, res):
     return coverage, mean_col
 
 
-def small_agreement(device):
-    """64x64, n_samples 2: kernels on the card vs plain versions on the
-    CPU, same scene, cameras and uniforms."""
+def small_agreement(device, res=(64, 64), n=2):
+    """A res[0] x res[1] frame (height x width; a non-square one has a
+    camera of that aspect) at n_samples n: kernels on the card vs plain
+    versions on the CPU, same scene, cameras and uniforms."""
     import torch
     from nvdiffrecmc_tpu_torch.dataset.dataset_mesh import (DatasetMesh,
                                                             spot256_scene)
     from nvdiffrecmc_tpu_torch.geometry import DLMesh
     from nvdiffrecmc_tpu_torch.ops import pallas_shade
     from nvdiffrecmc_tpu_torch.render import render as render_mod
-    res, n = 64, 2
+    H, W = res
     shaded = {}
     gen = torch.Generator()
     gen.manual_seed(7)
-    uniforms = pallas_shade.make_uniforms(gen, n * n, res * res, n,
+    uniforms = pallas_shade.make_uniforms(gen, n * n, H * W, n,
                                           device='cpu')
     for dev in (device, 'cpu'):
         mesh = spot256_scene(dev)
-        FLAGS = flags(res, n)
+        FLAGS = dict(flags(H, n), train_res=[H, W])
         ds = DatasetMesh(mesh, CAM_RADIUS, FLAGS, seed=3)
         geometry = DLMesh(ds.ref_mesh, FLAGS)
         _, mvp, campos, r = ds._random_scene()
@@ -348,15 +380,19 @@ def small_agreement(device):
             buf = render_mod.render_mesh(
                 FLAGS, m, torch.as_tensor(mvp, device=dev),
                 torch.as_tensor(campos, device=dev), ds.lgt, r, bvh, ds.perms,
-                g, msaa=True, background=torch.ones((1, res, res, 3),
+                g, msaa=True, background=torch.ones((1, H, W, 3),
                                                     device=dev),
                 denoiser_sigma=SIGMA, uniforms=[uniforms.to(dev)])
         shaded[dev] = buf['shaded'].cpu()
+    coverage = float((shaded['cpu'][..., 3] > 0).float().mean())
+    if tuple(shaded['cpu'].shape) != (1, H, W, 4) or coverage <= 0.05:
+        raise RuntimeError('%dx%d render of shape %s covers %.4f'
+                           % (H, W, tuple(shaded['cpu'].shape), coverage))
     diff = (shaded[device] - shaded['cpu']).abs().amax(-1)
     share = float((diff <= 1e-3).float().mean())
     if share < 0.99:
-        raise RuntimeError('64x64 render: only %.4f of pixels within 1e-3 '
-                           'of the plain CPU render' % share)
+        raise RuntimeError('%dx%d render: only %.4f of pixels within 1e-3 '
+                           'of the plain CPU render' % (H, W, share))
     return share, float(diff.max())
 
 
@@ -1362,45 +1398,41 @@ def pass1_checks(device):
 
 def two_pass_program():
     """Phase 13, the program: configs/spot.json's keys with no base_mesh,
-    PROGRAM_ITERS iterations in each pass, a probe and a checkpoint every
-    10, validation on (DMTET_VIEWS views after pass 1, PROGRAM_VIEWS after
-    pass 2), in chiprun_out/train_two_pass/.  Returns (the kernel launches
-    of the run, per pass-1 step)."""
+    PROGRAM_ITERS iterations in each pass, a checkpoint every 10, no probe
+    and no validation (phase 14's program runs both validations, phase 12
+    its probes), in
+    chiprun_out/train_two_pass/.  Returns (the kernel launches of the
+    run, per pass-1 step)."""
     import re
     import torch
     here = os.path.dirname(os.path.abspath(__file__))
     work = os.path.join(here, 'chiprun_out', 'train_two_pass')
     shutil.rmtree(work, ignore_errors=True)
-    cfg = program_setup(work, base_mesh=False, validate=True)
+    cfg = program_setup(work, base_mesh=False)
     torch.cuda.empty_cache()
-    lines = run_program(['--config', cfg], os.path.join(work, 'run.log'))
-    relay = ('iter=', '[probe]', 'WARNING', 'MSE', 'peak device memory',
-             'dmtet_pass1:', 'dmtet_validate:', 'prune_small', 'pass '
-             'boundary:', 'Base mesh', 'mesh_pass:', 'validation:',
-             'export:')
-    for i, ln in enumerate(lines):
-        if ln.startswith(relay) or (i and lines[i - 1].startswith('MSE')):
+    lines = run_program(['--config', cfg, '-si', '0'],
+                        os.path.join(work, 'run.log'))
+    relay = ('iter=', '[probe]', 'WARNING', 'peak device memory',
+             'dmtet_pass1:', 'prune_small', 'pass boundary:', 'Base mesh',
+             'mesh_pass:', 'export:')
+    for ln in lines:
+        if ln.startswith(relay):
             print('two passes | ' + ln, flush=True)
-    psnrs, probe_s = check_program_log(lines, 2)
+    check_program_log(lines, 2, PROGRAM_ITERS, 0)
     med1, per_step1 = pass_summary(lines, 'dmtet_pass1')
     med2, per_step2 = pass_summary(lines, 'mesh_pass')
     tris = [x for x in _after(lines, 'dmtet_pass1: ') if 'slots' in x][0]
     boundary = _after(lines, 'pass boundary: ')[0]
     launches = json.loads(_after(lines, 'kernel launches: ')[0])
     peak = float(_after(lines, 'peak device memory: ')[0].split()[0])
-    val1 = float(_after(lines, 'dmtet_validate: ')[0].split()[0])
-    val2 = float(_after(lines, 'validation: ')[0].split()[0])
     secs = dict(re.findall(r'(extract|prune|unwrap|bake) ([\d.]+) s',
                            boundary))
     print('two passes: pass 1 median %.3f ms per step, pass 2 %.3f ms (batch '
           '4, %d steps each); pass 1 ends with %s; boundary: extract %s s, '
-          'prune %s s, unwrap %s s, bake %s s; %.3f s per dmtet_validate '
-          'view, %.3f s per validation view; probes PSNR %s dB, %s s; peak '
-          'device memory %.3f GiB (%s)'
-          % (med1, med2, PROGRAM_ITERS, tris, secs['extract'],
-             secs['prune'], secs['unwrap'], secs['bake'], val1 / DMTET_VIEWS,
-             val2 / PROGRAM_VIEWS, psnrs, probe_s, peak, smi_line()),
-          flush=True)
+          'prune %s s, unwrap %s s, bake %s s; peak device memory %.3f GiB '
+          '(%s)' % (med1, med2, PROGRAM_ITERS, tris, secs['extract'],
+                    secs['prune'], secs['unwrap'], secs['bake'], peak,
+                    smi_line()), flush=True)
     print('two passes: kernel launches %s; per pass-1 step %s; per pass-2 '
           'step %s' % (launches, per_step1, per_step2), flush=True)
     check_step_launches(per_step1, 'pass 1')
@@ -1409,14 +1441,11 @@ def two_pass_program():
         print('two passes: WARNING, marching tets overflowed at the end of '
               'pass 1', flush=True)
     out = os.path.join(work, 'spot')
-    avg1 = check_metrics(os.path.join(out, 'dmtet_validate'), DMTET_VIEWS)
-    avg2 = check_metrics(os.path.join(out, 'validate'), PROGRAM_VIEWS)
     mesh1, _ = check_boundary(lines, out, 'two passes')
     _, mesh2, _ = check_mesh_dir(os.path.join(out, 'mesh'))
-    print('two passes: dmtet_validate %s; validate %s; dmtet_mesh/ %d '
-          'triangles, %d vertices; mesh/ %d triangles'
-          % (avg1, avg2, mesh1.t_pos_idx.shape[0], mesh1.v_pos.shape[0],
-             mesh2.t_pos_idx.shape[0]), flush=True)
+    print('two passes: dmtet_mesh/ %d triangles, %d vertices; mesh/ %d '
+          'triangles' % (mesh1.t_pos_idx.shape[0], mesh1.v_pos.shape[0],
+                         mesh2.t_pos_idx.shape[0]), flush=True)
     if mesh1.t_pos_idx.shape[0] == 0 or \
             mesh2.t_pos_idx.shape[0] != mesh1.t_pos_idx.shape[0]:
         raise RuntimeError('the baked mesh is empty or pass 2 changed it')
@@ -1467,37 +1496,45 @@ def nerf_setup(work, config, iters, validate, ref_mesh=None, probes=True):
     return path
 
 
-def nerf_program(config, iters, validate, label, probes=True):
-    """Phases 14 and 15, the program: config (a NeRF config of the
-    spot scene) as nerf_setup writes it (without its probes unless
-    probes), in chiprun_out/train_<label>/
-    (spaces as underscores; cleared first); with validate, on
-    nerf_one_test_view's copy of the scene, so that each validation
-    renders NERF_VIEWS view.  Relays and prints each
-    pass's median ms per step, micro-steps and launches per step, the
-    surface triangles at the end of pass 1 and every overflow warning,
-    the boundary (check_boundary), s per view and PSNR of both
-    validations when validate, the probes and peak device memory; checks
-    losses and PSNRs finite, both metrics.txt, mesh/ read back with the
-    bake's triangles, every kernel but the mask launched (the trace only
-    in validation), peak memory under the card's.  Returns a dict: the
-    config's path, the kernel launches of the run, per pass-1 step and
-    per pass-2 step, the bake's OBJ and its pass-2 leaf size."""
+def nerf_program(config, iters, validate, label, probes=True, ref_mesh=None,
+                 micro_batch=None):
+    """Phases 14, 15 and 18, the program: config (a NeRF or LLFF config of
+    the spot scene) as nerf_setup writes it (without its probes unless
+    probes; with ref_mesh when given), in chiprun_out/train_<label>/
+    (spaces as underscores; cleared first), with --micro-batch
+    micro_batch when given; with validate, on nerf_one_test_view's copy
+    of the scene, so that each validation renders NERF_VIEWS view.
+    Relays and prints each pass's median ms per step, micro-steps and
+    launches per step, the surface triangles at the end of pass 1 and
+    every overflow warning, the boundary (check_boundary), s per view and
+    PSNR of both validations when validate, the probes and peak device
+    memory; checks losses and PSNRs finite, both metrics.txt, batch /
+    micro_batch micro-steps a step, mesh/ read back with the bake's
+    triangles, every kernel but the mask launched (the trace only in
+    validation), peak memory under the card's.  Returns a dict: the
+    argv, the kernel launches of the run, per pass-1 step and per pass-2
+    step, each pass's median ms per step, the peak memory, the bake's OBJ
+    and its pass-2 leaf size."""
     import re
     import torch
+    from nvdiffrecmc_tpu_torch import config as config_mod
     here = os.path.dirname(os.path.abspath(__file__))
     work = os.path.join(here, 'chiprun_out',
                         'train_' + label.replace(' ', '_'))
     shutil.rmtree(work, ignore_errors=True)
-    cfg = nerf_setup(work, config, iters, validate,
-                     nerf_one_test_view() if validate else None, probes)
-    with open(cfg) as f:
-        grid = json.load(f)['dmtet_grid']
+    if ref_mesh is None and validate:
+        ref_mesh = nerf_one_test_view()
+    cfg = nerf_setup(work, config, iters, validate, ref_mesh, probes)
+    argv = ['--config', cfg]
+    if micro_batch is not None:
+        argv += ['--micro-batch', str(micro_batch)]
+    F = config_mod.parse_flags(argv)
+    n_micro = config_mod.micro_slices(F)
     torch.cuda.empty_cache()
-    lines = run_program(['--config', cfg], os.path.join(work, 'run.log'),
+    lines = run_program(argv, os.path.join(work, 'run.log'),
                         timeout=NERF_TIMEOUT)
-    relay = ('DatasetNERF', 'iter=', '[probe]', 'WARNING', 'MSE',
-             'peak device memory', 'dmtet_pass1:', 'dmtet_validate:',
+    relay = ('DatasetNERF', 'DatasetLLFF', 'iter=', '[probe]', 'WARNING',
+             'MSE', 'peak device memory', 'dmtet_pass1:', 'dmtet_validate:',
              'prune_small', 'pass boundary:', 'Base mesh', 'mesh_pass:',
              'validation:', 'export:')
     for i, ln in enumerate(lines):
@@ -1526,19 +1563,20 @@ def nerf_program(config, iters, validate, label, probes=True):
                      val2 / NERF_VIEWS,
                      check_metrics(os.path.join(out, 'validate'),
                                    NERF_VIEWS)))
-    print('%s: pass 1 median %.3f ms per step, pass 2 %.3f ms (batch 8 in '
-          '%s micro-steps, 800x800, n_samples 8, grid %d, %d steps each); '
+    print('%s: pass 1 median %.3f ms per step, pass 2 %.3f ms (batch %d in '
+          '%s micro-steps, %dx%d, n_samples %d, grid %d, %d steps each); '
           'pass 1 ends with %s; %d overflow lines; %s; probes PSNR %s dB, %s '
           's; peak device memory %.3f GiB of the card\'s %.3f (%s)'
-          % (label, med1, med2, micro, grid, iters, tris, overflows, views,
+          % (label, med1, med2, F['batch'], micro, *F['train_res'],
+             F['n_samples'], F['dmtet_grid'], iters, tris, overflows, views,
              psnrs, probe_s, peak, card, smi_line()), flush=True)
     print('%s: kernel launches %s; per pass-1 step %s; per pass-2 step %s'
           % (label, launches, per_step1, per_step2), flush=True)
-    if micro != [8, 8]:
-        raise RuntimeError('%s: micro-steps per step %s, not 8'
-                           % (label, micro))
-    check_step_launches(per_step1, label + ' pass 1', 8)
-    check_step_launches(per_step2, label + ' pass 2', 8)
+    if micro != [n_micro, n_micro]:
+        raise RuntimeError('%s: micro-steps per step %s, not %d'
+                           % (label, micro, n_micro))
+    check_step_launches(per_step1, label + ' pass 1', n_micro)
+    check_step_launches(per_step2, label + ' pass 2', n_micro)
     unused = (('mask',) if validate else ('mask', 'trace')) + OPTION_KERNELS
     idle = [n for n, c in launches.items() if c == 0 and n not in unused]
     if idle:
@@ -1553,8 +1591,8 @@ def nerf_program(config, iters, validate, label, probes=True):
     if mesh2.t_pos_idx.shape[0] != mesh1.t_pos_idx.shape[0]:
         raise RuntimeError('%s: pass 2 changed the baked mesh' % label)
     drop_checkpoints(out)
-    return dict(cfg=cfg, launches=launches, per_step1=per_step1,
-                per_step2=per_step2,
+    return dict(argv=argv, launches=launches, per_step1=per_step1,
+                per_step2=per_step2, med1=med1, med2=med2, peak=peak,
                 bake=os.path.join(out, 'dmtet_mesh', 'mesh.obj'), leaf=leaf)
 
 
@@ -1630,12 +1668,11 @@ def nerf_g128_checks(device, cfg, bake_obj, leaf):
     time, the walk's shared memory and its triangle tests per ray; the
     whole unpruned surface, extracted as the boundary extracts it, holds
     the trace against its plain version on 65,536 of stratum 0's shadow
-    rays at the leaf size bvh.build picks; nerf_view_checks on that
-    state; last one pass-2 micro-step on the program's count-sized bake
-    (bake_obj, read back) holds trace + shade against its plain version
-    at the leaf size the program chose (leaf).  Returns (the checks,
-    launches per micro-step, the whole surface's trace check,
-    nerf_view_checks' checks, the pass-2 trace + shade check)."""
+    rays at the leaf size bvh.build picks; last one pass-2 micro-step on
+    the program's count-sized bake (bake_obj, read back) holds trace +
+    shade against its plain version at the leaf size the program chose
+    (leaf).  Returns (the checks, launches per micro-step, the whole
+    surface's trace check, the pass-2 trace + shade check)."""
     import torch
     from nvdiffrecmc_tpu_torch import checks, config, kernels, train
     from nvdiffrecmc_tpu_torch.dataset import DatasetNERF
@@ -1739,8 +1776,6 @@ def nerf_g128_checks(device, cfg, bake_obj, leaf):
         raise RuntimeError('trace disagrees with its plain version on the '
                            'whole grid-128 surface')
     del whole, bvh_w, ro, rd
-    at_view = nerf_view_checks(device, FLAGS, geometry, p, static,
-                               'nerf grid 128')
 
     # pass 2 on the program's count-sized bake
     bake = obj_mod.load_obj(bake_obj, device=device)
@@ -1770,13 +1805,14 @@ def nerf_g128_checks(device, cfg, bake_obj, leaf):
     if not r2['ok']:
         raise RuntimeError('trace + shade disagrees with its plain version '
                            'on the grid-128 bake')
-    return out, per_micro, r_w, at_view, r2
+    return out, per_micro, r_w, r2
 
 
 def nerf_view_checks(device, FLAGS, geometry, p, static, label,
-                     state='the pass-1 state'):
-    """train.render_eval of the first NeRF test view (800x800, n_samples
-    32) at FLAGS['layers'] depth-peel layers on the state p: its seconds
+                     state='the pass-1 state', ds=None):
+    """train.render_eval of the first view of ds (by default the NeRF test
+    split, 800x800) at its own size, n_samples 32, at FLAGS['layers']
+    depth-peel layers on the state p: its seconds
     and launches (sample and trace once a stratum of each layer), finite
     buffers, and sample and trace on the first stratum of each layer
     (the launches of layer i's stratum 0, i 1,024 launches in) against
@@ -1789,7 +1825,8 @@ def nerf_view_checks(device, FLAGS, geometry, p, static, label,
     from nvdiffrecmc_tpu_torch.dataset import DatasetNERF
     here = os.path.dirname(os.path.abspath(__file__))
     layers = FLAGS['layers']
-    ds = DatasetNERF(os.path.join(here, NERF_TEST), FLAGS, device=device)
+    if ds is None:
+        ds = DatasetNERF(os.path.join(here, NERF_TEST), FLAGS, device=device)
     batch = ds.collate([ds[0]])
     target = train.prepare_batch(batch, tuple(batch['img'].shape[1:3]),
                                  FLAGS['background'], None, FLAGS)
@@ -1837,7 +1874,7 @@ def nerf_view_checks(device, FLAGS, geometry, p, static, label,
         raise RuntimeError('sample or trace disagrees with its plain version '
                            'on the %s validation stratum 0 of layers %s'
                            % (label, bad))
-    return dict(out[0], layers=out)
+    return dict(out[0], layers=out, seconds=sec)
 
 
 # ---------------------------------------------------------------------------
@@ -2379,6 +2416,247 @@ def options_checks(device, base_obj):
         loop_device_events_per_stratum=events / n2)
 
 
+# ---------------------------------------------------------------------------
+# Phase 18: configs/nerd_gold.json's LLFF path (JPEG images and masks) on
+# data/llff_spot_synth/, 800x600 views
+# ---------------------------------------------------------------------------
+
+def nerd_setup_checks(device, cfg):
+    """Phase 18, in this process, before the program: the scene decoded
+    (the port's decoder; its seconds, and the decoded uint8 scene's
+    sha256 against the one the CPU tests pin under imageio), the LLFF
+    dataset's load, the grid-128 DMTet geometry at nerd_gold's mesh_scale
+    2.5; the peak memory of one pass-1 micro-step (one 512x512 view, n2 =
+    144) and of an unsplit batch of 2, batch 8 reckoned from them, and
+    the micro-batch the program gets: the largest of 8, 4, 2, 1 whose
+    reckoned step keeps the state and the step within NERD_MEMORY_SHARE
+    of the card; one recorded micro-step (iteration PASS1_IT) whose every
+    kernel launch is held against its plain version (micro_step_checks),
+    with the triangles the resolve gives the whole screen; then the
+    capture's first view at its native 600x800 on that grid-128 DMTet
+    state (nerf_view_checks: the padded triangle slots, sample and trace
+    on its first stratum against their plain versions).  Returns
+    (micro-batch, the checks, launches per micro-step, the view's checks,
+    a dict of the numbers printed)."""
+    import torch
+    from nvdiffrecmc_tpu_torch import checks, config, jpeg, kernels, train
+    from nvdiffrecmc_tpu_torch.dataset import DatasetLLFF
+    from nvdiffrecmc_tpu_torch.dataset import dataset_llff
+    from nvdiffrecmc_tpu_torch.geometry import DMTetGeometry
+    from nvdiffrecmc_tpu_torch.ops import envshade
+    from nvdiffrecmc_tpu_torch.render import light as light_mod
+    here = os.path.dirname(os.path.abspath(__file__))
+    label = 'nerd gold'
+    scene = os.path.join(here, LLFF_SCENE)
+    jpeg.lib()      # built with g++ at first use: not part of the decode
+    t0 = time.perf_counter()
+    sha = dataset_llff.decoded_sha256(scene)
+    decode_s = time.perf_counter() - t0
+    n_files = 2 * len(dataset_llff._list_images(os.path.join(scene,
+                                                             'images')))
+    print('%s decode: %d JPEG files (images 4:2:0, masks grayscale) in '
+          '%.3f s with the port\'s decoder; the decoded scene\'s sha256 %s, '
+          'imageio\'s on the CPU %s: %s'
+          % (label, n_files, decode_s, sha, dataset_llff.SPOT_SYNTH_SHA256,
+             'equal' if sha == dataset_llff.SPOT_SYNTH_SHA256 else 'DIFFER'),
+          flush=True)
+    if sha != dataset_llff.SPOT_SYNTH_SHA256:
+        raise RuntimeError('the decoded LLFF scene differs from imageio\'s')
+    FLAGS = config.parse_flags(['--config', cfg])
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    ds = DatasetLLFF(scene, FLAGS, device=device)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    geometry = DMTetGeometry(FLAGS['dmtet_grid'], FLAGS['mesh_scale'], FLAGS,
+                             max_tris=FLAGS['max_tris'], device=device)
+    mat_params, static = train.initial_guess_material(geometry, True, FLAGS,
+                                                      device=device)
+    static['no_perturbed_nrm'] = True
+    light = light_mod.create_trainable_env_rnd(FLAGS['probe_res'], 0.0, 0.5,
+                                               device=device)
+    p = train.make_params(geometry, mat_params, light)
+    loss_fn = train.createLoss(FLAGS)
+    perms = envshade.make_perms(FLAGS['n_samples'], device=device)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(43)
+    batch = train.prepare_batch(ds.collate([ds[i] for i in range(8)]),
+                                FLAGS['train_res'], FLAGS['background'], gen,
+                                FLAGS)
+    target = {k: batch[k] for k in ('img', 'mvp', 'campos', 'background')}
+    one = train.batch_slice(target, 0, 8)
+    n0, cap = geometry.tri_count(p['geo'])
+    torch.cuda.synchronize()
+    state = (torch.cuda.memory_allocated() - before) / 2 ** 30
+    card = torch.cuda.get_device_properties(0).total_memory / 2 ** 30
+
+    def grads(t):
+        train.clear_grads(p)
+        return train.compute_grads(geometry, p, static, t, PASS1_IT, FLAGS,
+                                   loss_fn, perms, gen)
+    peak1 = _peak_gib(lambda: grads(one))
+    peak2 = _peak_gib(lambda: grads(train.batch_slice(target, 0, 4)))
+
+    def reckoned(m):
+        return peak1 + (m - 1) * (peak2 - peak1)
+    fits = [m for m in (8, 4, 2, 1)
+            if state + reckoned(m) <= NERD_MEMORY_SHARE * card]
+    micro = fits[0] if fits else 1
+    print('%s memory: the state (the grid-%d geometry, %d views on the card, '
+          'the parameters) %.3f GiB; one pass-1 micro-step (batch 1, %dx%d, '
+          'n2 = %d) %.3f GiB above it, an unsplit batch of 2 %.3f GiB; '
+          'reckoned (peak(1) + (m - 1) (peak(2) - peak(1))): batch 8 unsplit '
+          '%.3f GiB, micro-batch 4 %.3f, 2 %.3f; the largest that keeps the '
+          'state and the step within %.0f%% of the card\'s %.3f GiB: '
+          '--micro-batch %d (%s)'
+          % (label, FLAGS['dmtet_grid'], len(ds), state,
+             *FLAGS['train_res'], FLAGS['n_samples'] ** 2, peak1, peak2,
+             reckoned(8), reckoned(4), reckoned(2), 100 * NERD_MEMORY_SHARE,
+             card, micro, smi_line()), flush=True)
+    kernels.reset_launches()
+    with checks.Recorder() as rec, FullScreenCount() as fs:
+        il, rl = grads(one)
+        torch.cuda.synchronize()
+    per_micro = dict(kernels.LAUNCHES)
+    check_step(p, il, rl)
+    check_step_launches(per_micro, label + ' micro-step')
+    print('%s micro-step: img_loss %.5f, reg_loss %.5f; the init\'s surface '
+          '%d triangles in %d slots (%.2fx); triangles with a vertex at w <= '
+          '1e-6 (the whole screen in the resolve) %s; launches %s (%s)'
+          % (label, float(il), float(rl), n0, cap, n0 / cap, fs.counts,
+             per_micro, smi_line()), flush=True)
+    out = micro_step_checks(rec, label + ' micro-step')
+    del rec
+    torch.cuda.empty_cache()
+    at_view = nerf_view_checks(device, FLAGS, geometry, p, static, label,
+                               ds=ds)
+    info = dict(decode_s=decode_s, dataset_load_s=load_s, state_gib=state,
+                micro_step_gib=peak1, batch_2_gib=peak2,
+                batch_8_reckoned_gib=reckoned(8), micro_batch=micro,
+                init_triangles=n0, slots=cap,
+                fullscreen_micro_step=fs.counts)
+    del p, geometry, ds, batch, target, one
+    torch.cuda.empty_cache()
+    return micro, out, per_micro, at_view, info
+
+
+def nerd_view_checks(device, prog):
+    """Phase 18, in this process, on the program's bake (dmtet_mesh/, read
+    back): train.validate of the capture's first view at its native
+    800x600 (max_frames=1; n_samples 32, the stratum loop, and the
+    config's kd, ks and normal display layers) into
+    chiprun_out/train_nerd_gold/view/: its seconds and the process's CPU
+    seconds in them, launches (sample and
+    trace once a stratum), metrics.txt and the PNGs' shape; the view's
+    resolve, and sample and trace on its first stratum, against their
+    plain versions; the triangles the resolve gives the whole screen.
+    Returns {'resolve', 'sample', 'trace': check} and a dict of the
+    numbers printed."""
+    import torch
+    from nvdiffrecmc_tpu_torch import checks, config, kernels, train
+    from nvdiffrecmc_tpu_torch.dataset import DatasetLLFF
+    from nvdiffrecmc_tpu_torch.geometry import DLMesh
+    from nvdiffrecmc_tpu_torch.render import light as light_mod
+    from nvdiffrecmc_tpu_torch.render import obj as obj_mod
+    from nvdiffrecmc_tpu_torch.render import texture as texture_mod
+    here = os.path.dirname(os.path.abspath(__file__))
+    label = 'nerd gold view'
+    FLAGS = config.parse_flags(prog['argv'])
+    FLAGS['pre_load'] = False
+    bake = obj_mod.load_obj(prog['bake'], device=device)
+    geometry = DLMesh(bake, FLAGS)
+    mat, static = train.initial_guess_material(
+        None, False, FLAGS, init_mat=bake.material, device=device)
+    light = light_mod.create_trainable_env_rnd(FLAGS['probe_res'], 0.0, 0.5,
+                                               device=device)
+    p = train.make_params(geometry, mat, light)
+    ds = DatasetLLFF(os.path.join(here, LLFF_SCENE), FLAGS, device=device)
+    out_dir = os.path.join(os.path.dirname(os.path.dirname(prog['bake'])),
+                           'view')
+    kernels.reset_launches()
+    torch.cuda.synchronize()
+    t0, c0 = time.perf_counter(), time.process_time()
+    with torch.no_grad(), checks.Recorder(every=VAL_N * VAL_N) as rec, \
+            FullScreenCount() as fs:
+        psnr = train.validate(geometry, p['geo'], p['mat'], static,
+                              p['light'], ds, out_dir, FLAGS, max_frames=1)
+        torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    cpu = time.process_time() - c0
+    counts = dict(kernels.LAUNCHES)
+    metrics = check_metrics(out_dir, 1)
+    shapes = {}
+    for k in ('ref', 'opt', 'kd', 'ks', 'normal'):
+        shapes[k] = texture_mod.read_image(os.path.join(
+            out_dir, 'val_000000_%s.png' % k)).shape[:2]
+    want = VAL_N * VAL_N
+    if counts['sample'] != want or counts['trace'] != want:
+        raise RuntimeError('%s launched %s' % (label, counts))
+    if set(shapes.values()) != {(600, 800)}:
+        raise RuntimeError('%s: images of %s, not 600x800' % (label, shapes))
+    out, bad = {}, []
+    with torch.no_grad():
+        args = rec.each['resolve'][0]
+        if tuple(args[2:4]) != (600, 800):
+            raise RuntimeError('%s: resolved at %s' % (label, args[2:4]))
+        out['resolve'] = checks.check_resolve(*args, reps=2)
+        ro, rd, bvh, tmin = rec.each['trace'][0]
+        u8 = rec.each['sample'][0][0]
+        covered = ro[:u8.shape[2], 0] < 1e37
+        out['sample'] = checks.check_sample(*rec.each['sample'][0],
+                                            mask=covered, reps=2)
+        out['trace'] = checks.check_trace(ro, rd, bvh, tmin, reps=2)
+    tag = ' (%s, 600x800, stratum 0, %d pixels covered)' % (
+        label, int(covered.sum()))
+    for name, r in out.items():
+        print_compare(r, tag if name != 'resolve' else ' (%s, 600x800)'
+                      % label)
+        if not r['ok']:
+            bad.append(name)
+    print('%s on the bake (%d triangles): %.3f s, the process\'s CPU time '
+          '%.3f s in it (600x800, n_samples 32, PSNR %.3f dB; %s); launches '
+          '%s; images %s; triangles with a vertex at w <= 1e-6 per '
+          'rasterize call %s (%s)'
+          % (label, bake.t_pos_idx.shape[0], sec, cpu, psnr, metrics, counts,
+             shapes, fs.counts, smi_line()), flush=True)
+    if bad:
+        raise RuntimeError('%s: %s disagree with their plain versions'
+                           % (label, bad))
+    return out, dict(view_s=sec, view_cpu_s=cpu, view_psnr=psnr,
+                     fullscreen_view=fs.counts)
+
+
+def nerd_phase(device):
+    """Phase 18: nerd_setup_checks, then the program at the micro-batch it
+    reckons (nerf_program), nerd_view_checks on the bake, and a 24x32
+    frame (height 24, width 32) through the kernels against the plain
+    versions on the CPU (small_agreement).  Returns (the micro-step's
+    checks, launches per micro-step, the program's dict, the checks of
+    the view on the DMTet state, those of the view on the bake, a dict of
+    the numbers printed)."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    work = os.path.join(here, 'chiprun_out', 'train_nerd_gold')
+    shutil.rmtree(work, ignore_errors=True)
+    cfg = nerf_setup(work, NERD_CONFIG, NERD_ITERS, False, LLFF_SCENE,
+                     probes=False)
+    micro, at_micro, per_micro, at_dmtet_view, info = nerd_setup_checks(
+        device, cfg)
+    prog = nerf_program(NERD_CONFIG, NERD_ITERS, False, 'nerd gold',
+                        probes=False, ref_mesh=LLFF_SCENE, micro_batch=micro)
+    at_view, view_info = nerd_view_checks(device, prog)
+    share, worst = small_agreement(device, (24, 32), 2)
+    print('24x32 render (height 24, width 32, n_samples 2) vs plain CPU '
+          'render: %.4f of pixels within 1e-3 (max %.3e)' % (share, worst),
+          flush=True)
+    info.update(view_info, dmtet_view_s=at_dmtet_view['seconds'],
+                program_pass1_ms=prog['med1'],
+                program_pass2_ms=prog['med2'], program_peak_gib=prog['peak'],
+                non_square_share=share, non_square_max_err=worst)
+    print('nerd gold: %s' % json.dumps(info), flush=True)
+    return at_micro, per_micro, prog, at_dmtet_view, at_view, info
+
+
 def device_ms_per_step(run, steps):
     """Device ms per call of run(i) under a kernel-only torch.profiler
     trace of `steps` calls (after one warm-up): the sum of the device
@@ -2725,10 +3003,10 @@ def main():
 
     # 14. the NeRF scene at grid 64: both passes through the program at
     # configs/nerf_spot_synth_g64.json's width (batch 8 in micro-steps of
-    # 1, 800x800, n_samples 8), NERF_ITERS iterations a pass, no
-    # validation
+    # 1, 800x800, n_samples 8), NERF_ITERS iteration a pass, both
+    # validations on the first test view
     torch.cuda.empty_cache()
-    g64 = nerf_program(NERF_CONFIG, NERF_ITERS, False, 'nerf grid 64')
+    g64 = nerf_program(NERF_CONFIG, NERF_ITERS, True, 'nerf grid 64')
     for row in rows:
         row['launches_in_nerf_program'] = g64['launches'][row['name']]
         row['launches_per_nerf_pass1_step'] = g64['per_step1'][row['name']]
@@ -2737,16 +3015,14 @@ def main():
 
     # 15. the NeRF scene at grid 128: configs/nerf_spot_synth.json as
     # shipped through the program, NERF_G128_ITERS iteration a pass, no
-    # probe (phase 14 runs the NeRF probes), both validations on the first
-    # test view; then in this process one micro-step's kernels,
-    # the trace over the whole unpruned surface, a validation view with its
-    # first stratum's checks and a pass-2 micro-step on the program's
-    # count-sized bake
+    # probe and no validation (phase 14 runs both); then in this process
+    # one micro-step's kernels, the trace over the whole unpruned surface
+    # and a pass-2 micro-step on the program's count-sized bake
     torch.cuda.empty_cache()
-    g128 = nerf_program(NERF_G128_CONFIG, NERF_G128_ITERS, True,
+    g128 = nerf_program(NERF_G128_CONFIG, NERF_G128_ITERS, False,
                         'nerf grid 128', probes=False)
-    at_g128, g128_micro, g128_whole, at_nerf_val, g128_bake = \
-        nerf_g128_checks(device, g128['cfg'], g128['bake'], g128['leaf'])
+    at_g128, g128_micro, g128_whole, g128_bake = nerf_g128_checks(
+        device, g128['argv'][1], g128['bake'], g128['leaf'])
     for row in rows:
         name = row['name']
         row['launches_in_nerf_g128_program'] = g128['launches'][name]
@@ -2754,8 +3030,6 @@ def main():
         row['launches_per_nerf_g128_micro_step'] = g128_micro[name]
         if name in at_g128:
             row['at_nerf_g128_micro_step'] = brief(at_g128[name])
-        if name in at_nerf_val:
-            row['at_nerf_validation_stratum'] = brief(at_nerf_val[name])
         if name == 'trace':
             row['at_nerf_g128_whole_surface'] = dict(
                 brief(g128_whole), leaf_size=g128_whole['leaf_size'])
@@ -2838,6 +3112,28 @@ def main():
     print('options: %s' % json.dumps(loop_info), flush=True)
     del at_opt, at_loop
     phase_seconds('17 (options)')
+
+    # 18. configs/nerd_gold.json's LLFF path on the repo's JPEG capture:
+    # the decode held to imageio's, one pass-1 micro-step at n2 = 144 and
+    # the memory that sets the micro-batch, a native 600x800 view of the
+    # grid-128 DMTet state, the program at that micro-batch, a native
+    # 600x800 view of the bake, a non-square frame against the CPU
+    torch.cuda.empty_cache()
+    at_nerd, nerd_micro, nerd, at_nerd_dmtet, at_nerd_view, _ = \
+        nerd_phase(device)
+    for row in rows:
+        name = row['name']
+        row['launches_in_nerd_program'] = nerd['launches'][name]
+        row['launches_per_nerd_pass1_step'] = nerd['per_step1'][name]
+        row['launches_per_nerd_micro_step'] = nerd_micro[name]
+        if name in at_nerd:
+            row['at_nerd_micro_step'] = brief(at_nerd[name])
+        if name in at_nerd_dmtet:
+            row['at_nerd_dmtet_view_600x800'] = brief(at_nerd_dmtet[name])
+        if name in at_nerd_view:
+            row['at_nerd_view_600x800'] = brief(at_nerd_view[name])
+    del at_nerd, at_nerd_dmtet, at_nerd_view
+    phase_seconds('18 (nerd_gold, LLFF)')
 
     # 7. optional profile: every profiler session after every timed phase
     if args.profile:

@@ -18,12 +18,28 @@ line:
   at n_samples 32, median), b4_ms_per_step (configs/spot.json's step:
   batch 4, 512x512 textures, lock_pos; median of 8), the device ms and
   kernel launches of 4 more steps at each batch under a kernel-only
-  profiler trace, the card (nvidia-smi's name and power limit).
-The JAX bench's pass-1 rates and its TPU cost-analysis figures (mfu_*) have
-no counterpart here.  vs_baseline divides by the JAX bench's estimate of
-3.3 iter/s for the reference on an A6000, which publishes no number.
+  profiler trace, the card (nvidia-smi's name and power limit);
+- extra, pass 1 (bench_pass1, the JAX bench's bench_pass1): the pass-1
+  step (DMTetGeometry at grid 64, mesh_scale 2.1, the hash-grid material,
+  a 256x256 trainable light, batch 1, 512x512, n_samples 4, the
+  bilateral denoiser, targets as bench_train makes them) as
+  pass1_dmtet_hashgrid_iters_per_sec from the random SDF init (the
+  overlapping foam of a run's first iterations) and
+  pass1_annealed_iters_per_sec from a sphere SDF of radius 0.35 x 2.1 (a
+  closed surface, as mid-training), 1 / the median of 8 synced steps
+  after a warm-up step, with pass1_note.
+The JAX bench's XLA cost-analysis figures (step_gflops_*, step_gbytes_*,
+mfu_*) are a TPU's and have no counterpart here.  vs_baseline divides by
+the JAX bench's estimate of 3.3 iter/s for the reference on an A6000,
+which publishes no number.
 
 Usage: python3 -m nvdiffrecmc_tpu_torch.bench   (needs the CUDA card)
+       python3 -m nvdiffrecmc_tpu_torch.bench --profile [dir]
+       python3 -m nvdiffrecmc_tpu_torch.bench --profile-pass1 [dir]
+(--profile: a torch.profiler trace of 5 pass-2 steps, --profile-pass1 of
+5 pass-1 steps from the random init, written to dir, by default
+out/bench_trace_pass2 or out/bench_trace_pass1 beside the package: a
+Chrome trace, trace.json, and the table of device times, table.txt.)
 """
 
 import json
@@ -39,7 +55,7 @@ from .bench_common import device_ms, smi_line
 from .dataset import BatchIterator
 from .dataset.dataset_mesh import SPOT256_PROBE, DatasetMesh, spot256_scene
 from .device import resolve
-from .geometry import DLMesh
+from .geometry import DLMesh, DMTetGeometry
 from .ops import bvh as bvh_mod
 from .ops import pallas_tracer
 from .render import light as light_mod
@@ -47,13 +63,24 @@ from .render import light as light_mod
 REF_A6000_ITERS_PER_SEC_ESTIMATE = 3.3
 RES = 512
 N_SAMPLES = 4
+PASS1_GRID = 64
+PASS1_SCALE = 2.1
+PASS1_NOTE = ('pass1 = the random SDF init (the overlapping foam of a run\'s '
+              'first iterations, the worst case); pass1_annealed = a sphere '
+              'SDF of radius 0.35 x mesh_scale (a closed surface, as '
+              'mid-training)')
 
 
-def _synced_ms(fn):
-    torch.cuda.synchronize()
+def _sync(device):
+    if device.type == 'cuda':
+        torch.cuda.synchronize(device)
+
+
+def _synced_ms(fn, device=torch.device('cuda')):
+    _sync(device)
     t0 = time.perf_counter()
     fn()
-    torch.cuda.synchronize()
+    _sync(device)
     return (time.perf_counter() - t0) * 1e3
 
 
@@ -77,14 +104,12 @@ def bench_tracer(mesh, n_rays=2 ** 21):
     return n_rays / statistics.median(times) / 1e3
 
 
-def bench_train(ds, FLAGS, iters=12):
-    """Median ms of the synced pass-2 step at FLAGS['batch'] after a
-    warm-up step, and (next_target(), run(target, it) -> ms) for more
-    steps, and (the trained geometry, parameters, material static)."""
-    geometry = DLMesh(ds.ref_mesh, FLAGS)
+def timed_steps(ds, FLAGS, geometry, mat_params, mat_static, iters):
+    """Median ms of iters synced train.train_step calls after a warm-up
+    step, on a 256x256 trainable light and targets from ds over random
+    backgrounds; and (next_target(), run(target, it) -> ms) for more
+    steps, and the parameters."""
     device = ds.device
-    mat_params, mat_static = train.initial_guess_material(
-        geometry, False, FLAGS, device=device)
     light = light_mod.create_trainable_env_rnd(FLAGS['probe_res'], 0.0, 0.5,
                                                device=device)
     params = train.make_params(geometry, mat_params, light)
@@ -101,10 +126,48 @@ def bench_train(ds, FLAGS, iters=12):
     def run(target, it):
         return _synced_ms(lambda: train.train_step(
             geometry, params, opts, mat_static, target, it, FLAGS, loss_fn,
-            ds.perms, gen))
+            ds.perms, gen), device)
     times = [run(next_target(), it) for it in range(iters + 1)]
-    return (statistics.median(times[1:]), (next_target, run),
-            (geometry, params, mat_static))
+    return statistics.median(times[1:]), (next_target, run), params
+
+
+def bench_train(ds, FLAGS, iters=12):
+    """Median ms of the synced pass-2 step at FLAGS['batch'] after a
+    warm-up step, and (next_target(), run(target, it) -> ms) for more
+    steps, and (the trained geometry, parameters, material static)."""
+    geometry = DLMesh(ds.ref_mesh, FLAGS)
+    mat_params, mat_static = train.initial_guess_material(
+        geometry, False, FLAGS, device=ds.device)
+    ms, steps, params = timed_steps(ds, FLAGS, geometry, mat_params,
+                                    mat_static, iters)
+    return ms, steps, (geometry, params, mat_static)
+
+
+def bench_pass1(annealed=False, iters=8, res=RES, grid=PASS1_GRID,
+                device=None):
+    """The pass-1 step (DMTetGeometry at grid, mesh_scale 2.1, the
+    hash-grid material, batch 1, res x res, n_samples 4, the bilateral
+    denoiser) on spot256 targets, from the random SDF init or, annealed,
+    from a sphere SDF of radius 0.35 x 2.1.  Returns (median ms per step
+    of iters after a warm-up, (next_target, run), the surface triangles
+    of the init)."""
+    device = resolve(device)
+    FLAGS = config.make_flags(train_res=[res, res], n_samples=N_SAMPLES,
+                              envlight=SPOT256_PROBE, iter=iters, batch=1,
+                              layers=1, spp=1, denoiser='bilateral',
+                              dmtet_grid=grid, mesh_scale=PASS1_SCALE)
+    ds = DatasetMesh(spot256_scene(device), train.RADIUS, FLAGS, seed=3)
+    geometry = DMTetGeometry(grid, PASS1_SCALE, FLAGS, device=device)
+    if annealed:    # the JAX bench's sphere: norm(v) - r
+        geometry.init_params['sdf'] = (
+            torch.linalg.norm(geometry.verts, dim=-1) - 0.35 * PASS1_SCALE)
+    mat_params, mat_static = train.initial_guess_material(
+        geometry, True, FLAGS, device=device)
+    mat_static['no_perturbed_nrm'] = True
+    tris = geometry.tri_count(geometry.parameters())[0]
+    ms, steps, _ = timed_steps(ds, FLAGS, geometry, mat_params, mat_static,
+                               iters)
+    return ms, steps, tris
 
 
 def device_per_step(steps, reps=4):
@@ -134,7 +197,58 @@ def bench_view(trained, FLAGS, device, views=2):
     return statistics.median(secs)
 
 
+def pass1_extra(iters=8, res=RES, grid=PASS1_GRID, device=None):
+    """The JSON line's pass-1 keys: bench_pass1 from the random init and
+    from the sphere."""
+    device = resolve(device)
+    ms, _, tris = bench_pass1(iters=iters, res=res, grid=grid, device=device)
+    ms_a, _, tris_a = bench_pass1(annealed=True, iters=iters, res=res,
+                                  grid=grid, device=device)
+    return {'pass1_dmtet_hashgrid_iters_per_sec': 1e3 / ms,
+            'pass1_annealed_iters_per_sec': 1e3 / ms_a,
+            'pass1_ms_per_step': ms,
+            'pass1_annealed_ms_per_step': ms_a,
+            'pass1_init_surface_triangles': tris,
+            'pass1_annealed_init_surface_triangles': tris_a,
+            'pass1_note': PASS1_NOTE}
+
+
+def profile_steps(which, trace_dir=None, steps=5):
+    """A torch.profiler trace (CPU and CUDA) of `steps` pass-2 (which
+    'pass2', bench_train's step) or pass-1 ('pass1', bench_pass1's, from
+    the random init) steps after the bench's own, into trace_dir:
+    trace.json (Chrome trace) and table.txt (device times by kernel)."""
+    from torch.profiler import ProfilerActivity, profile
+    device = resolve(None)
+    if trace_dir is None:
+        trace_dir = os.path.join(os.path.dirname(os.path.dirname(
+            os.path.abspath(__file__))), 'out', 'bench_trace_' + which)
+    if which == 'pass1':
+        _, (next_target, run), _ = bench_pass1(iters=1, device=device)
+    else:
+        FLAGS = config.make_flags(train_res=[RES, RES], n_samples=N_SAMPLES,
+                                  envlight=SPOT256_PROBE, iter=12)
+        ds = DatasetMesh(spot256_scene(device), train.RADIUS, FLAGS, seed=5)
+        _, (next_target, run), _ = bench_train(ds, FLAGS, iters=1)
+    targets = [next_target() for _ in range(steps)]
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for i, t in enumerate(targets):
+            run(t, 10 + i)
+    os.makedirs(trace_dir, exist_ok=True)
+    prof.export_chrome_trace(os.path.join(trace_dir, 'trace.json'))
+    with open(os.path.join(trace_dir, 'table.txt'), 'w') as f:
+        f.write(prof.key_averages().table(sort_by='self_cuda_time_total',
+                                          row_limit=60))
+    print('trace of %d %s steps written to %s' % (steps, which, trace_dir))
+
+
 def main():
+    for flag, which in (('--profile', 'pass2'), ('--profile-pass1', 'pass1')):
+        if flag in sys.argv:
+            idx = sys.argv.index(flag)
+            profile_steps(which, *sys.argv[idx + 1:idx + 2])
+            return
     device = resolve(None)
     t_start = time.time()
     FLAGS = config.make_flags(train_res=[RES, RES], n_samples=N_SAMPLES,
@@ -155,6 +269,7 @@ def main():
                            ks_min=[0.0, 0.1, 0.0])
     ds4 = DatasetMesh(mesh, train.RADIUS, F4, seed=6)
     step4_ms, steps4, _ = bench_train(ds4, F4, iters=8)
+    pass1 = pass1_extra(device=device)
     b1 = device_per_step(steps)
     b4 = device_per_step(steps4)
     rate = 1e3 / step_ms
@@ -173,6 +288,7 @@ def main():
             'launches_per_step': b1[1],
             'b4_device_ms_per_step': b4[0],
             'b4_launches_per_step': b4[1],
+            **pass1,
             'device': torch.cuda.get_device_name(0),
             'card': smi_line(),
             'scene': 'docs/quality_r5/spot256 (26,474 triangles, '

@@ -12,10 +12,29 @@ Tolerances, with their reasons:
   zero, and their zero normals give arbitrary directions): >= 99.9% of the
   (stratum, pixel) entries agree, with the same texel ids and all 16
   values within 1e-4 + 1e-4 |x|; every entry whose texel ids agree lies
-  within 1e-3 + 1e-3 |x|.  The rest differ in the last ulps of
-  sin/acos/rsqrt, amplified where a direction grazes a pole of the
-  lat-long map (the pdf's 1/sin(theta)), lies on a texel border, or
-  follows a sharp GGX lobe.
+  within 1e-3 + 1e-3 |x| (`sample_bound`).  The rest differ in the last
+  ulps of sin/acos/rsqrt, amplified where a direction grazes a pole of
+  the lat-long map, lies on a texel border, or follows a sharp GGX lobe.
+  Two kinds of entry have an amplification with no bound, so there the
+  two pdf values are held within 1e-3 + 1e-3 |x| of the plain value
+  corrected in float64, and the other 14 values within the plain bound:
+  - a light or BSDF texel in the light map's first or last row.  The
+    row's CDF step is near zero, so an ulp of the draw moves the row
+    fraction, and x, z of the direction and the pdf's 1 / sin(theta)
+    scale it; one ulp of a BSDF direction's y near +-1 moves its acos by
+    percents (nerd_gold's pass-1 micro-step at n2 = 144: 535x the plain
+    bound).  Each light-map term of the two pdfs, row and column CDF
+    steps (or the texel's pdf) over sin(theta), is taken at the kernel's
+    own texel and direction: sin(theta) is |xz| of a light direction and
+    sin(acos(y)) of a BSDF one.  Where acos(y) lies near pi, the float32
+    sin(v pi) of both versions carries SIN_SLACK, added to the bound;
+  - a light direction within 1e-6 of the BSDF pdf's grazing cut
+    (min(NdotV, NdotL) < 1e-6 gives pdf 1), or one the two versions, each
+    on its own last-ulp direction, put on two sides of it (the loop
+    backward's stratum 288 at n_samples 17: 0.998 apart, 480x the plain
+    bound): the BSDF term may lie on either side of the cut.
+  `compared_on` says how many entries were held so, and their largest
+  error over the bound.
 - trace_shade: visibility bits equal on >= 99.9% of rays; shading within
   1e-4 + 1e-4 |x| on pixels whose rays all agree.  The plain tracer runs
   on an evenly spaced subset of the covered pixels, against the full mesh.
@@ -54,6 +73,11 @@ Tolerances, with their reasons:
   each stratum weighed 1 / n2 of all strata): each kernel's own
   tolerance above, the light scatter's against the float64 sum.
 
+Times: the kernel's by CUDA events over `reps` calls after a warm-up;
+the plain version's over a few calls, or, for resolve, trace_shade,
+shade_bwd and trace (seconds a call at the largest widths), on the one
+call that is compared.
+
 On a depth-peel layer that covers no pixel, the checks that compare
 covered pixels only (sample, trace_shade, shade_bwd) have nothing to
 compare and pass, saying so in `compared_on`.
@@ -91,6 +115,17 @@ MIN_AGREE = 0.999
 TRACE_SUBSET = 8192   # covered pixels the plain tracer is held to
 
 
+def timed(fn):
+    """(fn(), device milliseconds of that one call, by CUDA events)."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
 def time_ms(fn, reps=10, warmup=1):
     """Mean device milliseconds per call of fn, by CUDA events."""
     for _ in range(warmup):
@@ -113,7 +148,7 @@ def _close(a, b, atol, rtol):
 def check_resolve(v_clip, tri, H, W, prev_z, prev_id, reps=20):
     args = (v_clip, tri, H, W, prev_z, prev_id)
     z, tid = pallas_raster._resolve_cuda(*args)
-    zp, tidp = pallas_raster.resolve_plain(*args)
+    (zp, tidp), plain_ms = timed(lambda: pallas_raster.resolve_plain(*args))
     ids_differ = int((tid != tidp).sum())
     z_differ = int((z != zp).sum())
     return dict(
@@ -121,7 +156,7 @@ def check_resolve(v_clip, tri, H, W, prev_z, prev_id, reps=20):
         max_abs_err=float((z - zp).abs().max()), ids_differ=ids_differ,
         z_differ=z_differ, ok=ids_differ == 0 and z_differ == 0,
         ms=time_ms(lambda: pallas_raster._resolve_cuda(*args), reps),
-        plain_ms=time_ms(lambda: pallas_raster.resolve_plain(*args), 2))
+        plain_ms=plain_ms)
 
 
 def check_sample_guide(rows, cols, reps=20):
@@ -136,6 +171,105 @@ def check_sample_guide(rows, cols, reps=20):
         plain_ms=time_ms(lambda: pallas_shade.sample_guide_plain(*args), 3))
 
 
+# absolute error of a float32 sin(v pi) where v pi lies near pi: the
+# product's rounding (an ulp of pi, 2.4e-7) and the sine's own
+SIN_SLACK = 1e-6
+
+
+def _light_pdf_terms(s, rows, cols, pdf_tex):
+    """float64 terms of samples s [n, 16] whose 1 / sin(theta) the light
+    map's pole rows amplify, each from the sample's own texels and
+    direction: the light sample's pdf (its row and column CDF steps over
+    sin(theta) = |xz| of its direction, as uv_to_dir makes it), the BSDF
+    direction's light pdf (its texel's pdf over sin(acos(y))), and that
+    term's slack where acos(y) lies near pi (SIN_SLACK over the sine)."""
+    Hl, Wl = cols.shape
+    c = Wl * Hl / (2.0 * math.pi * math.pi)
+    rows64, cols64 = rows.double().reshape(-1), cols.double().reshape(-1)
+    t = s[:, pallas_shade.S_LTEX].long()
+    y, x = torch.div(t, Wl, rounding_mode='floor'), t % Wl
+    pdf_row = rows64[y] - torch.where(
+        y > 0, rows64[torch.clamp(y - 1, min=0)], 0.0)
+    pdf_col = cols64[t] - torch.where(
+        x > 0, cols64[torch.clamp(t - 1, min=0)], 0.0)
+    d = s[:, pallas_shade.S_LDIR:pallas_shade.S_LDIR + 3].double()
+    st = torch.clamp(torch.sqrt(d[:, 0] ** 2 + d[:, 2] ** 2), min=1e-4)
+    lp = pdf_row * pdf_col * c / st
+    dy = torch.clamp(s[:, pallas_shade.S_BDIR + 1].double(), -1.0, 1.0)
+    sb = torch.clamp(torch.sin(pallas_shade.acos_poly(dy)), min=1e-4)
+    blp = pdf_tex.double().reshape(-1)[s[:, pallas_shade.S_BTEX].long()] \
+        * c / sb
+    return lp, blp, torch.where(dy < 0.0, SIN_SLACK / sb, 0.0) * blp
+
+
+def sample_bound(got, want, g8, rows, cols, pdf_tex):
+    """The sample kernel's output got [n2, 16, P] against the plain
+    version's want on the same pixels (g8 [8, P]: their G-buffer).
+    Returns (the share of agreeing entries, the largest error over its
+    bound, the max |got - want| on entries with the same texels, the
+    count of entries held to the corrected pdfs, the largest error over
+    its bound among them).  The light map's pole rows and the BSDF pdf's
+    grazing cut get the corrected pdfs: see the module's docstring."""
+    tex = pallas_shade.S_LTEX
+    same_tex = (got[:, tex:tex + 2] == want[:, tex:tex + 2]).all(1)
+    agree = same_tex & _close(got, want, 1e-4, 1e-4).all(1)    # [n2, P]
+    share = float(agree.double().mean()) if agree.numel() else 1.0
+    Hl, Wl = cols.shape
+    row = torch.div(want[:, tex:tex + 2], Wl, rounding_mode='floor')
+    pole = ((row == 0) | (row == Hl - 1)).any(1)                 # [n2, P]
+    nrm = (g8[0], g8[1], g8[2])
+    ndotv = pallas_shade.dot3(nrm, (g8[3], g8[4], g8[5]))
+
+    def grazing(s):
+        ldir = (s[:, 0], s[:, 1], s[:, 2])
+        return torch.minimum(ndotv, pallas_shade.dot3(nrm, ldir))
+    m_got = grazing(got)
+    near = ((m_got < 1e-6) != (grazing(want) < 1e-6)) | \
+        ((m_got - 1e-6).abs() < 1e-6)
+    held = same_tex & (pole | near)
+    plain = same_tex & ~held
+    diff = (got - want).abs()
+    err = float(torch.where(same_tex, diff.amax(1), 0.0).max()) \
+        if diff.numel() else 0.0
+    ratio = (diff / (1e-3 + 1e-3 * want.abs())).amax(1)         # [n2, P]
+    bound = float(torch.where(plain, ratio, 0.0).max()) \
+        if ratio.numel() else 0.0
+    del diff, ratio
+    n_held, held_bound = int(held.sum()), 0.0
+    if n_held:
+        Gh, Wh = got.permute(0, 2, 1)[held], want.permute(0, 2, 1)[held]
+        pix = torch.nonzero(held)[:, 1]
+        r = (Gh - Wh).abs() / (1e-3 + 1e-3 * Wh.abs())
+        keep = torch.ones(16, dtype=torch.bool, device=r.device)
+        keep[[pallas_shade.S_LPDF, pallas_shade.S_BPDF]] = False
+        lp_g, blp_g, slack_g = _light_pdf_terms(Gh, rows, cols, pdf_tex)
+        lp_w, blp_w, slack_w = _light_pdf_terms(Wh, rows, cols, pdf_tex)
+        # the light sample's pdf: the plain value with its light-map term
+        # taken at the kernel's direction, and, within 1e-6 of the grazing
+        # cut, its BSDF term on either side of the cut
+        L = pallas_shade.S_LDIR
+        mix, m_w = pallas_shade.bsdf_pdf_mix(
+            g8[7, pix], (g8[0, pix], g8[1, pix], g8[2, pix]),
+            (g8[3, pix], g8[4, pix], g8[5, pix]),
+            (Wh[:, L], Wh[:, L + 1], Wh[:, L + 2]), g8[6, pix])
+        side_w = torch.where(m_w < 1e-6, 1.0, mix).double()
+        base = (Wh[:, pallas_shade.S_LPDF].double() - side_w + lp_g - lp_w)
+        cands = torch.stack([side_w, torch.ones_like(side_w), mix.double()])
+        either = near[held]
+        e6 = base[None] + cands
+        r6 = (Gh[:, pallas_shade.S_LPDF].double() - e6).abs() \
+            / (1e-3 + 1e-3 * e6.abs())
+        r6 = torch.where(either, r6.min(0).values, r6[0])
+        # the BSDF sample's pdf: its light-map term at the kernel's
+        # direction
+        e7 = Wh[:, pallas_shade.S_BPDF].double() + blp_g - blp_w
+        r7 = (Gh[:, pallas_shade.S_BPDF].double() - e7).abs() \
+            / (1e-3 + 1e-3 * e7.abs() + slack_g + slack_w)
+        held_bound = max(float(r[:, keep].max()), float(r6.max()),
+                         float(r7.max()))
+    return share, max(bound, held_bound), err, n_held, held_bound
+
+
 def check_sample(u8, gb8, rows, cols, guide, pdf_tex, base, n_samples_x,
                  mask=None, reps=20):
     """mask: bool [P] of covered pixels (None: all)."""
@@ -143,21 +277,18 @@ def check_sample(u8, gb8, rows, cols, guide, pdf_tex, base, n_samples_x,
     got = pallas_shade._sample_cuda(*args)
     want = pallas_shade.sample_all_plain(u8, gb8, rows, cols, pdf_tex, base,
                                          n_samples_x)
+    g8 = gb8
     if mask is not None:
-        got, want = got[:, :, mask], want[:, :, mask]
-    tex = pallas_shade.S_LTEX
-    same_tex = (got[:, tex:tex + 2] == want[:, tex:tex + 2]).all(1)
-    agree = same_tex & _close(got, want, 1e-4, 1e-4).all(1)    # [n2, P]
-    share = float(agree.double().mean()) if agree.numel() else 1.0
-    err = (got - want).abs().permute(0, 2, 1)[same_tex]         # [n, 16]
-    ratio = err / (1e-3 + 1e-3 * want.abs().permute(0, 2, 1)[same_tex])
-    bound = float(ratio.max()) if ratio.numel() else 0.0
+        got, want, g8 = got[:, :, mask], want[:, :, mask], gb8[:, mask]
+    share, bound, err, n_held, held_bound = sample_bound(
+        got, want, g8, rows, cols, pdf_tex)
     return dict(
-        name='sample', agree=share,
-        max_abs_err=float(err.max()) if err.numel() else 0.0,
+        name='sample', agree=share, max_abs_err=err,
         err_over_bound=bound, ok=share >= MIN_AGREE and bound <= 1.0,
-        compared_on='%d of %d pixels (covered)' % (got.shape[2],
-                                                   u8.shape[2]),
+        compared_on='%d of %d pixels (covered); %d samples at a pole row or '
+                    'the grazing cut held to the corrected pdfs (err/bound '
+                    '%.3g there)' % (got.shape[2], u8.shape[2], n_held,
+                                     held_bound),
         ms=time_ms(lambda: pallas_shade._sample_cuda(*args), reps),
         plain_ms=time_ms(lambda: pallas_shade.sample_all_plain(
             u8, gb8, rows, cols, pdf_tex, base, n_samples_x), 3))
@@ -171,8 +302,8 @@ def check_trace_shade(samp, gb, bvh, BSDF=0, tmin=0.0, reps=5):
     idx = covered[::stride][:TRACE_SUBSET]
     gb_s = gb[:, idx].contiguous()
     samp_s = samp[:, :, idx].contiguous()
-    out_p, visw_p = pallas_shade.trace_shade_plain(samp_s, gb_s, bvh, BSDF,
-                                                   tmin)
+    (out_p, visw_p), plain_ms = timed(lambda: pallas_shade.trace_shade_plain(
+        samp_s, gb_s, bvh, BSDF, tmin))
     n = idx.numel()
     vk = torch.stack([visw[:, idx], visw[:, P + idx]], 1)      # [n2, 2, n]
     vp = torch.stack([visw_p[:, :n], visw_p[:, n:]], 1)
@@ -189,8 +320,7 @@ def check_trace_shade(samp, gb, bvh, BSDF=0, tmin=0.0, reps=5):
         compared_on='%d of %d pixels (%d rays)' % (n, P, 2 * n2 * n),
         ms=time_ms(lambda: pallas_shade._trace_shade_cuda(
             samp, gb, bvh, BSDF, tmin), reps),
-        plain_ms=time_ms(lambda: pallas_shade.trace_shade_plain(
-            samp_s, gb_s, bvh, BSDF, tmin), 1, warmup=0))
+        plain_ms=plain_ms)
 
 
 def _check_denoise(name, cuda_fn, col, nrm, zdz, sigma, reps):
@@ -314,7 +444,8 @@ def check_shade_bwd(samp, gb, vw, g6, BSDF=0, sample_frac=None, reps=10):
            torch.cat([vw[:, idx], vw[:, P + idx]], 1).contiguous(),
            g6[:, idx].contiguous())
     with torch.enable_grad():
-        dgb_p, drad_p = pallas_shade.shade_bwd_plain(*sub, BSDF, sample_frac)
+        (dgb_p, drad_p), plain_ms = timed(
+            lambda: pallas_shade.shade_bwd_plain(*sub, BSDF, sample_frac))
     got = torch.cat([dgb[:, idx], drad[:, 0:6, idx].reshape(-1, idx.numel())])
     want = torch.cat([dgb_p, drad_p[:, 0:6].reshape(-1, idx.numel())])
     err = (got - want).abs()
@@ -332,13 +463,12 @@ def check_shade_bwd(samp, gb, vw, g6, BSDF=0, sample_frac=None, reps=10):
         compared_on='%d of %d pixels' % (idx.numel(), P),
         ms=time_ms(lambda: pallas_shade._shade_bwd_cuda(
             samp, gb, vw, g6, BSDF, sample_frac), reps),
-        plain_ms=time_ms(lambda: pallas_shade.shade_bwd_plain(
-            *sub, BSDF, sample_frac), 1, warmup=0))
+        plain_ms=plain_ms)
 
 
 def check_trace(ro, rd, bvh, tmin=0.0, reps=5):
     got = pallas_tracer._trace_cuda(ro, rd, bvh, tmin)
-    want = tracer.any_hit(ro, rd, bvh, tmin=tmin)
+    want, plain_ms = timed(lambda: tracer.any_hit(ro, rd, bvh, tmin=tmin))
     share = float((got == want).double().mean())
     return dict(
         name='trace', agree=share, max_abs_err=float(
@@ -348,8 +478,7 @@ def check_trace(ro, rd, bvh, tmin=0.0, reps=5):
                                                float(want.float().mean())),
         ms=time_ms(lambda: pallas_tracer._trace_cuda(ro, rd, bvh, tmin),
                    reps),
-        plain_ms=time_ms(lambda: tracer.any_hit(ro, rd, bvh, tmin=tmin), 1,
-                         warmup=0))
+        plain_ms=plain_ms)
 
 
 def check_mask(rayf, aabb_lo, aabb_hi, ray_block, tmin, tmax, reps=10):

@@ -4,11 +4,12 @@ nvdiffrecmc_tpu/dataset/dataset_llff.py): `poses_bounds.npy` with an
 t | (H W f)] become OpenGL camera-to-world matrices, each image gets its
 vertical FOV from its focal length, the rig is recentred on the
 least-squares focal point of the views, and each mask becomes the alpha
-channel of its image.  Images and masks are 8-bit PNG: the port has no
-JPEG decoder, and a JPEG raises.  Items hold tensors on the dataset's
-device."""
+channel of its image.  Images and masks are 8-bit PNG or baseline JPEG,
+read by texture.read_image (the port's own decoders; imageio in the JAX
+package).  Items hold tensors on the dataset's device."""
 
 import glob
+import hashlib
 import os
 
 import numpy as np
@@ -17,9 +18,17 @@ import torch
 from ..device import resolve
 from ..ops import vecmath
 from .dataset import Dataset
-from .dataset_nerf import _decode_image, read_png
+from ..render.texture import read_image
+from .dataset_nerf import _decode_image
 
 _IMG_EXTS = ('png', 'jpg', 'jpeg')
+
+# sha256 of data/llff_spot_synth/ decoded: each view's image, then its
+# mask, as uint8 [H, W, C] in file order.  imageio's decode gives it on the
+# CPU (tests/test_torch_jpeg.py) and the port's decoder on the card
+# (chip_smoke.py phase 18).
+SPOT_SYNTH_SHA256 = ('c9800a413895fca57b670329204e898c'
+                     'f0746e74349ba07f8613967936d853e9')
 
 
 def _list_images(d):
@@ -27,21 +36,28 @@ def _list_images(d):
             if f.lower().endswith(_IMG_EXTS)]
 
 
-def _refuse_jpeg(fn):
-    if fn.lower().endswith(('jpg', 'jpeg')):
-        raise NotImplementedError('%s: JPEG images are not read (the port '
-                                  'decodes 8-bit PNG only)' % fn)
-
-
 def _read_ldr(fn):
-    _refuse_jpeg(fn)
     return _decode_image(fn)
 
 
 def _read_mask(fn):
-    """A mask as float32 [H, W, C] in [0, 1] (no sRGB decode)."""
-    _refuse_jpeg(fn)
-    return read_png(fn).astype(np.float32) / 255.0
+    """A mask as float32 [H, W, C] in [0, 1] (no sRGB decode); a grayscale
+    mask is [H, W, 1]."""
+    return read_image(fn).astype(np.float32) / 255.0
+
+
+def decoded_sha256(base_dir, reader=read_image):
+    """sha256 of the capture at base_dir decoded by reader (a path ->
+    uint8 [H, W] or [H, W, C] array): each view's image, then its mask, as
+    uint8 [H, W, C] in file order."""
+    h = hashlib.sha256()
+    for pair in zip(_list_images(os.path.join(base_dir, 'images')),
+                    _list_images(os.path.join(base_dir, 'masks'))):
+        for fn in pair:
+            a = np.asarray(reader(fn))
+            h.update(np.ascontiguousarray(
+                a[..., None] if a.ndim == 2 else a).tobytes())
+    return h.hexdigest()
 
 
 class DatasetLLFF(Dataset):

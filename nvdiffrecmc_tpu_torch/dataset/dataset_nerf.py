@@ -3,8 +3,9 @@ nvdiffrecmc_tpu/dataset/dataset_nerf.py): `transforms_{train,test,val}.json`
 and one 8-bit PNG per frame.  The camera table is built at init in numpy,
 vectorized as the JAX package builds it (the -90 degree x-rotation of the
 NeRF world frame, fovx -> fovy, cam_near_far); the images are decoded by
-the port's own PNG reader, their colour taken from sRGB to linear, alpha
-left as it is.  Items hold tensors on the dataset's device; with pre_load
+the port's own reader (texture.read_image: 8-bit PNG or baseline JPEG,
+by signature), their colour taken from sRGB to linear, alpha left as it
+is.  Items hold tensors on the dataset's device; with pre_load
 every image is decoded once at init and held there."""
 
 import glob
@@ -31,23 +32,11 @@ def _image_path(stem):
     return candidates[0]
 
 
-def read_png(path):
-    """An 8-bit PNG file as a uint8 array [H, W, C]; anything else raises,
-    naming the file."""
-    with open(path, 'rb') as f:
-        data = f.read()
-    try:
-        return texture_mod.decode_png(data)
-    except ValueError as e:
-        raise ValueError('%s: %s (the port reads 8-bit PNG only)'
-                         % (path, e)) from e
-
-
 def _decode_image(stem):
     """The image at stem (an exact path, or any extension of it) as float32
     [H, W, C] numpy: colour channels from sRGB to linear, alpha as it is,
     in the JAX package's float32 arithmetic."""
-    raw = read_png(_image_path(stem))
+    raw = texture_mod.read_image(_image_path(stem))
     x = raw.astype(np.float32) / np.float32(255)
     lo = x[..., :3] / 12.92
     hi = ((np.maximum(x[..., :3], 0.04045) + 0.055) / 1.055) ** 2.4

@@ -20,6 +20,8 @@ import math
 
 import torch
 
+from .vecmath import maximum_split
+
 FLT_EPS = 1e-4
 MAX_SIGMA = 2.0  # sigma = max(2 * influence, eps), influence <= 1
 
@@ -87,3 +89,14 @@ def bilateral_denoiser(col, nrm, zdz, sigma):
     from .pallas_denoise import premul
     cw = premul(col, nrm, zdz, sigma)
     return cw[..., 0:3] / torch.clamp(cw[..., 3:4], min=1e-4)
+
+
+def denoise(input_nhwc, sigma):
+    """The reference's BilateralDenoiser.forward: input = col | nrm | zdz,
+    8 channels [N, H, W, 8] -> the denoised color [N, H, W, 3]."""
+    return bilateral_denoiser(input_nhwc[..., 0:3], input_nhwc[..., 3:6],
+                              input_nhwc[..., 6:8], sigma)
+
+
+def sigma_from_influence(f):
+    return maximum_split(2.0 * torch.as_tensor(f, dtype=torch.float32), 1e-4)

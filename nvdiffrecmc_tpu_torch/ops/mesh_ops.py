@@ -2,9 +2,10 @@
 mikktspace-style tangents (counterpart of nvdiffrecmc_tpu/ops/mesh_ops.py).
 Scatter-adds use index_add_; invalid (masked) triangles contribute nothing."""
 
+import numpy as np
 import torch
 
-from .vecmath import dot, safe_normalize
+from .vecmath import dot, maximum_split, safe_normalize
 
 
 def face_normals(v_pos, t_pos_idx, normalize=True):
@@ -87,3 +88,17 @@ def laplace_uniform(v_pos, t_pos_idx, tri_mask=None):
         norm = norm.index_add(0, t[:, i], wgt)
     term = term / torch.clamp(norm, min=1.0)
     return torch.mean(term ** 2)
+
+
+def compute_edges_np(t_pos_idx):
+    """The unique undirected edges [E, 2] (smaller index first) of a
+    triangle index array, on the host (numpy)."""
+    t = np.asarray(t_pos_idx)
+    e = np.concatenate([t[:, [0, 1]], t[:, [1, 2]], t[:, [2, 0]]], axis=0)
+    return np.unique(np.sort(e, axis=1), axis=0)
+
+
+def avg_edge_length(v_pos, e_pos_idx):
+    e = e_pos_idx.long()
+    d = v_pos[e[:, 0]] - v_pos[e[:, 1]]
+    return torch.mean(torch.sqrt(maximum_split(torch.sum(d * d, -1), 1e-20)))

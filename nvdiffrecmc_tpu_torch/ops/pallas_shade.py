@@ -155,14 +155,21 @@ def _acc_pdf(pdf, opdf, b):
     return pdf + torch.where(b > 1e-6, opdf * b, 0.0)
 
 
-def bsdf_pdf_c(p_diffuse, n, wo, wi, alpha):
+def bsdf_pdf_mix(p_diffuse, n, wo, wi, alpha):
+    """The BSDF pdf of wi without the grazing cut: (pdf, min(NdotV,
+    NdotL))."""
     NdotL = dot3(n, wi)
     NdotV = dot3(n, wo)
     cosine_pdf = torch.clamp(NdotL, min=0.0) / math.pi
     g_pdf = ggx_pdf_c(n, wo, wi, alpha)
     pdf = _acc_pdf(torch.zeros_like(NdotL), cosine_pdf, p_diffuse)
     pdf = _acc_pdf(pdf, g_pdf, 1.0 - p_diffuse)
-    return torch.where(torch.minimum(NdotV, NdotL) < 1e-6, 1.0, pdf)
+    return pdf, torch.minimum(NdotV, NdotL)
+
+
+def bsdf_pdf_c(p_diffuse, n, wo, wi, alpha):
+    pdf, grazing = bsdf_pdf_mix(p_diffuse, n, wo, wi, alpha)
+    return torch.where(grazing < 1e-6, 1.0, pdf)
 
 
 def cosine_sample_c(n, u, v):

@@ -10,6 +10,11 @@ per ray, then the triangles, and computes every quantity below in the
 same order, so both give the same bits: a supernode box holds its leaves'
 boxes and the float slab test is monotone in the box, so a ray that enters
 a leaf enters its supernode, and the walk's extra test removes nothing.
+
+The JAX package's any_hit_counted (any_hit with a count of the (ray, leaf)
+pairs dropped past its k_pairs cap) has no counterpart: any_hit here has
+no cap and drops no pair, and the work the walk does is counted by
+checks.trace_work.  any_hit_bruteforce is the independent O(R T) twin.
 """
 
 import torch
@@ -114,3 +119,22 @@ def make_occlusion_fn():
         return any_hit_pallas(ro.detach().contiguous(),
                               rd.detach().contiguous(), bvh)
     return occlusion
+
+
+def any_hit_bruteforce(ro, rd, v0, v1, v2, tmin=1e-4, tmax=1e16):
+    """Any-hit of every ray against every triangle (Moller-Trumbore, O(R T)
+    memory), the independent twin for tests: rays [R, 3], triangle
+    corners [T, 3] each -> bool [R]."""
+    e1, e2 = v1 - v0, v2 - v0
+    p = torch.linalg.cross(rd[:, None, :].expand(-1, e2.shape[0], -1),
+                           e2[None].expand(rd.shape[0], -1, -1))
+    det = torch.sum(e1[None] * p, -1)
+    ok = torch.abs(det) > 1e-12
+    det_safe = torch.where(ok, det, torch.full_like(det, 1e-12))
+    tvec = ro[:, None, :] - v0[None]
+    u = torch.sum(tvec * p, -1) / det_safe
+    qv = torch.linalg.cross(tvec, e1[None].expand_as(tvec))
+    v = torch.sum(rd[:, None, :] * qv, -1) / det_safe
+    t = torch.sum(e2[None] * qv, -1) / det_safe
+    hit = ok & (u >= 0) & (v >= 0) & (u + v <= 1) & (t > tmin) & (t < tmax)
+    return hit.any(-1)

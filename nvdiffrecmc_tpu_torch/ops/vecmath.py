@@ -13,6 +13,10 @@ def dot(x, y):
     return torch.sum(x * y, dim=-1, keepdim=True)
 
 
+def reflect(x, n):
+    return 2.0 * dot(x, n) * n - x
+
+
 def length(x, eps=1e-20):
     return torch.sqrt(torch.clamp(dot(x, x), min=eps))
 
@@ -81,8 +85,16 @@ def srgb_to_rgb(f):
 # Metrics (the JAX package's PSNR convention)
 # ---------------------------------------------------------------------------
 
+def reinhard(f):
+    return f / (1.0 + f)
+
+
 def mse_to_psnr(mse):
     return -10.0 / np.log(10.0) * np.log(mse)
+
+
+def psnr_to_mse(psnr):
+    return np.exp(-0.1 * np.log(10.0) * psnr)
 
 
 # ---------------------------------------------------------------------------
@@ -227,6 +239,27 @@ def rotate_y(a):
     s, c = np.sin(a), np.cos(a)
     return np.array([[c, 0, s, 0], [0, 1, 0, 0], [-s, 0, c, 0], [0, 0, 0, 1]],
                     dtype=np.float32)
+
+
+def scale_mtx(s):
+    m = np.eye(4, dtype=np.float32)
+    m[0, 0] = m[1, 1] = m[2, 2] = s
+    return m
+
+
+def lookAt(eye, at, up):
+    """The view matrix of a camera at eye looking at `at` (numpy)."""
+    eye, at, up = (np.asarray(v, dtype=np.float32) for v in (eye, at, up))
+    w = eye - at
+    w = w / np.linalg.norm(w)
+    u = np.cross(up, w)
+    u = u / np.linalg.norm(u)
+    v = np.cross(w, u)
+    tr = np.eye(4, dtype=np.float32)
+    tr[:3, 3] = -eye
+    rot = np.eye(4, dtype=np.float32)
+    rot[0, :3], rot[1, :3], rot[2, :3] = u, v, w
+    return rot @ tr
 
 
 def random_rotation_translation(t, rng=None):

@@ -30,6 +30,10 @@ def generate_image(base, res):
     return bilinear_sample(base[None], texcoord[None])[0]
 
 
+def pdf_scale(base):
+    return (base.shape[0] * base.shape[1]) / (2.0 * math.pi * math.pi)
+
+
 class LightTables(NamedTuple):
     pdf: torch.Tensor    # [H, W] normalized sampling pdf (sums to 1)
     rows: torch.Tensor   # [H] row CDF

@@ -6,6 +6,7 @@ import os
 from typing import Any
 
 import numpy as np
+import torch
 
 from ..device import resolve
 from ..ops import mesh_ops
@@ -23,6 +24,10 @@ class Mesh:
     t_tng_idx: Any = None
     tri_mask: Any = None            # [T] float {0,1} or None (all valid)
     material: Any = None
+
+
+def aabb(mesh: Mesh):
+    return (torch.amin(mesh.v_pos, dim=0), torch.amax(mesh.v_pos, dim=0))
 
 
 def auto_normals(mesh: Mesh) -> Mesh:

@@ -4,7 +4,9 @@ nvdiffrecmc_tpu/render/regularizer.py).  Kinks take JAX's gradients
 
 import torch
 
-from ..ops.vecmath import abs_pos0, clip_split, maximum_split, rgb_to_srgb
+from ..ops import mesh_ops
+from ..ops.vecmath import (abs_pos0, clip_split, dot, maximum_split,
+                           rgb_to_srgb)
 
 
 def _luma(x):
@@ -55,3 +57,24 @@ def material_smoothness_grad(kd_grad, ks_grad, nrm_grad, lambda_kd=0.25,
     loss = loss + torch.mean(nrm_grad[..., :-1] * nrm_grad[..., -1:]) \
         * lambda_nrm
     return loss
+
+
+def laplace_regularizer_const(v_pos, t_pos_idx, tri_mask=None):
+    return mesh_ops.laplace_uniform(v_pos, t_pos_idx, tri_mask)
+
+
+def normal_consistency(v_pos, t_pos_idx, edge_to_face):
+    """Normal difference across edges (defined but unused in the
+    reference).  edge_to_face: [E, 2] face pairs per edge."""
+    fn = mesh_ops.face_normals(v_pos, t_pos_idx)
+    e2f = edge_to_face.long()
+    term = clip_split(dot(fn[e2f[:, 0]], fn[e2f[:, 1]]), -1.0, 1.0)
+    return torch.mean(abs_pos0((1.0 - term) * 0.5))
+
+
+def avg_edge_length(v_pos, t_pos_idx):
+    """The mean edge length of a mesh, a float (its edges listed on the
+    host)."""
+    e = mesh_ops.compute_edges_np(t_pos_idx.cpu().numpy())
+    return float(mesh_ops.avg_edge_length(
+        v_pos, torch.as_tensor(e, device=v_pos.device)))

@@ -1,11 +1,13 @@
 """2D texture container with auto or explicit (custom) mip chains,
-trainable textures, and a
-PNG reader and writer, with the texture save of the export (counterpart of
+trainable textures, the image reader (8-bit PNG and baseline JPEG) and
+the PNG writer, with the texture save of the export (counterpart of
 nvdiffrecmc_tpu/render/texture.py).
 
 PNG files are decoded and encoded with the standard library's zlib and
 numpy: 8-bit gray, gray+alpha, RGB and RGBA, non-interlaced; the decoder
-takes filter types 0-4, the encoder writes filter 0."""
+takes filter types 0-4, the encoder writes filter 0.  JPEG files are
+decoded by the port's own decoder (jpeg.decode_jpeg); read_image picks
+the decoder by the file's signature."""
 
 import dataclasses
 import os
@@ -17,6 +19,7 @@ import numpy as np
 import torch
 
 from ..device import resolve
+from ..jpeg import decode_jpeg
 from ..ops import texture as tex_ops
 from ..ops import vecmath
 
@@ -183,10 +186,27 @@ def decode_png(data):
     return img.reshape(H, W, C)
 
 
+def read_image(path):
+    """An 8-bit image file as uint8 [H, W, C] (C = 1 for grayscale): PNG or
+    JPEG by the file's signature, not its name (the counterpart of the JAX
+    package's imageio.v2.imread).  Anything else raises ValueError naming
+    the file."""
+    with open(path, 'rb') as f:
+        data = f.read()
+    if data.startswith(_PNG_SIG):
+        try:
+            return decode_png(data)
+        except ValueError as e:
+            raise ValueError('%s: %s' % (path, e)) from e
+    if data.startswith(b'\xff\xd8'):
+        return decode_jpeg(data, path)
+    raise ValueError('%s: neither a PNG nor a JPEG file (the port reads 8-bit '
+                     'PNG and baseline JPEG)' % path)
+
+
 def load_image(fn):
-    """PNG -> float32 [H, W, C] in [0, 1]."""
-    with open(fn, 'rb') as f:
-        return decode_png(f.read()).astype(np.float32) / 255.0
+    """An 8-bit PNG or JPEG -> float32 [H, W, C] in [0, 1]."""
+    return read_image(fn).astype(np.float32) / 255.0
 
 
 def encode_png(img):

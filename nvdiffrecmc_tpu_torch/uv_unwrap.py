@@ -2,22 +2,16 @@
 package (normal-cone chart growing, an orthographic projection per chart,
 shelf packing), in the port's copy of its C++ source, csrc/uv_unwrap.cpp.
 
-The library is built with g++ at first use, and again whenever the source
-is newer, into the build directory beside the package
-(build/nvdiffrecmc_tpu_torch/libuv_unwrap.so), and loaded with ctypes.
+The library is built with g++ at first use (hostlib.load) into
+build/nvdiffrecmc_tpu_torch/libuv_unwrap.so and loaded with ctypes.
 Where it cannot be built or the unwrap fails, `uv_unwrap` raises: the
 JAX package's quiet fallback to the per-tet atlas is not carried over."""
 
 import ctypes
-import os
-import subprocess
 
 import numpy as np
 
-from .kernels import BUILD_DIR, CSRC_DIR
-
-SRC = os.path.join(CSRC_DIR, 'uv_unwrap.cpp')
-LIB_PATH = os.path.join(BUILD_DIR, 'libuv_unwrap.so')
+from . import hostlib
 
 _lib = None
 
@@ -26,17 +20,7 @@ def lib():
     """The loaded unwrapper (built first when missing or stale)."""
     global _lib
     if _lib is None:
-        if (not os.path.exists(LIB_PATH)
-                or os.path.getmtime(LIB_PATH) < os.path.getmtime(SRC)):
-            os.makedirs(BUILD_DIR, exist_ok=True)
-            tmp = LIB_PATH + '.tmp%d' % os.getpid()
-            proc = subprocess.run(['g++', '-O2', '-shared', '-fPIC', '-o',
-                                   tmp, SRC], capture_output=True, text=True)
-            if proc.returncode != 0:
-                raise RuntimeError('g++ failed to build %s:\n%s'
-                                   % (SRC, proc.stderr))
-            os.replace(tmp, LIB_PATH)
-        handle = ctypes.CDLL(LIB_PATH)
+        handle = hostlib.load('uv_unwrap.cpp', 'libuv_unwrap.so')
         P = ctypes.POINTER
         handle.uv_unwrap.restype = ctypes.c_int
         handle.uv_unwrap.argtypes = [

@@ -2,14 +2,14 @@
 
 - DatasetNERF on the repo's data/nerf_synthetic_spot: mv, mvp and campos
   bit-equal to JAX's for every frame of each split (and past the last
-  frame, where indices wrap); the images decoded by the port's PNG reader
+  frame, where indices wrap); the images decoded by the port's reader
   within 1e-6 of JAX's imageio decode (sRGB to linear in the same float32
   arithmetic); pre_load and collate.
 - DatasetLLFF on synthetic poses, images and masks written with the port's
   encode_png: the camera table, the recentring and every item within 1e-6.
 - scale_img_nhwc's area minification at non-integer ratios within 1e-6.
-- The refusals: a file that is not an 8-bit PNG raises naming it, a JPEG
-  view of an LLFF capture raises.
+- The refusals: a file that is not an image the port reads raises naming
+  it, a progressive JPEG view of an LLFF capture raises naming it.
 - train.main on a synthetic 24x24 NeRF folder, both passes at batch 2 in
   micro-batches of 1 (training at 16x16, so the targets take the
   non-integer area path): a run stopped after pass 1's checkpoint and
@@ -85,7 +85,7 @@ def test_nerf_image_matches_jax(split, frame):
     a, b = want[frame]['img'], got[frame]['img']
     assert b.shape == a.shape == (1, 800, 800, 4)
     np.testing.assert_allclose(b.numpy(), a, rtol=0, atol=1e-6)
-    raw = dataset_nerf.read_png(dataset_nerf._image_path(got._paths[frame]))
+    raw = t_texture.read_image(dataset_nerf._image_path(got._paths[frame]))
     assert np.array_equal(b[0, ..., 3].numpy(),
                           raw[..., 3].astype(np.float32) / np.float32(255))
 
@@ -177,9 +177,10 @@ def test_llff_matches_jax(tmp_path):
 
 
 def test_refuses_other_formats(tmp_path):
-    """A frame that is not an 8-bit PNG raises ValueError naming its file
-    (no fallback decoder); an LLFF capture of JPEG views raises
-    NotImplementedError naming the first."""
+    """A frame that is not an image the port reads raises ValueError naming
+    its file (no fallback decoder); an LLFF capture of progressive JPEG
+    views raises ValueError naming the first."""
+    from PIL import Image
     bad = tmp_path / 'r_0.png'
     bad.write_bytes(b'\xff\xd8\xff\xe0 not a png')
     with pytest.raises(ValueError, match='r_0.png'):
@@ -189,8 +190,10 @@ def test_refuses_other_formats(tmp_path):
     for sub in ('images', 'masks'):
         for i in range(2):
             src = os.path.join(folder, sub, 'im_%d.png' % i)
-            os.rename(src, src[:-3] + 'jpg')
-    with pytest.raises(NotImplementedError, match='im_0.jpg'):
+            Image.fromarray(t_texture.read_image(src)[..., 0]).save(
+                src[:-3] + 'jpg', 'JPEG', progressive=True)
+            os.remove(src)
+    with pytest.raises(ValueError, match='im_0.jpg.*progressive'):
         DatasetLLFF(folder, {'pre_load': True, 'cam_near_far': [0.1, 1e3],
                              'spp': 1}, device='cpu')
 

@@ -36,7 +36,8 @@ decorrelated and denoiser_demodulate false whose one-buffer denoiser and
 decorrelated backward launches are held against their plain versions,
 the stratum loop's backward at n_samples 17, strata 0 and 288 held
 against theirs, and the decorrelated loop against the correlated one on
-each uniform set).
+each uniform set; a frame 24 high and 32 wide against the plain CPU
+render).
 Marked `gpu`; skipped where torch.cuda.is_available() is false.  On a machine with a GPU and no JAX:
 
     python -m pytest --noconftest -m gpu tests/test_torch_kernels_cuda.py
@@ -1399,3 +1400,18 @@ def test_loop_backward_decorrelated_on_its_own_uniforms():
                                atol=1e-6 * float(grads_c[0].abs().max()))
     for a, b in zip(grads[1:], grads_c[1:]):
         assert torch.equal(a, b)
+
+
+def test_non_square_frame_matches_the_plain_cpu_render():
+    """A frame 24 high and 32 wide (a camera of that aspect, n_samples 2)
+    through the kernels on the card against the plain versions on the
+    CPU, as chip_smoke.py phase 18 checks it: the same scene, camera and
+    uniforms, 99% of the pixels within 1e-3."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA device')
+    import chip_smoke
+    from nvdiffrecmc_tpu_torch import kernels
+    kernels.build()
+    share, worst = chip_smoke.small_agreement(torch.device('cuda', 0),
+                                              (24, 32), 2)
+    assert share >= 0.99, (share, worst)

@@ -8,6 +8,7 @@ pixels (triangle ids); the Monte-Carlo buffers atol 1e-4 on >= 99.5%
 (grazing shadow rays may flip).  Also: importing the port never imports
 JAX."""
 
+import ast
 import os
 import subprocess
 import sys
@@ -103,12 +104,22 @@ def test_port_imports_no_jax():
             "'nvdiffrecmc_tpu_torch.')]\n"
             "[importlib.import_module(m) for m in mods]\n"
             "assert len(mods) >= 25, mods\n"
-            "bad = [m for m in sys.modules if m == 'jax' or "
-            "m.startswith(('jax.', 'nvdiffrecmc_tpu.'))]\n"
+            "bad = [m for m in sys.modules if m in ('jax', 'PIL', "
+            "'imageio') or m.startswith(('jax.', 'nvdiffrecmc_tpu.', "
+            "'PIL.', 'imageio.'))]\n"
             "assert not bad, bad\n")
     r = subprocess.run([sys.executable, '-c', code], cwd=REPO,
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stderr
+    # chip_smoke.py imports inside its functions: read every import of it
+    with open(os.path.join(REPO, 'chip_smoke.py')) as f:
+        tree = ast.parse(f.read())
+    names = [a.name for n in ast.walk(tree) if isinstance(n, ast.Import)
+             for a in n.names] + [n.module for n in ast.walk(tree)
+                                  if isinstance(n, ast.ImportFrom)]
+    bad = [m for m in names if m.split('.')[0] in (
+        'jax', 'nvdiffrecmc_tpu', 'PIL', 'imageio')]
+    assert not bad, bad
 
 
 def test_dataset_mesh_renders_ground_truth():
