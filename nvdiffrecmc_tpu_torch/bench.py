@@ -34,12 +34,6 @@ the JAX bench's estimate of 3.3 iter/s for the reference on an A6000,
 which publishes no number.
 
 Usage: python3 -m nvdiffrecmc_tpu_torch.bench   (needs the CUDA card)
-       python3 -m nvdiffrecmc_tpu_torch.bench --profile [dir]
-       python3 -m nvdiffrecmc_tpu_torch.bench --profile-pass1 [dir]
-(--profile: a torch.profiler trace of 5 pass-2 steps, --profile-pass1 of
-5 pass-1 steps from the random init, written to dir, by default
-out/bench_trace_pass2 or out/bench_trace_pass1 beside the package: a
-Chrome trace, trace.json, and the table of device times, table.txt.)
 """
 
 import json
@@ -213,42 +207,7 @@ def pass1_extra(iters=8, res=RES, grid=PASS1_GRID, device=None):
             'pass1_note': PASS1_NOTE}
 
 
-def profile_steps(which, trace_dir=None, steps=5):
-    """A torch.profiler trace (CPU and CUDA) of `steps` pass-2 (which
-    'pass2', bench_train's step) or pass-1 ('pass1', bench_pass1's, from
-    the random init) steps after the bench's own, into trace_dir:
-    trace.json (Chrome trace) and table.txt (device times by kernel)."""
-    from torch.profiler import ProfilerActivity, profile
-    device = resolve(None)
-    if trace_dir is None:
-        trace_dir = os.path.join(os.path.dirname(os.path.dirname(
-            os.path.abspath(__file__))), 'out', 'bench_trace_' + which)
-    if which == 'pass1':
-        _, (next_target, run), _ = bench_pass1(iters=1, device=device)
-    else:
-        FLAGS = config.make_flags(train_res=[RES, RES], n_samples=N_SAMPLES,
-                                  envlight=SPOT256_PROBE, iter=12)
-        ds = DatasetMesh(spot256_scene(device), train.RADIUS, FLAGS, seed=5)
-        _, (next_target, run), _ = bench_train(ds, FLAGS, iters=1)
-    targets = [next_target() for _ in range(steps)]
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for i, t in enumerate(targets):
-            run(t, 10 + i)
-    os.makedirs(trace_dir, exist_ok=True)
-    prof.export_chrome_trace(os.path.join(trace_dir, 'trace.json'))
-    with open(os.path.join(trace_dir, 'table.txt'), 'w') as f:
-        f.write(prof.key_averages().table(sort_by='self_cuda_time_total',
-                                          row_limit=60))
-    print('trace of %d %s steps written to %s' % (steps, which, trace_dir))
-
-
 def main():
-    for flag, which in (('--profile', 'pass2'), ('--profile-pass1', 'pass1')):
-        if flag in sys.argv:
-            idx = sys.argv.index(flag)
-            profile_steps(which, *sys.argv[idx + 1:idx + 2])
-            return
     device = resolve(None)
     t_start = time.time()
     FLAGS = config.make_flags(train_res=[RES, RES], n_samples=N_SAMPLES,

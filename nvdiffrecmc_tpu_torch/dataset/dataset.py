@@ -5,6 +5,8 @@ their state, so that a checkpoint can hold where the data loop stood."""
 import numpy as np
 import torch
 
+from .. import tracing
+
 
 def rng_state(rng):
     """A numpy RandomState's state as tensors and numbers (what torch.load
@@ -79,8 +81,9 @@ class BatchIterator:
         return idx
 
     def __next__(self):
-        return self.dataset.collate([self.dataset[int(j)]
-                                     for j in self.next_indices()])
+        with tracing.span('dataset.next'):
+            return self.dataset.collate([self.dataset[int(j)]
+                                         for j in self.next_indices()])
 
     def state_dict(self):
         return {'rng': rng_state(self.rng),

@@ -8,6 +8,7 @@ import os
 import numpy as np
 import torch
 
+from .. import tracing
 from ..device import resolve
 from ..ops import bvh as bvh_mod
 from ..ops import envshade
@@ -139,31 +140,33 @@ class DatasetMesh(Dataset):
                 else self.FLAGS['iter'] * self.FLAGS['batch'])
 
     def __getitem__(self, itr):
-        if self.validate:
-            mv, mvp, campos, res = self._rotate_scene(itr)
-        else:
-            mv, mvp, campos, res = self._random_scene()
-        self._frame_count += 1
-        gen = torch.Generator(device=self.device)
-        gen.manual_seed(self._frame_count * 7919 + 13)
-        with torch.no_grad():
-            img = render_mod.render_mesh(
-                self.FLAGS, self.ref_mesh,
-                torch.as_tensor(mvp.astype(np.float32), device=self.device),
-                torch.as_tensor(campos.astype(np.float32), device=self.device),
-                self.lgt, res, self.bvh, self.perms, gen,
-                spp=self.FLAGS['spp'], num_layers=self.FLAGS['layers'],
-                msaa=True, background=None,
-                rnd_seed=self._frame_count)['shaded']
-        return {
-            'mv': mv.astype(np.float32),
-            'mvp': mvp.astype(np.float32),
-            'campos': campos.astype(np.float32),
-            'light': self.lgt,
-            'resolution': res,
-            'spp': self.FLAGS['spp'],
-            'img': img,
-        }
+        with tracing.span('dataset.target'):
+            if self.validate:
+                mv, mvp, campos, res = self._rotate_scene(itr)
+            else:
+                mv, mvp, campos, res = self._random_scene()
+            self._frame_count += 1
+            gen = torch.Generator(device=self.device)
+            gen.manual_seed(self._frame_count * 7919 + 13)
+            dev = self.device
+            with torch.no_grad():
+                img = render_mod.render_mesh(
+                    self.FLAGS, self.ref_mesh,
+                    torch.as_tensor(mvp.astype(np.float32), device=dev),
+                    torch.as_tensor(campos.astype(np.float32), device=dev),
+                    self.lgt, res, self.bvh, self.perms, gen,
+                    spp=self.FLAGS['spp'], num_layers=self.FLAGS['layers'],
+                    msaa=True, background=None,
+                    rnd_seed=self._frame_count)['shaded']
+            return {
+                'mv': mv.astype(np.float32),
+                'mvp': mvp.astype(np.float32),
+                'campos': campos.astype(np.float32),
+                'light': self.lgt,
+                'resolution': res,
+                'spp': self.FLAGS['spp'],
+                'img': img,
+            }
 
     def collate(self, batch):
         """Stack a list of items into one batch (images, cameras)."""

@@ -7,6 +7,7 @@ import dataclasses
 
 import torch
 
+from .. import tracing
 from ..render import mesh as mesh_mod
 from ..render import regularizer
 from ..render import render as render_mod
@@ -28,12 +29,13 @@ class DLMesh:
         return self.init_params
 
     def getMesh(self, params, material, build_bvh=True):
-        m = dataclasses.replace(self.base_mesh, v_pos=params['v_pos'],
-                                material=material)
-        m = mesh_mod.auto_normals(m)
-        m = mesh_mod.compute_tangents(m)
-        bvh = bvh_mod.build(m.v_pos, m.t_pos_idx) if build_bvh else None
-        return m, bvh
+        with tracing.span('geometry.mesh'):
+            m = dataclasses.replace(self.base_mesh, v_pos=params['v_pos'],
+                                    material=material)
+            m = mesh_mod.auto_normals(m)
+            m = mesh_mod.compute_tangents(m)
+            bvh = bvh_mod.build(m.v_pos, m.t_pos_idx) if build_bvh else None
+            return m, bvh
 
     def tick(self, params, material, lgt, target, loss_fn, iteration, FLAGS,
              denoiser_sigma, perms, generator, rnd_seed, uniforms=None,
@@ -51,32 +53,34 @@ class DLMesh:
             shadow_scale=1.0, rnd_seed=rnd_seed, uniforms=uniforms,
             offsets=offsets)
 
-        t_iter = iteration / FLAGS['iter']
-        img_loss = torch.mean(
-            (buffers['shaded'][..., 3:] - color_ref[..., 3:]) ** 2)
-        img_loss = img_loss + loss_fn(
-            buffers['shaded'][..., 0:3] * color_ref[..., 3:],
-            color_ref[..., 0:3] * color_ref[..., 3:])
+        with tracing.span('train.loss'):
+            t_iter = iteration / FLAGS['iter']
+            img_loss = torch.mean(
+                (buffers['shaded'][..., 3:] - color_ref[..., 3:]) ** 2)
+            img_loss = img_loss + loss_fn(
+                buffers['shaded'][..., 0:3] * color_ref[..., 3:],
+                color_ref[..., 0:3] * color_ref[..., 3:])
 
-        reg_loss = regularizer.shading_loss(
-            buffers['diffuse_light'], buffers['specular_light'], color_ref,
-            FLAGS['lambda_diffuse'], FLAGS['lambda_specular'])
-        reg_loss = reg_loss + regularizer.material_smoothness_grad(
-            buffers['kd_grad'], buffers['ks_grad'], buffers['normal_grad'],
-            lambda_kd=FLAGS['lambda_kd'], lambda_ks=FLAGS['lambda_ks'],
-            lambda_nrm=FLAGS['lambda_nrm'])
-        reg_loss = reg_loss + regularizer.chroma_loss(
-            buffers['kd'], color_ref, FLAGS['lambda_chroma'])
-        if 'perturbed_nrm_grad' in buffers:
-            reg_loss = reg_loss + (torch.mean(buffers['perturbed_nrm_grad'])
-                                   * FLAGS['lambda_nrm2'])
-        if FLAGS['laplace'] == 'absolute':
-            reg_loss = reg_loss + (mesh_ops.laplace_uniform(
-                params['v_pos'], self.base_mesh.t_pos_idx)
-                * FLAGS['laplace_scale'] * (1 - t_iter))
-        elif FLAGS['laplace'] == 'relative':
-            reg_loss = reg_loss + (mesh_ops.laplace_uniform(
-                params['v_pos'] - self.initial_guess.v_pos,
-                self.base_mesh.t_pos_idx)
-                * FLAGS['laplace_scale'] * (1 - t_iter))
-        return img_loss, reg_loss
+            reg_loss = regularizer.shading_loss(
+                buffers['diffuse_light'], buffers['specular_light'], color_ref,
+                FLAGS['lambda_diffuse'], FLAGS['lambda_specular'])
+            reg_loss = reg_loss + regularizer.material_smoothness_grad(
+                buffers['kd_grad'], buffers['ks_grad'], buffers['normal_grad'],
+                lambda_kd=FLAGS['lambda_kd'], lambda_ks=FLAGS['lambda_ks'],
+                lambda_nrm=FLAGS['lambda_nrm'])
+            reg_loss = reg_loss + regularizer.chroma_loss(
+                buffers['kd'], color_ref, FLAGS['lambda_chroma'])
+            if 'perturbed_nrm_grad' in buffers:
+                reg_loss = reg_loss + (
+                    torch.mean(buffers['perturbed_nrm_grad'])
+                    * FLAGS['lambda_nrm2'])
+            if FLAGS['laplace'] == 'absolute':
+                reg_loss = reg_loss + (mesh_ops.laplace_uniform(
+                    params['v_pos'], self.base_mesh.t_pos_idx)
+                    * FLAGS['laplace_scale'] * (1 - t_iter))
+            elif FLAGS['laplace'] == 'relative':
+                reg_loss = reg_loss + (mesh_ops.laplace_uniform(
+                    params['v_pos'] - self.initial_guess.v_pos,
+                    self.base_mesh.t_pos_idx)
+                    * FLAGS['laplace_scale'] * (1 - t_iter))
+            return img_loss, reg_loss

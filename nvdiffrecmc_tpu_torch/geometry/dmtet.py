@@ -22,6 +22,7 @@ import os
 import numpy as np
 import torch
 
+from .. import tracing
 from ..device import resolve
 from ..ops import bvh as bvh_mod
 from ..ops.vecmath import abs_pos0, maximum_split
@@ -312,20 +313,23 @@ class DMTetGeometry:
         """The surface in training's fixed max_tris slots or, when whole,
         in buffers sized to it (every triangle; one host sync), and its
         BVH."""
-        v_deformed = (self.verts + 2.0 / (self.grid_res * 2)
-                      * torch.tanh(params['deform']))
-        verts, faces, face_gidx, tri_mask, _ = marching_tets(
-            v_deformed, params['sdf'], self.indices, self.edge_uniq,
-            self.edge_map, None if whole else self.max_tris)
-        v_tex, t_tex_idx = face_uvs(face_gidx, self.num_tets, self.uv_N)
-        m = mesh_mod.Mesh(v_pos=verts, t_pos_idx=faces, v_tex=v_tex,
-                          t_tex_idx=t_tex_idx, tri_mask=tri_mask,
-                          material=material)
-        m = mesh_mod.auto_normals(m)
-        m = mesh_mod.compute_tangents(m)
-        bvh = (bvh_mod.build(m.v_pos, m.t_pos_idx, tri_mask=tri_mask > 0)
-               if build_bvh else None)
-        return m, bvh
+        with tracing.span('geometry.mesh'):
+            v_deformed = (self.verts + 2.0 / (self.grid_res * 2)
+                          * torch.tanh(params['deform']))
+            with tracing.span('geometry.marching_tets'):
+                verts, faces, face_gidx, tri_mask, _ = marching_tets(
+                    v_deformed, params['sdf'], self.indices, self.edge_uniq,
+                    self.edge_map, None if whole else self.max_tris)
+            v_tex, t_tex_idx = face_uvs(face_gidx, self.num_tets, self.uv_N)
+            m = mesh_mod.Mesh(v_pos=verts, t_pos_idx=faces, v_tex=v_tex,
+                              t_tex_idx=t_tex_idx, tri_mask=tri_mask,
+                              material=material)
+            m = mesh_mod.auto_normals(m)
+            m = mesh_mod.compute_tangents(m)
+            bvh = (bvh_mod.build(m.v_pos, m.t_pos_idx,
+                                 tri_mask=tri_mask > 0)
+                   if build_bvh else None)
+            return m, bvh
 
     def tick(self, params, material, lgt, target, loss_fn, iteration, FLAGS,
              denoiser_sigma, perms, generator, rnd_seed, uniforms=None,
@@ -346,20 +350,21 @@ class DMTetGeometry:
             shadow_scale=shadow_ramp, rnd_seed=rnd_seed, uniforms=uniforms,
             offsets=offsets)
 
-        img_loss = torch.mean(
-            (buffers['shaded'][..., 3:] - color_ref[..., 3:]) ** 2)
-        img_loss = img_loss + loss_fn(
-            buffers['shaded'][..., 0:3] * color_ref[..., 3:],
-            color_ref[..., 0:3] * color_ref[..., 3:])
+        with tracing.span('train.loss'):
+            img_loss = torch.mean(
+                (buffers['shaded'][..., 3:] - color_ref[..., 3:]) ** 2)
+            img_loss = img_loss + loss_fn(
+                buffers['shaded'][..., 0:3] * color_ref[..., 3:],
+                color_ref[..., 0:3] * color_ref[..., 3:])
 
-        reg_loss = sdf_reg_loss(params['sdf'], self.edge_uniq) * sdf_weight
-        reg_loss = reg_loss + regularizer.shading_loss(
-            buffers['diffuse_light'], buffers['specular_light'], color_ref,
-            FLAGS['lambda_diffuse'], FLAGS['lambda_specular'])
-        reg_loss = reg_loss + regularizer.material_smoothness_grad(
-            buffers['kd_grad'], buffers['ks_grad'], buffers['normal_grad'],
-            lambda_kd=FLAGS['lambda_kd'], lambda_ks=FLAGS['lambda_ks'],
-            lambda_nrm=FLAGS['lambda_nrm'])
-        reg_loss = reg_loss + regularizer.chroma_loss(
-            buffers['kd'], color_ref, FLAGS['lambda_chroma'])
-        return img_loss, reg_loss
+            reg_loss = sdf_reg_loss(params['sdf'], self.edge_uniq) * sdf_weight
+            reg_loss = reg_loss + regularizer.shading_loss(
+                buffers['diffuse_light'], buffers['specular_light'], color_ref,
+                FLAGS['lambda_diffuse'], FLAGS['lambda_specular'])
+            reg_loss = reg_loss + regularizer.material_smoothness_grad(
+                buffers['kd_grad'], buffers['ks_grad'], buffers['normal_grad'],
+                lambda_kd=FLAGS['lambda_kd'], lambda_ks=FLAGS['lambda_ks'],
+                lambda_nrm=FLAGS['lambda_nrm'])
+            reg_loss = reg_loss + regularizer.chroma_loss(
+                buffers['kd'], color_ref, FLAGS['lambda_chroma'])
+            return img_loss, reg_loss

@@ -1,4 +1,5 @@
-"""Build, load and launch-count the hand-written CUDA kernels of the port.
+"""Build and load the hand-written CUDA kernels of the port (their launch
+counts are tracing.LAUNCHES, here as LAUNCHES).
 
 The sources under ``csrc/`` have a plain C interface (one ``extern "C"``
 entry per kernel, returning the ``cudaError_t`` of its launch) and are
@@ -17,6 +18,10 @@ import shutil
 import subprocess
 import time
 
+# Launches per kernel: the registry lives in tracing; each wrapper adds one
+# to kernels.LAUNCHES (the same dict) where it launches its kernel.
+from .tracing import LAUNCHES, reset_launches  # noqa: F401
+
 _PKG_DIR = os.path.dirname(os.path.abspath(__file__))
 CSRC_DIR = os.path.join(_PKG_DIR, 'csrc')
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), 'build',
@@ -27,13 +32,6 @@ LIB_PATH = os.path.join(BUILD_DIR, 'libkernels.so')
 # like its plain PyTorch version, whose elementwise ops are never fused.
 NVCC_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-O3', '--fmad=false', '-Xcompiler', '-fPIC']
-
-# Launches per kernel.  Each wrapper adds one where it launches its kernel
-# and nowhere else; reset_launches() zeroes them.
-LAUNCHES = {'resolve': 0, 'sample_guide': 0, 'sample': 0, 'trace_shade': 0,
-            'denoise': 0, 'denoise_grad': 0, 'denoise_one': 0,
-            'denoise_one_grad': 0, 'shade_bwd': 0,
-            'light_scatter': 0, 'scatter': 0, 'trace': 0, 'mask': 0}
 
 _VP = ctypes.c_void_p
 _I = ctypes.c_int
@@ -60,11 +58,6 @@ _SIGNATURES = {
 }
 
 _lib = None
-
-
-def reset_launches():
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
 
 
 def _nvcc():

@@ -25,6 +25,8 @@ import math
 
 import torch
 
+from .. import tracing
+
 SUPER = 8          # leaves per supernode
 SUB = 8            # triangles per sub-box (at most; see build)
 TRI_STRIDE = 24    # floats per triangle row
@@ -110,60 +112,62 @@ def build(v_pos, tri, tri_mask=None, leaf_size=None):
     the same AABB_PAD of the scene extent, so a sub-box lies inside its
     leaf's box and a ray's float slab test never enters a sub-box without
     entering its leaf."""
-    v_pos = v_pos.detach()
-    T = tri.shape[0]
-    L = leaf_size or leaf_size_for(T)
-    t = tri.long()
-    v0, v1, v2 = v_pos[t[:, 0]], v_pos[t[:, 1]], v_pos[t[:, 2]]
-    valid = (torch.ones(T, dtype=torch.bool, device=v_pos.device)
-             if tri_mask is None else tri_mask.bool())
-    area2 = torch.sum(torch.linalg.cross(v1 - v0, v2 - v0) ** 2, dim=-1)
-    valid = valid & (area2 > 0.0)
+    with tracing.span('geometry.bvh'):
+        v_pos = v_pos.detach()
+        T = tri.shape[0]
+        L = leaf_size or leaf_size_for(T)
+        t = tri.long()
+        v0, v1, v2 = v_pos[t[:, 0]], v_pos[t[:, 1]], v_pos[t[:, 2]]
+        valid = (torch.ones(T, dtype=torch.bool, device=v_pos.device)
+                 if tri_mask is None else tri_mask.bool())
+        area2 = torch.sum(torch.linalg.cross(v1 - v0, v2 - v0) ** 2, dim=-1)
+        valid = valid & (area2 > 0.0)
 
-    centroid = (v0 + v1 + v2) / 3.0
-    big = 3e37
-    cmin = torch.where(valid[:, None], centroid, big).amin(0)
-    cmax = torch.where(valid[:, None], centroid, -big).amax(0)
-    scale = torch.where(cmax > cmin, 1023.0 / (cmax - cmin),
-                        torch.zeros_like(cmin))
-    q = torch.clamp((centroid - cmin) * scale, 0, 1023).to(torch.int64)
-    key = torch.where(valid, _morton3(q), torch.full_like(q[:, 0], 1 << 40))
-    order = torch.argsort(key, stable=True)
-    v0, v1, v2, valid = v0[order], v1[order], v2[order], valid[order]
+        centroid = (v0 + v1 + v2) / 3.0
+        big = 3e37
+        cmin = torch.where(valid[:, None], centroid, big).amin(0)
+        cmax = torch.where(valid[:, None], centroid, -big).amax(0)
+        scale = torch.where(cmax > cmin, 1023.0 / (cmax - cmin),
+                            torch.zeros_like(cmin))
+        q = torch.clamp((centroid - cmin) * scale, 0, 1023).to(torch.int64)
+        key = torch.where(valid, _morton3(q),
+                          torch.full_like(q[:, 0], 1 << 40))
+        order = torch.argsort(key, stable=True)
+        v0, v1, v2, valid = v0[order], v1[order], v2[order], valid[order]
 
-    pad = (-T) % L
-    if pad:
-        z = v0.new_zeros((pad, 3))
-        v0, v1, v2 = (torch.cat([v, z]) for v in (v0, v1, v2))
-        valid = torch.cat([valid, valid.new_zeros(pad)])
-    C = (T + pad) // L
-    G = math.gcd(SUB, L)
-    rows = tri_rows(v0, v1, v2, valid.float())
+        pad = (-T) % L
+        if pad:
+            z = v0.new_zeros((pad, 3))
+            v0, v1, v2 = (torch.cat([v, z]) for v in (v0, v1, v2))
+            valid = torch.cat([valid, valid.new_zeros(pad)])
+        C = (T + pad) // L
+        G = math.gcd(SUB, L)
+        rows = tri_rows(v0, v1, v2, valid.float())
 
-    # sub-box extents first; a leaf's extent is the min/max of its
-    # sub-boxes', the same floats as over its points
-    pts = torch.stack([v0, v1, v2], dim=1).reshape(C * L // G, G * 3, 3)
-    mk = valid.reshape(-1, G).repeat_interleave(3, dim=1)[..., None]
-    sub_lo = torch.where(mk, pts, big).amin(1)
-    sub_hi = torch.where(mk, pts, -big).amax(1)
-    lo = sub_lo.reshape(C, L // G, 3).amin(1)
-    hi = sub_hi.reshape(C, L // G, 3).amax(1)
-    occupied = valid.reshape(C, L).any(1, keepdim=True)
-    extent = torch.where(occupied, torch.maximum(lo.abs(), hi.abs()), 0.0)
-    grow = AABB_PAD * extent.amax()
-    lo = torch.where(occupied, lo - grow, lo)
-    hi = torch.where(occupied, hi + grow, hi)
-    sub_occupied = mk.any(1)
-    sub_lo = torch.where(sub_occupied, sub_lo - grow, sub_lo)
-    sub_hi = torch.where(sub_occupied, sub_hi + grow, sub_hi)
+        # sub-box extents first; a leaf's extent is the min/max of its
+        # sub-boxes', the same floats as over its points
+        pts = torch.stack([v0, v1, v2], dim=1).reshape(C * L // G, G * 3, 3)
+        mk = valid.reshape(-1, G).repeat_interleave(3, dim=1)[..., None]
+        sub_lo = torch.where(mk, pts, big).amin(1)
+        sub_hi = torch.where(mk, pts, -big).amax(1)
+        lo = sub_lo.reshape(C, L // G, 3).amin(1)
+        hi = sub_hi.reshape(C, L // G, 3).amax(1)
+        occupied = valid.reshape(C, L).any(1, keepdim=True)
+        extent = torch.where(occupied, torch.maximum(lo.abs(), hi.abs()), 0.0)
+        grow = AABB_PAD * extent.amax()
+        lo = torch.where(occupied, lo - grow, lo)
+        hi = torch.where(occupied, hi + grow, hi)
+        sub_occupied = mk.any(1)
+        sub_lo = torch.where(sub_occupied, sub_lo - grow, sub_lo)
+        sub_hi = torch.where(sub_occupied, sub_hi + grow, sub_hi)
 
-    spad = (-C) % SUPER
-    lo_p = torch.cat([lo, lo.new_full((spad, 3), big)]) if spad else lo
-    hi_p = torch.cat([hi, hi.new_full((spad, 3), -big)]) if spad else hi
-    S = (C + spad) // SUPER
-    return LeafBVH(tri=rows.contiguous(), aabb_lo=lo.contiguous(),
-                   aabb_hi=hi.contiguous(),
-                   super_lo=lo_p.reshape(S, SUPER, 3).amin(1).contiguous(),
-                   super_hi=hi_p.reshape(S, SUPER, 3).amax(1).contiguous(),
-                   sub_lo=sub_lo.contiguous(), sub_hi=sub_hi.contiguous(),
-                   leaf_size=L, sub_size=G)
+        spad = (-C) % SUPER
+        lo_p = torch.cat([lo, lo.new_full((spad, 3), big)]) if spad else lo
+        hi_p = torch.cat([hi, hi.new_full((spad, 3), -big)]) if spad else hi
+        S = (C + spad) // SUPER
+        return LeafBVH(tri=rows.contiguous(), aabb_lo=lo.contiguous(),
+                       aabb_hi=hi.contiguous(),
+                       super_lo=lo_p.reshape(S, SUPER, 3).amin(1).contiguous(),
+                       super_hi=hi_p.reshape(S, SUPER, 3).amax(1).contiguous(),
+                       sub_lo=sub_lo.contiguous(), sub_hi=sub_hi.contiguous(),
+                       leaf_size=L, sub_size=G)

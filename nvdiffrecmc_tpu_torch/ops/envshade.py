@@ -31,6 +31,7 @@ not carried over."""
 import numpy as np
 import torch
 
+from .. import tracing
 from ..device import resolve
 from . import pallas_shade, tracer
 from .vecmath import dot, safe_normalize
@@ -204,6 +205,7 @@ class _EnvShadeLoop(torch.autograd.Function):
                               *([] if uniforms is None else [uniforms]))
         ctx.meta = (bvh, perms, seed, ss, BSDF, n_samples_x)
         mf = m[:, None].float()
+        tracing.count('shadow_rays', mf, n2)
         return diff * mf, spec * mf
 
     @staticmethod

@@ -42,7 +42,7 @@ import math
 
 import torch
 
-from .. import kernels
+from .. import kernels, tracing
 from ..device import resolve
 from . import envshade, pallas_tracer, tracer
 from .vecmath import clip_split, maximum_split
@@ -803,6 +803,7 @@ def env_shade_fused(mask, ro, gb_pos, gb_normal, gb_view_pos, gb_kd, gb_ks,
     dev = gb_pos.device
     n2 = n_samples_x * n_samples_x
     m_row = (mask.detach().reshape(1, P) > 0).float()
+    tracing.count('shadow_rays', m_row, n2)
     pos, nrm, view, kd, ks = (x.reshape(P, 3) for x in
                               (gb_pos, gb_normal, gb_view_pos, gb_kd, gb_ks))
     ro_f = ro.detach().reshape(P, 3)

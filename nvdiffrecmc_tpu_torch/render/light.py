@@ -9,6 +9,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from .. import tracing
 from ..device import resolve
 from ..ops import vecmath
 from ..ops.texture import bilinear_sample
@@ -44,20 +45,24 @@ def update_pdf(base):
     """Sampling tables from the probe: pdf = max(base, channel) *
     sin(theta), normalized; cols = per-row cumsum; rows = cumsum of row
     sums; both CDFs normalized."""
-    base = base.detach()
-    H = base.shape[0]
-    Y = (torch.arange(H, dtype=torch.float32, device=base.device) + 0.5) / H
-    pdf = torch.amax(base, dim=-1) * torch.sin(Y * math.pi)[:, None]
-    pdf = pdf / torch.clamp(torch.sum(pdf), min=1e-20)
+    with tracing.span('light.tables'):
+        base = base.detach()
+        H = base.shape[0]
+        Y = (torch.arange(H, dtype=torch.float32, device=base.device)
+             + 0.5) / H
+        pdf = torch.amax(base, dim=-1) * torch.sin(Y * math.pi)[:, None]
+        pdf = pdf / torch.clamp(torch.sum(pdf), min=1e-20)
 
-    cols = torch.cumsum(pdf, dim=1)
-    rows = torch.cumsum(cols[:, -1], dim=0)
+        cols = torch.cumsum(pdf, dim=1)
+        rows = torch.cumsum(cols[:, -1], dim=0)
 
-    col_tot = cols[:, -1:]
-    cols = cols / torch.where(col_tot > 0, col_tot, torch.ones_like(col_tot))
-    row_tot = rows[-1]
-    rows = rows / torch.where(row_tot > 0, row_tot, torch.ones_like(row_tot))
-    return LightTables(pdf=pdf, rows=rows, cols=cols)
+        col_tot = cols[:, -1:]
+        cols = cols / torch.where(col_tot > 0, col_tot,
+                                  torch.ones_like(col_tot))
+        row_tot = rows[-1]
+        rows = rows / torch.where(row_tot > 0, row_tot,
+                                  torch.ones_like(row_tot))
+        return LightTables(pdf=pdf, rows=rows, cols=cols)
 
 
 def _decode_scanlines(payload, H, W):

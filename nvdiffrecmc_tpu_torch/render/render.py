@@ -12,6 +12,7 @@ bakes a neural material into textures at the pass boundary."""
 
 import torch
 
+from .. import tracing
 from ..ops import envshade
 from ..ops import mesh_ops
 from ..ops import rasterizer as ras
@@ -266,52 +267,56 @@ def render_gbuffer(FLAGS, mesh, mtx_in, view_pos, resolution, spp,
     G-buffer and shade_pre (layer i jitters by offsets[i] when given: an
     offset, or an (offset, position noise) pair for a neural material).
     Returns (v_pos_clip, [(pre, rast), ...])."""
-    full_res = [resolution[0] * spp, resolution[1] * spp]
-    view_pos = view_pos[:, None, None, :]
-    v_pos_clip = xfm.xfm_points(mesh.v_pos, mtx_in)
-    layers = []
-    prev_rast = None
-    for i in range(num_layers):
-        rast, rast_db = ras.rasterize(v_pos_clip, mesh.t_pos_idx, full_res,
-                                      prev_rast=prev_rast)
-        prev_rast = rast
-        (rast_out_s, gb_depth, gb_pos, gb_geometric_normal, gb_normal,
-         gb_tangent, gb_texc, gb_texc_deriv) = gbuffer_layer(
-            v_pos_clip, rast, rast_db, mesh, resolution, spp, msaa)
-        off = None if offsets is None else offsets[i]
-        off, noise = off if isinstance(off, tuple) else (off, None)
-        pre = shade_pre(FLAGS, rast_out_s, gb_depth, gb_pos,
-                        gb_geometric_normal, gb_normal, gb_tangent, gb_texc,
-                        gb_texc_deriv, view_pos, mesh.material, bsdf,
-                        generator, off, noise)
-        layers.append((pre, rast))
-    return v_pos_clip, layers
+    with tracing.span('render.gbuffer'):
+        full_res = [resolution[0] * spp, resolution[1] * spp]
+        view_pos = view_pos[:, None, None, :]
+        v_pos_clip = xfm.xfm_points(mesh.v_pos, mtx_in)
+        layers = []
+        prev_rast = None
+        for i in range(num_layers):
+            rast, rast_db = ras.rasterize(v_pos_clip, mesh.t_pos_idx,
+                                          full_res, prev_rast=prev_rast)
+            prev_rast = rast
+            (rast_out_s, gb_depth, gb_pos, gb_geometric_normal, gb_normal,
+             gb_tangent, gb_texc, gb_texc_deriv) = gbuffer_layer(
+                v_pos_clip, rast, rast_db, mesh, resolution, spp, msaa)
+            off = None if offsets is None else offsets[i]
+            off, noise = off if isinstance(off, tuple) else (off, None)
+            pre = shade_pre(FLAGS, rast_out_s, gb_depth, gb_pos,
+                            gb_geometric_normal, gb_normal, gb_tangent,
+                            gb_texc, gb_texc_deriv, view_pos, mesh.material,
+                            bsdf, generator, off, noise)
+            layers.append((pre, rast))
+        return v_pos_clip, layers
 
 
 def render_mc(FLAGS, layers, lgt, bvh, bsdf, shadow_scale, rnd_seed, perms,
               uniforms=None):
     """Stage 2: MC env shading per depth layer (layer i uses rnd_seed + i,
     or uniforms[i] when given)."""
-    return [shade_mc(FLAGS, pre, lgt, bvh, bsdf, shadow_scale, rnd_seed + i,
-                     perms, None if uniforms is None else uniforms[i])
-            for i, (pre, _) in enumerate(layers)]
+    with tracing.span('render.shade'):
+        return [shade_mc(FLAGS, pre, lgt, bvh, bsdf, shadow_scale,
+                         rnd_seed + i, perms,
+                         None if uniforms is None else uniforms[i])
+                for i, (pre, _) in enumerate(layers)]
 
 
 def render_finish(FLAGS, mesh, v_pos_clip, layers, mc, resolution, spp,
                   msaa, background, bsdf, denoiser_sigma):
     """Stage 3: shade_post per layer, MSAA upscale, front-to-back
     composite with per-layer antialiasing, spp pooling."""
-    full_res = [resolution[0] * spp, resolution[1] * spp]
-    buf_layers = []
-    for (pre, rast), (da, sa) in zip(layers, mc):
-        buffers = shade_post(FLAGS, pre, da, sa, bsdf, denoiser_sigma)
-        if spp > 1 and msaa:
-            buffers = {k: scale_img_nhwc(v, full_res, mag='nearest',
-                                         min='nearest')
-                       for k, v in buffers.items()}
-        buf_layers.append((buffers, rast))
-    return _composite(FLAGS, mesh, v_pos_clip, buf_layers, full_res, spp,
-                      background)
+    with tracing.span('render.finish'):
+        full_res = [resolution[0] * spp, resolution[1] * spp]
+        buf_layers = []
+        for (pre, rast), (da, sa) in zip(layers, mc):
+            buffers = shade_post(FLAGS, pre, da, sa, bsdf, denoiser_sigma)
+            if spp > 1 and msaa:
+                buffers = {k: scale_img_nhwc(v, full_res, mag='nearest',
+                                             min='nearest')
+                           for k, v in buffers.items()}
+            buf_layers.append((buffers, rast))
+        return _composite(FLAGS, mesh, v_pos_clip, buf_layers, full_res, spp,
+                          background)
 
 
 def render_mesh(FLAGS, mesh, mtx_in, view_pos, lgt, resolution, bvh, perms,

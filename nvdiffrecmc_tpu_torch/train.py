@@ -33,7 +33,7 @@ import time
 import numpy as np
 import torch
 
-from . import config, kernels
+from . import config, kernels, tracing
 from .dataset import BatchIterator, DatasetLLFF, DatasetMesh, DatasetNERF
 from .dataset.dataset_mesh import load_env_or_procedural
 from .device import resolve
@@ -72,34 +72,36 @@ def prepare_batch(target, train_res, bg_type, generator, FLAGS):
     """Mix the target's RGBA image over a background ('checker', 'black',
     'white', 'reference' or 'random', the last drawn from generator) and
     carry its camera over as tensors on the image's device."""
-    img = target['img']
-    dev = img.device
-    if train_res[0] != img.shape[1] or train_res[1] != img.shape[2]:
-        img = vecmath.scale_img_nhwc(img, train_res)
-    B, H, W = img.shape[0:3]
-    if bg_type == 'checker':
-        background = torch.as_tensor(vecmath.checkerboard((H, W), 8),
-                                     device=dev)[None].repeat(B, 1, 1, 1)
-    elif bg_type == 'black':
-        background = torch.zeros((B, H, W, 3), device=dev)
-    elif bg_type == 'white':
-        background = torch.ones((B, H, W, 3), device=dev)
-    elif bg_type == 'reference':
-        background = img[..., 0:3]
-    elif bg_type == 'random':
-        background = torch.rand((B, H, W, 3), generator=generator,
-                                device=dev)
-    else:
-        raise AssertionError('Unknown background type %s' % bg_type)
-    alpha = img[..., 3:4]
-    out = dict(target)
-    out['img'] = torch.cat((background * (1 - alpha) + img[..., 0:3] * alpha,
-                            alpha), dim=-1)
-    out['background'] = background
-    out['resolution'] = tuple(train_res)
-    out['mvp'] = torch.as_tensor(target['mvp'], device=dev)
-    out['campos'] = torch.as_tensor(target['campos'], device=dev)
-    return out
+    with tracing.span('dataset.prepare'):
+        img = target['img']
+        dev = img.device
+        if train_res[0] != img.shape[1] or train_res[1] != img.shape[2]:
+            img = vecmath.scale_img_nhwc(img, train_res)
+        B, H, W = img.shape[0:3]
+        if bg_type == 'checker':
+            background = torch.as_tensor(vecmath.checkerboard((H, W), 8),
+                                         device=dev)[None].repeat(B, 1, 1, 1)
+        elif bg_type == 'black':
+            background = torch.zeros((B, H, W, 3), device=dev)
+        elif bg_type == 'white':
+            background = torch.ones((B, H, W, 3), device=dev)
+        elif bg_type == 'reference':
+            background = img[..., 0:3]
+        elif bg_type == 'random':
+            background = torch.rand((B, H, W, 3), generator=generator,
+                                    device=dev)
+        else:
+            raise AssertionError('Unknown background type %s' % bg_type)
+        alpha = img[..., 3:4]
+        out = dict(target)
+        out['img'] = torch.cat(
+            (background * (1 - alpha) + img[..., 0:3] * alpha, alpha),
+            dim=-1)
+        out['background'] = background
+        out['resolution'] = tuple(train_res)
+        out['mvp'] = torch.as_tensor(target['mvp'], device=dev)
+        out['campos'] = torch.as_tensor(target['campos'], device=dev)
+        return out
 
 
 def initial_guess_material(geometry, mlp, FLAGS, init_mat=None,
@@ -306,22 +308,25 @@ def compute_grads(geometry, params, mat_static, target, it, FLAGS, loss_fn,
     """Render target's view with the current parameters and backpropagate
     img_loss + reg_loss into their .grad, added to what .grad holds (see
     clear_grads).  Returns (img_loss, reg_loss), detached."""
-    tables = light_mod.update_pdf(params['light'])
-    lgt = {'base': params['light'], 'pdf': tables.pdf, 'rows': tables.rows,
-           'cols': tables.cols}
-    sigma = None
-    if FLAGS['denoiser'] == 'bilateral':
-        # pass 1 ramps the denoiser with the shadows (dmtet.py:220-221)
-        sigma = (denoiser_sigma(it, FLAGS)
-                 if isinstance(geometry, DMTetGeometry) else 2.0)
-    target_full = dict(target, resolution=tuple(FLAGS['train_res']),
-                       spp=FLAGS['spp'])
-    material = make_material(params['mat'], mat_static)
-    img_loss, reg_loss = geometry.tick(
-        params['geo'], material, lgt, target_full, loss_fn, it, FLAGS, sigma,
-        perms, generator, rnd_seed=int(it), uniforms=uniforms,
-        offsets=offsets)
-    (img_loss + reg_loss).backward()
+    with tracing.span('train.forward'):
+        tables = light_mod.update_pdf(params['light'])
+        lgt = {'base': params['light'], 'pdf': tables.pdf,
+               'rows': tables.rows, 'cols': tables.cols}
+        sigma = None
+        if FLAGS['denoiser'] == 'bilateral':
+            # pass 1 ramps the denoiser with the shadows (dmtet.py:220-221)
+            sigma = (denoiser_sigma(it, FLAGS)
+                     if isinstance(geometry, DMTetGeometry) else 2.0)
+        target_full = dict(target, resolution=tuple(FLAGS['train_res']),
+                           spp=FLAGS['spp'])
+        material = make_material(params['mat'], mat_static)
+        img_loss, reg_loss = geometry.tick(
+            params['geo'], material, lgt, target_full, loss_fn, it, FLAGS,
+            sigma, perms, generator, rnd_seed=int(it), uniforms=uniforms,
+            offsets=offsets)
+        loss = img_loss + reg_loss
+    with tracing.span('train.backward'):
+        loss.backward()
     return img_loss.detach(), reg_loss.detach()
 
 
@@ -334,25 +339,27 @@ def apply_grads(params, optimizers, mat_static, FLAGS):
     one Adam step per optimized group (lock_pos and lock_light each hold a
     group: its parameters, Adam state and schedule stay as they are), the
     projections (the light's applies locked or not, as in JAX)."""
-    locked = {'geo': FLAGS['lock_pos'], 'light': FLAGS['lock_light']}
-    if FLAGS['learn_lighting'] and not locked['light']:
-        params['light'].grad.mul_(64.0)
-    if mat_static.get('kind') == 'mlp':
-        params['mat']['table'].grad.mul_(128.0 / 8.0)
-    if FLAGS['clip_max_norm'] > 0.0:
-        grads = [p.grad for p in _group(params['geo']) + _group(params['mat'])
-                 if p.grad is not None]
-        norm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
-        scale = torch.clamp(FLAGS['clip_max_norm']
-                            / torch.clamp(norm, min=1e-12), max=1.0)
-        for g in grads:
-            g.mul_(scale)
-    for name, (opt, sched) in optimizers.items():
-        if not locked.get(name, False):
-            opt.step()
-            sched.step()
-    clamp_material(params['mat'], mat_static)
-    params['light'].clamp_(min=0.01)
+    with tracing.span('train.optimizer'):
+        locked = {'geo': FLAGS['lock_pos'], 'light': FLAGS['lock_light']}
+        if FLAGS['learn_lighting'] and not locked['light']:
+            params['light'].grad.mul_(64.0)
+        if mat_static.get('kind') == 'mlp':
+            params['mat']['table'].grad.mul_(128.0 / 8.0)
+        if FLAGS['clip_max_norm'] > 0.0:
+            grads = [p.grad for p in
+                     _group(params['geo']) + _group(params['mat'])
+                     if p.grad is not None]
+            norm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
+            scale = torch.clamp(FLAGS['clip_max_norm']
+                                / torch.clamp(norm, min=1e-12), max=1.0)
+            for g in grads:
+                g.mul_(scale)
+        for name, (opt, sched) in optimizers.items():
+            if not locked.get(name, False):
+                opt.step()
+                sched.step()
+        clamp_material(params['mat'], mat_static)
+        params['light'].clamp_(min=0.01)
 
 
 def batch_slice(target, i, n):
@@ -395,9 +402,10 @@ def train_step(geometry, params, optimizers, mat_static, target, it, FLAGS,
                loss_fn, perms, generator, **kw):
     """One optimizer step: micro_grads (kw: uniforms, offsets, one entry
     per slice), then apply_grads.  Returns (img_loss, reg_loss)."""
-    losses = micro_grads(geometry, params, mat_static, target, it, FLAGS,
-                         loss_fn, perms, generator, **kw)
-    apply_grads(params, optimizers, mat_static, FLAGS)
+    with tracing.span('train.step', str(it)):
+        losses = micro_grads(geometry, params, mat_static, target, it,
+                             FLAGS, loss_fn, perms, generator, **kw)
+        apply_grads(params, optimizers, mat_static, FLAGS)
     return losses
 
 
