@@ -9,7 +9,7 @@ import numpy as np
 import torch
 
 from .. import tracing
-from ..device import resolve
+from ..device import resolve, upload
 from ..ops import bvh as bvh_mod
 from ..ops import envshade
 from ..ops import vecmath
@@ -152,8 +152,8 @@ class DatasetMesh(Dataset):
             with torch.no_grad():
                 img = render_mod.render_mesh(
                     self.FLAGS, self.ref_mesh,
-                    torch.as_tensor(mvp.astype(np.float32), device=dev),
-                    torch.as_tensor(campos.astype(np.float32), device=dev),
+                    upload(mvp.astype(np.float32), dev),
+                    upload(campos.astype(np.float32), dev),
                     self.lgt, res, self.bvh, self.perms, gen,
                     spp=self.FLAGS['spp'], num_layers=self.FLAGS['layers'],
                     msaa=True, background=None,

@@ -23,7 +23,7 @@ import numpy as np
 import torch
 
 from .. import tracing
-from ..device import resolve
+from ..device import constant, resolve
 from ..ops import bvh as bvh_mod
 from ..ops.vecmath import abs_pos0, maximum_split
 from ..render import mesh as mesh_mod
@@ -136,7 +136,7 @@ def _compact(valid, size, fill):
 def tet_index(sdf, indices):
     """Each tet's marching-tets case [Nt] (bit i: vertex i inside)."""
     occ = (sdf > 0).long()[indices.long()]                     # [Nt, 4]
-    w = torch.tensor([1, 2, 4, 8], device=sdf.device)
+    w = constant((1, 2, 4, 8), torch.int64, sdf.device)
     return (occ * w).sum(1)
 
 
@@ -161,7 +161,7 @@ def marching_tets(v_deformed, sdf, tet_idx, edge_uniq, edge_map, max_tris,
     e0, e1 = edge_uniq[:, 0], edge_uniq[:, 1]
     active_edge = occ[e0] != occ[e1]
     n_active = torch.sum(active_edge.long())
-    ntt = torch.as_tensor(NUM_TRIANGLES_TABLE, device=dev).long()
+    ntt = constant(NUM_TRIANGLES_TABLE, torch.int64, dev)
     n_tri = ntt[tetindex]
     flat_valid = torch.cat([n_tri >= 1, n_tri >= 2])           # [2 Nt]
     n_flat = torch.sum(flat_valid.long())
@@ -187,7 +187,7 @@ def marching_tets(v_deformed, sdf, tet_idx, edge_uniq, edge_map, max_tris,
     vmask = torch.arange(max_verts, device=dev) < n_active
     verts = torch.where(vmask[:, None], verts, (p0 + p1) * 0.5)
 
-    tt = torch.as_tensor(TRIANGLE_TABLE, device=dev).long()
+    tt = constant(TRIANGLE_TABLE, torch.int64, dev)
     local = tt[tetindex]                                       # [Nt, 6]
     gathered = torch.gather(edge_map, 1, torch.clamp(local, min=0))
     slot_faces = torch.cat([gathered[:, 0:3], gathered[:, 3:6]], dim=0)
@@ -213,9 +213,9 @@ def face_uvs(face_gidx, n_tets, uv_N):
     jj = tet % uv_N                        # chart column -> x
     base = torch.stack([jj.float() / uv_N, ii.float() / uv_N], dim=-1)
     pad = 0.9 / uv_N
-    offs = torch.tensor([[[0.0, 0.0], [pad, 0.0], [pad, pad]],
-                         [[0.0, 0.0], [pad, pad], [0.0, pad]]],
-                        dtype=torch.float32, device=g.device)
+    offs = constant((((0.0, 0.0), (pad, 0.0), (pad, pad)),
+                     ((0.0, 0.0), (pad, pad), (0.0, pad))),
+                    torch.float32, g.device)
     uv = base[:, None, :] + offs[tri]                          # [T, 3, 2]
     T = g.shape[0]
     return (uv.reshape(-1, 2),

@@ -6,6 +6,7 @@ encroached pixel toward its neighbor."""
 
 import torch
 
+from ..device import constant
 from .pallas_scatter import rows_gather_b
 from .vecmath import clip_split
 
@@ -53,10 +54,12 @@ def _pair_blend(color, tid, z, tri_xy, axis):
         qx, qy = px, py + 1.0
     px, py, qx, qy = (t.expand(idp.shape) for t in (px, py, qx, qy))
 
-    ax = V[..., [0, 1, 2], 0]
-    ay = V[..., [0, 1, 2], 1]
-    bx = V[..., [1, 2, 0], 0]
-    by = V[..., [1, 2, 0], 1]
+    a = constant((0, 1, 2), torch.int64, color.device)
+    b = constant((1, 2, 0), torch.int64, color.device)
+    ax = V[..., a, 0]
+    ay = V[..., a, 1]
+    bx = V[..., b, 0]
+    by = V[..., b, 1]
     ex = bx - ax
     ey = by - ay
     Fp = ex * (py[..., None] - ay) - ey * (px[..., None] - ax)

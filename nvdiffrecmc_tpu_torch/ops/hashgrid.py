@@ -30,7 +30,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ..device import resolve
+from ..device import constant, resolve
 from .pallas_scatter import rows_gather
 from .vecmath import clip_split
 
@@ -75,7 +75,7 @@ def _corner_rows(p0, res, T):
     """Rows [8, P] int64 into one level's block of T rows: corner c of the
     cell at p0 [P, 3] (int64, in [0, res]), clipped to the grid; dense
     when the (res+1)^3 corners fit T, hashed otherwise."""
-    bits = torch.tensor(_CORNER_BITS, dtype=torch.int64, device=p0.device)
+    bits = constant(_CORNER_BITS, torch.int64, p0.device)
     ic = torch.clamp(p0[None] + bits[:, None, :], 0, res)     # [8, P, 3]
     ix, iy, iz = ic[..., 0], ic[..., 1], ic[..., 2]
     if (res + 1) ** 3 <= T:
@@ -101,11 +101,11 @@ def encode_weights(x, cfg: HashEncodingConfig):
     """Trilinear weights [L, 8, P] of the corners of encode_rows:
     prod over d of w_d (corner bit 1) or 1 - w_d (bit 0), w = x r -
     floor(x r); differentiable in x."""
-    res = torch.tensor(level_scales(cfg), dtype=x.dtype, device=x.device)
+    res = constant(level_scales(cfg), x.dtype, x.device)
     p = x[None] * res[:, None, None]                           # [L, P, 3]
     w = p - torch.floor(p)
     pair = torch.stack([1.0 - w, w], dim=1)                    # [L, 2, P, 3]
-    bits = torch.tensor(_CORNER_BITS, device=x.device)         # [8, 3]
+    bits = constant(_CORNER_BITS, torch.int64, x.device)       # [8, 3]
     wx, wy, wz = (pair[..., d][:, bits[:, d]] for d in range(3))
     return wx * wy * wz
 

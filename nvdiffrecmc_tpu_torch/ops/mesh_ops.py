@@ -5,6 +5,7 @@ Scatter-adds use index_add_; invalid (masked) triangles contribute nothing."""
 import numpy as np
 import torch
 
+from ..device import constant
 from .vecmath import dot, maximum_split, safe_normalize
 
 
@@ -25,8 +26,7 @@ def auto_normals(v_pos, t_pos_idx, tri_mask=None):
     v_nrm = torch.zeros_like(v_pos)
     for i in range(3):
         v_nrm.index_add_(0, t[:, i], fn)
-    fallback = torch.tensor([0.0, 0.0, 1.0], dtype=v_pos.dtype,
-                            device=v_pos.device)
+    fallback = constant((0.0, 0.0, 1.0), v_pos.dtype, v_pos.device)
     v_nrm = torch.where(dot(v_nrm, v_nrm) > 1e-20, v_nrm, fallback)
     return safe_normalize(v_nrm)
 
@@ -63,8 +63,8 @@ def compute_tangents(v_pos, v_nrm, v_tex, t_pos_idx, t_nrm_idx, t_tex_idx,
     tangents = safe_normalize(tangents)
     tangents = safe_normalize(tangents - dot(tangents, v_nrm) * v_nrm)
     bad = dot(tangents, tangents) < 0.5
-    up = torch.tensor([0.0, 1.0, 0.001], dtype=v_nrm.dtype,
-                      device=v_nrm.device).expand_as(v_nrm)
+    up = constant((0.0, 1.0, 0.001), v_nrm.dtype,
+                  v_nrm.device).expand_as(v_nrm)
     fallback = safe_normalize(torch.linalg.cross(v_nrm, up))
     return torch.where(bad, fallback, tangents)
 

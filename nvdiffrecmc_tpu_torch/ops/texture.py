@@ -11,6 +11,7 @@ gradient; gradients flow through the blend weights and the texels."""
 import numpy as np
 import torch
 
+from ..device import constant
 from .pallas_scatter import rows_gather
 from .vecmath import bilinear_at
 
@@ -131,8 +132,8 @@ def texture_sample(mips, uv, uv_da=None, filter_mode='linear-mipmap-linear',
 
     flat, sizes, offsets = _pack_mips(mips)
     dev = uv.device
-    sizes_t = torch.as_tensor(sizes, device=dev)
-    offsets_t = torch.as_tensor(offsets, device=dev)
+    sizes_t = constant(sizes, torch.int64, dev)
+    offsets_t = constant(offsets, torch.int64, dev)
     L = flat.shape[1]
     bbase = (torch.arange(n, device=dev) * L)[:, None, None]
     x, y = uv[..., 0], uv[..., 1]

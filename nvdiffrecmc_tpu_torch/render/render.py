@@ -13,6 +13,7 @@ bakes a neural material into textures at the pass boundary."""
 import torch
 
 from .. import tracing
+from ..device import constant
 from ..ops import envshade
 from ..ops import mesh_ops
 from ..ops import rasterizer as ras
@@ -64,8 +65,8 @@ def shade_pre(FLAGS, rast, gb_depth, gb_pos, gb_geometric_normal, gb_normal,
         all_tex_jitter, all_tex = torch.chunk(both, 2, dim=0)
         kd, ks = all_tex[..., 0:3], all_tex[..., 3:6]
         kd_grad = abs_pos0(all_tex_jitter[..., 0:3] - kd)
-        ks_grad = abs_pos0(all_tex_jitter[..., 3:6] - ks) * torch.tensor(
-            [0., 1., 1.], device=dev)
+        ks_grad = abs_pos0(all_tex_jitter[..., 3:6] - ks) * constant(
+            (0., 1., 1.), torch.float32, dev)
     else:
         tex_keys = ['kd', 'ks'] + (['normal'] if 'normal' in material
                                    else [])
@@ -100,7 +101,7 @@ def shade_pre(FLAGS, rast, gb_depth, gb_pos, gb_geometric_normal, gb_normal,
     if not mlp_material:
         kd_jitter = next(taps)
         ks_jitter = next(taps)
-        ks_sel = torch.tensor([0., 1., 1.], device=dev)
+        ks_sel = constant((0., 1., 1.), torch.float32, dev)
         kd_grad = abs_pos0(kd_jitter[..., 0:3] - kd[..., 0:3]) * grad_weight
         ks_grad = abs_pos0(ks_jitter - ks) * ks_sel * grad_weight
 

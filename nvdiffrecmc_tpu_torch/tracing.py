@@ -5,7 +5,7 @@ Spans and counters are off unless a recording is open:
 
     with tracing.recording() as rec:
         ...                      # train steps, renders
-    rec.counters                 # {'shadow_rays': n}, read once at the end
+    rec.counters                 # {'shadow_rays': n, 'host_syncs': k}
 
 Off, `span(name)` returns one shared no-op context after a single flag
 test and `count` returns before touching its tensor.  On, each span is a
@@ -36,12 +36,20 @@ under `dataset.target` in a target render, `geometry.marching_tets` and
 Counters:
   shadow_rays  env_shade's covered pixels times n_samples_x^2, in the
                fused path and in the stratum loop
+  host_syncs   (with CUDA) the times the host blocked on the card: each
+               synchronizing call that torch.cuda.set_sync_debug_mode
+               ('warn') reports, counted on the host as it is reported
+               (the warnings of autograd's backward at its end); the
+               recording sets that mode and restores the one it found.
+               A sync inside a `warnings.catch_warnings` that records or
+               ignores warnings is not counted.
 
 LAUNCHES is the launch count of each kernel: its wrapper adds one where
 it launches the kernel and nowhere else (counted whether or not a
 recording is open); `kernels.LAUNCHES` is the same dict."""
 
 import contextlib
+import warnings
 
 import torch
 
@@ -58,6 +66,7 @@ LAUNCHES = {'resolve': 0, 'sample_guide': 0, 'sample': 0, 'trace_shade': 0,
 
 _OFF = contextlib.nullcontext()
 _active = None      # the open Recording, or None
+_SYNC_WARNING = 'called a synchronizing CUDA operation'
 
 
 def reset_launches():
@@ -97,10 +106,38 @@ def recording():
         raise RuntimeError('a tracing recording is already open')
     rec = _active = Recording()
     try:
-        yield rec
+        with _syncs_counted(rec.counters):
+            yield rec
     finally:
         _active = None
         rec._read()
+
+
+@contextlib.contextmanager
+def _syncs_counted(counters):
+    """counters['host_syncs'] counts the synchronizing calls that CUDA's
+    sync debug mode reports within the block; without CUDA, nothing."""
+    if not torch.cuda.is_available():
+        yield
+        return
+    counters['host_syncs'] = 0
+    shown = warnings.showwarning
+
+    def show(message, category, filename, lineno, file=None, line=None):
+        if _SYNC_WARNING in str(message):
+            counters['host_syncs'] += 1
+        else:
+            shown(message, category, filename, lineno, file, line)
+
+    mode = torch.cuda.get_sync_debug_mode()
+    with warnings.catch_warnings():
+        warnings.filterwarnings('always', message=_SYNC_WARNING)
+        warnings.showwarning = show
+        torch.cuda.set_sync_debug_mode('warn')
+        try:
+            yield
+        finally:
+            torch.cuda.set_sync_debug_mode(mode)
 
 
 def span(name, args=None):

@@ -36,7 +36,7 @@ import torch
 from . import config, kernels, tracing
 from .dataset import BatchIterator, DatasetLLFF, DatasetMesh, DatasetNERF
 from .dataset.dataset_mesh import load_env_or_procedural
-from .device import resolve
+from .device import resolve, upload
 from .geometry import DLMesh, DMTetGeometry
 from .geometry.dmtet import ramps
 from .ops import bvh as bvh_mod
@@ -99,8 +99,8 @@ def prepare_batch(target, train_res, bg_type, generator, FLAGS):
             dim=-1)
         out['background'] = background
         out['resolution'] = tuple(train_res)
-        out['mvp'] = torch.as_tensor(target['mvp'], device=dev)
-        out['campos'] = torch.as_tensor(target['campos'], device=dev)
+        out['mvp'] = upload(target['mvp'], dev)
+        out['campos'] = upload(target['campos'], dev)
         return out
 
 
