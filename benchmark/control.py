@@ -13,8 +13,10 @@ readings), and with --faults the faults a training cell can have,
 planted in the reference: 'half_batch' (each
 step on the first half of its batch, the mean over that half),
 'double_grad' (the material's first leaf's gradient doubled where the
-step produces it).  A step that leaves the state unchanged reads 1 by
-change_gap's measure and needs no run."""
+step produces it: a texture, or the hash-grid table) and, on a 'dmtet'
+path, 'double_mlp_grad' (the MLP's first weight's gradient doubled).  A
+step that leaves the state unchanged reads 1 by change_gap's measure
+and needs no run."""
 
 import argparse
 import json
@@ -54,7 +56,7 @@ def readings(spec, seed, device, faults=False, overrides=None,
             detail)
         out['control_tf32_detail'] = detail
     if faults:
-        for f in step.FAULTS:
+        for f in step.faults(spec['traffic']['path']):
             out[f] = numbers.gaps(
                 follow.follow(spec, seed, device, n, overrides, fault=f), ref)
     return out

@@ -9,11 +9,12 @@ reference (reference/step.py) builds its own state from the same inputs
 of harness.inputs, made from the seed, and draws its data order,
 cameras, backgrounds and Monte-Carlo samples from the same seeds.
 
-The traffic mix selects one of a fixed set of paths, each with its
-targets: 'dlmesh' (pass 2 on a mesh) on 'mesh_render' (the reference mesh
-rendered by the package's DatasetMesh at random views, also the base
-mesh), 'dmtet' (pass 1: DMTet and the hash-grid material) on 'images' (a
-NeRF folder, DatasetNERF)."""
+The traffic mix selects a path and its targets from a fixed set: the
+path 'dlmesh' (pass 2 on a mesh, the reference mesh as its base) on the
+targets 'mesh_render' (the reference mesh rendered by the package's
+DatasetMesh at random views), the path 'dmtet' (pass 1: DMTet and the
+hash-grid material) on 'mesh_render' or on 'images' (a NeRF folder,
+DatasetNERF)."""
 
 import json
 import os
@@ -27,7 +28,8 @@ from . import inputs
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 BENCH_DIR = os.path.join(ROOT, 'benchmark')
-PATHS = (('dlmesh', 'mesh_render'), ('dmtet', 'images'))
+PATHS = (('dlmesh', 'mesh_render'), ('dmtet', 'mesh_render'),
+         ('dmtet', 'images'))
 CAM_RADIUS = 3.0    # train.RADIUS: DatasetMesh's camera distance
 SEED_MASK = 0xFFFFFFFF
 

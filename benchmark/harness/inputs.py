@@ -51,13 +51,28 @@ def textures(flags, gen, device):
     return {'kd': kd, 'ks': ks, 'normal': nrm}
 
 
+# The RMS of each level's table rows after 500 iterations of upstream
+# spot.json's pass 1 on spot256 (the program's train.main, lr 0.03, on an
+# H100): over the rows a level reads, (res + 1)^3 where that fits its
+# 2^19 rows, all of them where it hashes.  The levels differ by 2.7x, so
+# each is drawn at its own scale; tcnn's U(-1e-4, 1e-4) start leaves the
+# MLP's products too small for a precision a step below float32 to show.
+# A second witness, 500 steps from this cell's own sphere start with the
+# table at tcnn's init, reads 0.16-0.35 a level, 0.71-2.08x these.  Both
+# runs overflow marching tets' 24 r^2 slots, so neither is a clean run.
+TABLE_RMS = (0.33, 0.26, 0.21, 0.17, 0.12, 0.12, 0.13, 0.15, 0.17, 0.19,
+             0.21, 0.22, 0.21, 0.22, 0.22, 0.21)
+
+
 def hashgrid_mlp(gen, device):
-    """The hash-grid table [16 * 2^19, 2], U(-1e-4, 1e-4) as tcnn inits
-    it, and the MLP's weights w0 [32, 32], w1 [32, 32], w2 [32, 6], each
+    """The hash-grid table [16 * 2^19, 2], level l's rows U(-a, a) with
+    a = sqrt(3) TABLE_RMS[l] (a trained table's scale), and the MLP's
+    weights w0 [32, 32], w1 [32, 32], w2 [32, 6], each
     U(-sqrt(6 / fan_in), sqrt(6 / fan_in))."""
-    rows = HASH_LEVELS << HASH_LOG2_ROWS
-    out = {'table': _uniform((rows, HASH_FEATURES), -1e-4, 1e-4, gen,
-                             device)}
+    a = math.sqrt(3.0) * torch.tensor(TABLE_RMS, device=device)
+    table = _uniform((HASH_LEVELS, 1 << HASH_LOG2_ROWS, HASH_FEATURES),
+                     -1.0, 1.0, gen, device) * a[:, None, None]
+    out = {'table': table.reshape(-1, HASH_FEATURES)}
     dims = ([HASH_LEVELS * HASH_FEATURES] + [MLP_WIDTH] * MLP_HIDDEN
             + [MLP_OUT])
     for i in range(len(dims) - 1):

@@ -10,12 +10,13 @@ launch share the profiler's correlation id, and the launch may come from
 any thread (autograd launches the backward's kernels from its own worker
 thread, outside the tree of the span `train.backward` on the main
 thread).  Kernels are what profile.read counts as kernels (no copies,
-sets or mirrors of annotations), clipped to the 'window' span.
+sets or mirrors of annotations), clipped to the 'window' span.  Without
+CUDA the profile holds no kernels, and nothing is read.
 
 `read(prof, names)` -> {by_path {'a/b/c': [us, launches, {kernel: us}]},
 kernel_us, outside_us}, where a path lists the program spans around a
 launch, outermost first ('' for none); `inside` sums the paths through
-one span; `metrics` and `notes` give what the result line would carry.
+one span; `metrics` and `notes` give what the result line carries.
 A kernel whose launch the profile does not hold counts as outside."""
 
 import torch
@@ -98,10 +99,18 @@ PHASES = (('forward_ms_per_step', 'train.forward'),
           ('targets_ms_per_step', 'dataset.target'))
 
 
+# the harness's own host syncs a step: the host read of the two losses
+# (the sync after a traced fetch is no synchronizing call the debug mode
+# reports)
+HARNESS_SYNCS = 2
+
+
 def metrics(r, steps, counters):
-    """The phase metrics (device ms a step inside each phase's span) and
+    """The phase metrics (device ms a step inside each phase's span),
     shade_ns_per_ray (device ns inside every render.shade over the
-    shadow rays counted); None where the window holds nothing to read."""
+    shadow rays counted) and host_syncs_per_step (the counter over the
+    steps, less the harness's own); None where the window holds nothing
+    to read."""
     out = {}
     for metric, span in PHASES:
         us, n = inside(r, span)
@@ -109,6 +118,9 @@ def metrics(r, steps, counters):
     us, n = inside(r, 'render.shade')
     rays = counters.get('shadow_rays', 0)
     out['shade_ns_per_ray'] = us * 1e3 / rays if n and rays else None
+    syncs = counters.get('host_syncs')
+    out['host_syncs_per_step'] = (None if syncs is None
+                                  else syncs / steps - HARNESS_SYNCS)
     return out
 
 

@@ -28,7 +28,13 @@ ADAM_EPS = 1e-8
 LIGHT_GRAD_SCALE = 64.0          # upstream's light gradient scale
 TABLE_GRAD_SCALE = 128.0 / 8.0   # tcnn's loss scale over its encoder's
 LIGHT_MIN = 0.01
-FAULTS = ('half_batch', 'double_grad')
+FAULTS = ('half_batch', 'double_grad', 'double_mlp_grad')
+
+
+def faults(path):
+    """The FAULTS a step on `path` can have: 'double_mlp_grad' (the
+    MLP's first weight) needs the neural material of 'dmtet'."""
+    return FAULTS if path == 'dmtet' else FAULTS[:2]
 
 
 def _srgb(x):
@@ -162,16 +168,18 @@ def _slice(target, i, n):
 class Reference:
     """One cell's state from the seed and its steps.  plain: the frozen
     package; overrides: flags over the configuration's (the CPU tests'
-    small sizes); fault: None, or one of FAULTS planted in the step."""
+    small sizes); fault: None, or one of faults(path) planted in the
+    step.  The dataset follows the traffic's targets, the geometry and
+    material its path."""
 
     def __init__(self, plain, spec, seed, device, overrides=None,
                  fault=None):
-        if fault not in (None,) + FAULTS:
-            raise ValueError('unknown fault %r' % fault)
-        self.plain, self.fault = plain, fault
-        self.device = dev = torch.device(device)
         traffic = spec['traffic']
         self.path = traffic['path']
+        if fault not in (None,) + faults(self.path):
+            raise ValueError('fault %r on path %s' % (fault, self.path))
+        self.plain, self.fault = plain, fault
+        self.device = dev = torch.device(device)
         F = plain.config.make_flags(**dict(
             spec['config']['flags'], data_root=cell.ROOT,
             **(overrides or {})))
@@ -182,10 +190,16 @@ class Reference:
         mn = {k: torch.tensor(F[k], dtype=torch.float32, device=dev)
               for k in ('kd_min', 'kd_max', 'ks_min', 'ks_max', 'nrm_min',
                         'nrm_max')}
-        if self.path == 'dlmesh':
+        if traffic['targets'] == 'mesh_render':
             scene = plain.dataset.dataset_mesh.spot256_scene(dev)
             self.dataset = plain.dataset.DatasetMesh(
                 scene, cell.CAM_RADIUS, F, seed=order_seed)
+        else:
+            self.dataset = plain.dataset.DatasetNERF(
+                '%s/%s/transforms_train.json' % (cell.ROOT,
+                                                 spec['config']['scene']),
+                F, examples=(F['iter'] + 1) * F['batch'], device=dev)
+        if self.path == 'dlmesh':
             self.base = self.dataset.ref_mesh
             tex = inputs.textures(F, gin, dev)
             geo = {'v_pos': _leaf(self.base.v_pos)}
@@ -196,10 +210,6 @@ class Reference:
             pass_idx, warmup = traffic['pass_idx'], traffic['warmup_iter']
             self.locked = {'geo': F['lock_pos'], 'light': F['lock_light']}
         else:
-            self.dataset = plain.dataset.DatasetNERF(
-                '%s/%s/transforms_train.json' % (cell.ROOT,
-                                                 spec['config']['scene']),
-                F, examples=(F['iter'] + 1) * F['batch'], device=dev)
             self.grid, self.tets = geometry.kuhn_grid(
                 F['dmtet_grid'], F['mesh_scale'], dev)
             self.edges = geometry.unique_edges(self.tets,
@@ -347,6 +357,8 @@ class Reference:
                     v.grad.div_(n)
             if self.fault == 'double_grad':
                 self._group('mat')[0].grad.mul_(2.0)
+            elif self.fault == 'double_mlp_grad':
+                self.params['mat']['w0'].grad.mul_(2.0)
             self._conventions()
             for g, opt in self.opts.items():
                 if not self.locked.get(g, False):

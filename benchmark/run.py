@@ -12,7 +12,10 @@ per-layer metric is benchmark/metrics/<metric>.py.
 A run builds the cell's state from the seed, drives its first steps
 (which compile, build and warm every shape; the reference is held to
 them), and measures: with --trace 0 every step that starts within
---seconds, with --trace 1 the traffic's trace_steps under torch.profiler.
+--seconds, with --trace 1 the traffic's trace_steps under torch.profiler,
+then as many again inside the program's own tracing.recording(), whose
+spans and counters harness/program.py reads (the first pass's readings
+carry none of the recording's own work).
 Once the window has closed and the program's state is freed, the plain
 reference (benchmark/reference/) follows the same first steps from the
 same inputs, and the run is `correct` when each number of
@@ -40,7 +43,7 @@ sys.path[:0] = [BENCH, os.path.dirname(BENCH)]   # the harness, the program
 
 import torch  # noqa: E402
 
-from harness import cell, numbers, profile, timing  # noqa: E402
+from harness import cell, numbers, profile, program, timing  # noqa: E402
 from reference import follow  # noqa: E402
 
 FORBIDDEN = frozenset(('jax', 'jaxlib', 'flax', 'nvdiffrecmc_tpu'))
@@ -77,32 +80,56 @@ def window(run, seconds, device):
     return steps, fetches, losses, time.perf_counter() - w0
 
 
+def _profiler(device):
+    from torch.profiler import ProfilerActivity, profile as tprofile
+    return tprofile(activities=[ProfilerActivity.CPU] + (
+        [ProfilerActivity.CUDA] if device.type == 'cuda' else []))
+
+
+def _traced_steps(run, n, device, fetches, losses):
+    """n steps, each inside the 'window' span, the fetch ended by a
+    sync."""
+    for _ in range(n):
+        with torch.profiler.record_function(profile.WINDOW):
+            t0 = time.perf_counter()
+            target = run.fetch()
+            if device.type == 'cuda':
+                torch.cuda.synchronize(device)
+            fetches.append(time.perf_counter() - t0)
+            il, rl = run.train_step(target)
+            losses.append(il + rl)
+
+
 def traced_window(run, spans, n, device):
     """n steps under torch.profiler, each inside the 'window' span, the
     fetch ended by a sync."""
-    from torch.profiler import ProfilerActivity, profile as tprofile
-    cuda = device.type == 'cuda'
-    if cuda:
+    if device.type == 'cuda':
         torch.cuda.reset_peak_memory_stats(device)
     spans.meshes.clear()
     fetches, losses = [], []
     launches = dict(run.pkg.kernels.LAUNCHES)
     w0 = time.perf_counter()
     with spans.patched(run.pkg.ops.envshade, 'env_shade'), \
-            tprofile(activities=[ProfilerActivity.CPU]
-                     + ([ProfilerActivity.CUDA] if cuda else [])) as prof:
-        for _ in range(n):
-            with torch.profiler.record_function(profile.WINDOW):
-                t0 = time.perf_counter()
-                target = run.fetch()
-                if cuda:
-                    torch.cuda.synchronize(device)
-                fetches.append(time.perf_counter() - t0)
-                il, rl = run.train_step(target)
-                losses.append(il + rl)
+            _profiler(device) as prof:
+        _traced_steps(run, n, device, fetches, losses)
     spans.port_launches = {k: (v - launches[k]) / n for k, v in
                            run.pkg.kernels.LAUNCHES.items() if v > launches[k]}
     return prof, fetches, losses, time.perf_counter() - w0
+
+
+def program_window(run, spans, n, device):
+    """n more steps as traced_window takes them, inside the program's
+    tracing.recording(): (the program's kernels by its spans, its
+    counters, losses).  The meshes the steps make are not the first
+    pass's, and are not kept."""
+    kept = len(spans.meshes)
+    losses = []
+    with _profiler(device) as prof:
+        with run.pkg.tracing.recording() as rec:
+            _traced_steps(run, n, device, [], losses)
+    del spans.meshes[kept:]
+    return (program.read(prof, run.pkg.tracing.SPANS),
+            rec.counters, losses)
 
 
 def per_layer(spec, ctx):
@@ -173,20 +200,26 @@ def run_cell(spec, seed, seconds, trace, device, overrides=None):
         if trace:
             prof, fetches, losses, wall = traced_window(
                 run, spans, traffic['trace_steps'], device)
+            peak = torch.cuda.max_memory_allocated(device) if cuda else 0
+            spans_read, counters, more = program_window(
+                run, spans, traffic['trace_steps'], device)
         else:
             steps, fetches, losses, wall = window(run, seconds, device)
+            peak = torch.cuda.max_memory_allocated(device) if cuda else 0
     finally:
         torch.set_num_threads(threads)
         gc.unfreeze()
-    peak = torch.cuda.max_memory_allocated(device) if cuda else 0
-    failed = sum(1 for x in losses if not math.isfinite(x))
     notes = {}
     if trace:
-        ctx = dict(steps=len(losses), batch=batch, fetch_s=fetches,
+        ctx = dict(steps=len(fetches), batch=batch, fetch_s=fetches,
                    trace=profile.read(prof), spans=spans,
-                   plain=follow.plain(), notes=notes)
+                   plain=follow.plain(), notes=notes,
+                   program=program.metrics(spans_read, len(more), counters))
         metrics = per_layer(spec, ctx)
         notes['port_launches_per_step'] = spans.port_launches
+        notes.update(program.notes(spans_read, len(more)),
+                     program_counters=counters)
+        losses += more
         t = ctx['trace']
         busy = t['busy_us'] / 1e6
         by_name = {}
@@ -207,6 +240,7 @@ def run_cell(spec, seed, seconds, trace, device, overrides=None):
         metrics = {m['name']: {'value': values[m['name']], 'unit': m['unit']}
                    for m in cell_metrics(spec, 'end_to_end')}
         notes['step_s'] = steps
+    failed = sum(1 for x in losses if not math.isfinite(x))
     del run
     gc.collect()
     if cuda:

@@ -96,10 +96,11 @@ def test_kernels_belong_to_the_span_around_their_launch():
     assert r['kernel_us'] == 19 and r['outside_us'] == 2
     assert program.inside(r, 'train.forward') == (8, 1)
     assert program.inside(r, 'train.step') == (17, 3)
-    m = program.metrics(r, 1, {'shadow_rays': 4000})
+    m = program.metrics(r, 1, {'shadow_rays': 4000, 'host_syncs': 5})
     assert m == {'forward_ms_per_step': 8e-3, 'backward_ms_per_step': 5e-3,
                  'optimizer_ms_per_step': 4e-3, 'targets_ms_per_step': None,
-                 'shade_ns_per_ray': pytest.approx(2.0)}
+                 'shade_ns_per_ray': pytest.approx(2.0),
+                 'host_syncs_per_step': 5 - program.HARNESS_SYNCS}
     n = program.notes(r, 2)
     assert n['program_spans']['train.step'] == [17e-3 / 2, 1.5, []]
     assert n['program_spans']['train.step/train.backward'] == [

@@ -124,3 +124,50 @@ def test_adam_follows_pytorchs():
             grp['lr'] = 0.03 * step.schedule(500 + i, 0.001, 0)
         theirs.step()
     assert torch.allclose(a, b, rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize('device', ['cpu', 'meta'])
+def test_control_rounds_every_product_on_any_device(device):
+    """Under the control a product takes its operands rounded to TF32, on
+    the CUDA card as on the CPU: the mode does not ask for the device.
+    On the CPU the values are checked: the output, and the gradients,
+    whose backward products take the output's gradient rounded too."""
+    g = torch.Generator().manual_seed(4)
+    x0, w0 = torch.randn((5, 7), generator=g), torch.randn((7, 3),
+                                                          generator=g)
+    x = x0.to(device).requires_grad_()
+    w = w0.to(device).requires_grad_()
+    with follow.precision(True):
+        y = x @ w
+        z = torch.nn.functional.linear(x, w.t())
+    assert type(y.grad_fn).__name__ == '_OutputBackward'
+    assert {type(f[0]).__name__ for f in y.grad_fn.next_functions[0][0]
+            .next_functions} == {'_OperandBackward'}
+    if device == 'meta':
+        return
+    xr, wr = follow._round(x0), follow._round(w0)
+    assert not torch.equal(xr, x0)
+    assert torch.equal(y, xr @ wr)
+    assert torch.equal(z, torch.nn.functional.linear(
+        xr, wr.t().contiguous()))
+    (y * y).sum().backward()
+    gy = follow._round(2 * (xr @ wr))
+    assert torch.equal(w.grad, xr.t() @ gy)
+    assert torch.equal(x.grad, gy @ wr.t())
+    with follow.precision(False):
+        assert torch.equal(x0 @ w0, torch.mm(x0, w0))
+        assert not torch.equal(x0 @ w0, y.detach())
+
+
+def test_hashgrid_table_has_the_trained_rms():
+    from harness import inputs
+    nn = inputs.hashgrid_mlp(inputs.generator(2 ** 31 + 5, 'cpu'), 'cpu')
+    t = nn['table'].view(inputs.HASH_LEVELS, -1, inputs.HASH_FEATURES)
+    rms = t.double().pow(2).mean((1, 2)).sqrt()
+    assert torch.allclose(rms, torch.tensor(inputs.TABLE_RMS,
+                                            dtype=torch.float64),
+                          rtol=2e-3, atol=0)
+    lim = torch.tensor(inputs.TABLE_RMS).double() * 3 ** 0.5
+    assert (t.abs().amax((1, 2)).double() <= lim * (1 + 1e-6)).all()
+    for i, (k, fan_in) in enumerate((('w0', 32), ('w1', 32), ('w2', 32))):
+        assert float(nn[k].abs().max()) <= (6 / fan_in) ** 0.5

@@ -16,7 +16,7 @@ import control
 import run
 from harness import cell, numbers, profile, roofline
 from metrics import glue_ms_per_step
-from reference import follow
+from reference import follow, step
 
 SMALL = dict(train_res=[16, 16], texture_res=[16, 16], batch=2, n_samples=2,
              probe_res=16)
@@ -48,35 +48,62 @@ def _spec(w='spot.pass2'):
     return cell.load_spec(w, bench)
 
 
-def test_result_line_untraced():
-    out = run.run_cell(_spec(), SEED, 0.5, False, CPU, SMALL)
+def _small(w):
+    return dict(SMALL, dmtet_grid=8) if _spec(w)['traffic']['path'] == \
+        'dmtet' else SMALL
+
+
+@pytest.mark.parametrize('w', ['spot.pass2', 'spot.pass1'])
+def test_result_line_untraced(w):
+    spec = _spec(w)
+    out = run.run_cell(spec, SEED, 0.5, False, CPU, _small(w))
     keys = list(out)
     assert keys[:5] == ['correct', 'attempted', 'failed', 'metrics',
                         'device']
     assert 'breakdown' not in out and keys[-1] == 'checks'
-    assert set(out['metrics']) == {'setup_s', 'train_images_per_s',
-                                   'step_ms_p95', 'peak_mem_gib'}
+    assert set(out['metrics']) == {
+        m['name'] for m in run.cell_metrics(spec, 'end_to_end')}
+    assert {'setup_s', 'train_images_per_s', 'peak_mem_gib'} <= \
+        set(out['metrics'])
     assert out['correct'] and out['attempted'] >= 1 and out['failed'] == 0
-    assert set(out['checks']) == set(_spec()['limits'])
+    assert set(out['checks']) == set(spec['limits'])
     assert all(c['value'] <= c['limit'] / 5 for c in out['checks'].values())
     json.dumps(out)
 
 
-@pytest.mark.parametrize('w', ['spot.pass2', 'nerf_g128.pass1'])
+# the program's spans and counters, read from the second traced pass
+PROGRAM_METRICS = ('forward_ms_per_step', 'backward_ms_per_step',
+                   'optimizer_ms_per_step', 'targets_ms_per_step',
+                   'shade_ns_per_ray', 'host_syncs_per_step')
+
+
+@pytest.mark.parametrize('w', ['spot.pass2', 'spot.pass1', 'nerf_g128.pass1'])
 def test_result_line_traced(w):
-    small = dict(SMALL, dmtet_grid=8) if 'nerf' in w else SMALL
     spec = _spec(w)
     spec['traffic'] = dict(spec['traffic'], trace_steps=1)
-    out = run.run_cell(spec, SEED, 0.5, True, CPU, small)
+    out = run.run_cell(spec, SEED, 0.5, True, CPU, _small(w))
     assert list(out)[:6] == ['correct', 'attempted', 'failed', 'metrics',
                              'device', 'breakdown']
     assert set(out['breakdown']) == {'device_ops', 'idle_gaps'}
     assert {'busy_s', 'window_s'} <= set(out['device'])
-    assert out['correct']
+    assert out['correct'] and out['attempted'] == 2
     names = {m['name'] for m in run.cell_metrics(spec, 'per_layer')}
     assert set(out['metrics']) <= names
     if 'nerf' in w:
         assert out['metrics']['surface_tris']['value'] > 0
+    else:
+        # without CUDA the program's spans hold no kernels and there is no
+        # sync counter: each reader is wired to its key of ctx['program'],
+        # and finds nothing to read here
+        names = {m['name'] for m in run.cell_metrics(spec, 'per_layer')
+                 if m['source'].startswith('program_')}
+        assert names == set(PROGRAM_METRICS)
+        assert not names & set(out['metrics'])
+        for name in PROGRAM_METRICS:
+            mod = __import__('metrics.' + name, fromlist=['read'])
+            assert mod.read(dict(program={name: 1.5})) == 1.5
+        assert 'shadow_rays' in out['notes']['program_counters']
+        assert out['notes']['program_spans'] == {}
 
 
 @contextlib.contextmanager
@@ -102,6 +129,19 @@ def _half(train, keep):
     return step
 
 
+def _no_update(train, keep):
+    """Adam takes the step, then the parameters are put back."""
+    def step(g, p, *a, **kw):
+        before = [(v, v.detach().clone()) for k in ('geo', 'mat', 'light')
+                  for _, v in cell._leaves(p[k], k)]
+        out = keep(g, p, *a, **kw)
+        with torch.no_grad():
+            for v, b in before:
+                v.copy_(b)
+        return out
+    return step
+
+
 def _altered(train, keep):
     def step(*a, **kw):
         il, rl = keep(*a, **kw)
@@ -109,20 +149,42 @@ def _altered(train, keep):
     return step
 
 
-@pytest.mark.parametrize('fault', [_unchanged, _half, _altered])
-def test_faults_of_the_timed_path_are_not_correct(fault):
+@pytest.mark.parametrize('w', ['spot.pass2', 'spot.pass1'])
+@pytest.mark.parametrize('fault', [_unchanged, _no_update, _half,
+                                   _altered])
+def test_faults_of_the_timed_path_are_not_correct(fault, w):
     with _fault(fault):
-        out = run.run_cell(_spec(), SEED, 0.2, False, CPU, SMALL)
+        out = run.run_cell(_spec(w), SEED, 0.2, False, CPU, _small(w))
     assert not out['correct']
 
 
-def test_control_fails_the_limits():
-    spec = _spec()
-    got = control.readings(spec, SEED, CPU, faults=True, overrides=SMALL)
+@pytest.mark.parametrize('w', ['spot.pass2', 'spot.pass1'])
+def test_control_fails_the_limits(w):
+    spec = _spec(w)
+    got = control.readings(spec, SEED, CPU, faults=True, overrides=_small(w))
     got.pop('control_tf32_detail')
+    assert set(got) == {'control_tf32'} | set(
+        step.faults(spec['traffic']['path']))
     for name, gaps in got.items():
         ok, _ = numbers.verdict(gaps, spec['limits'])
         assert not ok, (name, gaps)
+
+
+def test_mlp_fault_doubles_the_first_weights_gradient():
+    spec = _spec('spot.pass1')
+    small = _small('spot.pass1')
+    ref = follow.follow(spec, SEED, CPU, 1, small)
+    bad = follow.follow(spec, SEED, CPU, 1, small, fault='double_mlp_grad')
+    assert bad['grads']['mat.w0'] == pytest.approx(2 * ref['grads']['mat.w0'],
+                                                   rel=1e-6)
+    assert bad['grads']['mat.w0'] > 0
+    assert {k: v for k, v in bad['grads'].items() if k != 'mat.w0'} == \
+        {k: v for k, v in ref['grads'].items() if k != 'mat.w0'}
+    detail = {}
+    assert numbers.gaps(bad, ref, detail)['grad_gap'] > 0
+    assert detail['grad_leaf'] == 'mat.w0'
+    with pytest.raises(ValueError):
+        follow.follow(_spec(), SEED, CPU, 1, SMALL, fault='double_mlp_grad')
 
 
 def test_numbers_hand_made():
